@@ -1,0 +1,142 @@
+"""Reference .pt checkpoints into the port, and the JAX weights carried over.
+
+The port's modules use the reference state_dict keys (timm ViT names plus the
+wrapper heads of artgraph_tpu/checkpointing/torch_interop.py `_MODEL_SPECS`),
+so a reference .pt loads with `load_state_dict(strict=True)` and no key map.
+
+`state_dict_from_flax` turns the JAX package's variables (a nested dict of
+arrays) into that state_dict: Linear kernels [in, out] -> [out, in], convs
+HWIO -> OIHW. It is numpy-only and re-states the ViT half of
+artgraph_tpu.checkpointing.torch_interop.export_model_state, which the port
+cannot import (that package pulls in jax); tests/test_torch_predict.py holds
+the two equal key for key.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from artgraph_tpu_torch.models import heads
+from artgraph_tpu_torch.models.heads import TIMM_HEAD_CLASSES, VIT_DIM
+
+# model name -> {flax head: torch prefix of its Sequential(Dropout, Linear)}
+_HEADS = {
+    "ViTSingleTask": {"head": "vit.head"},
+    "ViTMultiTask": {"style_classifier": "style_classifier",
+                     "genre_classifier": "genre_classifier"},
+    "NewMultiModalSingleTaskVit": {"classifier": "classifier"},
+    "NewMultiModalMultiTaskViT": {"class_style": "class_style",
+                                  "class_genre": "class_genre"},
+}
+MODEL_NAMES = tuple(_HEADS)
+
+
+def _f32(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+
+
+def _linear(k) -> np.ndarray:    # flax [in, out] -> torch [out, in]
+    return _f32(k).T.copy()
+
+
+def _conv(k) -> np.ndarray:      # flax HWIO -> torch OIHW
+    return np.ascontiguousarray(_f32(k).transpose(3, 2, 0, 1))
+
+
+def vit_state_from_flax(params: dict, prefix: str = "vit"
+                        ) -> dict[str, np.ndarray]:
+    """A flax `ViT`'s params -> timm-keyed state_dict entries under prefix.
+
+    Depth is read from the params (`block0`, `block1`, ...), so trunks of any
+    size convert; an empty prefix gives bare timm keys.
+    """
+    pre = f"{prefix}." if prefix else ""
+    out = {
+        f"{pre}patch_embed.proj.weight":
+            _conv(params["patch_embed"]["kernel"]),
+        f"{pre}patch_embed.proj.bias": _f32(params["patch_embed"]["bias"]),
+        f"{pre}cls_token": _f32(params["cls_token"]),
+        f"{pre}pos_embed": _f32(params["pos_embed"]),
+        f"{pre}norm.weight": _f32(params["norm"]["scale"]),
+        f"{pre}norm.bias": _f32(params["norm"]["bias"]),
+    }
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        blk, b = params[f"block{i}"], f"{pre}blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            out[f"{b}.{norm}.weight"] = _f32(blk[norm]["scale"])
+            out[f"{b}.{norm}.bias"] = _f32(blk[norm]["bias"])
+        for mod, dense in (("attn", "qkv"), ("attn", "proj"),
+                           ("mlp", "fc1"), ("mlp", "fc2")):
+            out[f"{b}.{mod}.{dense}.weight"] = _linear(
+                blk[mod][dense]["kernel"])
+            out[f"{b}.{mod}.{dense}.bias"] = _f32(blk[mod][dense]["bias"])
+    return out
+
+
+def state_dict_from_flax(model_name: str, variables: dict
+                         ) -> dict[str, np.ndarray]:
+    """JAX variables {'params': ...} of one of MODEL_NAMES -> reference
+    state_dict (numpy), the same key set and values as the JAX package's
+    export_model_state."""
+    if model_name not in _HEADS:
+        raise ValueError(f"unsupported model {model_name!r}; the port has "
+                         f"{MODEL_NAMES}")
+    params = variables["params"]
+    sd = vit_state_from_flax(params["vit"], "vit")
+    if model_name != "ViTSingleTask":
+        # timm's 1000-class head survives in the reference state_dicts of the
+        # models that never call it
+        sd["vit.head.weight"] = np.zeros((TIMM_HEAD_CLASSES, VIT_DIM),
+                                         np.float32)
+        sd["vit.head.bias"] = np.zeros((TIMM_HEAD_CLASSES,), np.float32)
+    for flax_name, tprefix in _HEADS[model_name].items():
+        lin = params[flax_name]["linear"]
+        sd[f"{tprefix}.1.weight"] = _linear(lin["kernel"])
+        sd[f"{tprefix}.1.bias"] = _f32(lin["bias"])
+    return sd
+
+
+def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
+                ) -> nn.Module:
+    """The port's module for model_name, with class counts and embedding width
+    read from the head shapes in sd (parameters uninitialised, on `meta`)."""
+    if model_name not in _HEADS:
+        raise ValueError(f"unsupported model {model_name!r}; the port has "
+                         f"{MODEL_NAMES}")
+    shape = {tprefix: tuple(sd[f"{tprefix}.1.weight"].shape)
+             for tprefix in _HEADS[model_name].values()}
+    with torch.device("meta"):
+        if model_name == "ViTSingleTask":
+            return heads.ViTSingleTask(shape["vit.head"][0], dtype=dtype)
+        if model_name == "ViTMultiTask":
+            return heads.ViTMultiTask(
+                {"style": shape["style_classifier"][0],
+                 "genre": shape["genre_classifier"][0]}, dtype=dtype)
+        if model_name == "NewMultiModalSingleTaskVit":
+            nc, width = shape["classifier"]
+            return heads.NewMultiModalSingleTaskVit(width - VIT_DIM, nc,
+                                                    dtype=dtype)
+        width = shape["class_style"][1]
+        return heads.NewMultiModalMultiTaskViT(
+            width - VIT_DIM, {"style": shape["class_style"][0],
+                              "genre": shape["class_genre"][0]}, dtype=dtype)
+
+
+def load_reference_checkpoint(model_name: str, path: str,
+                              device: str | torch.device,
+                              dtype: torch.dtype = torch.bfloat16
+                              ) -> nn.Module:
+    """torch.load a reference .pt state_dict into the port's module
+    (strict=True), in eval mode on `device`; `dtype` is the compute dtype."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        model = build_model(model_name, sd, dtype)
+    except KeyError as e:
+        raise KeyError(
+            f"checkpoint {path!r} does not match model {model_name!r}: "
+            f"missing tensor {e.args[0]!r} (checkpoint has {len(sd)} "
+            f"tensors, e.g. {sorted(sd)[:3]})") from e
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(device).eval()

@@ -1,0 +1,113 @@
+"""ViT-B/16 trunk with timm's state_dict keys, on the port's block kernels.
+
+Port of artgraph_tpu/models/vit.py (`ViT`, kernel path): the patch embedding
+runs as a stride-16 conv in `dtype`; the CLS token and the position embedding
+are added in f32 and the residual stream is then cast to `dtype`; each of the
+`depth` blocks is `fused_block_attention` followed by `fused_block_mlp`; the
+final LayerNorm runs in f32 and the CLS token is pooled (timm-0.4
+`forward_features`). Parameters are f32. Inputs are normalized NHWC images.
+
+Module and parameter names are timm's (`patch_embed.proj`, `cls_token`,
+`pos_embed`, `blocks.{i}.norm1 / attn.qkv / attn.proj / norm2 / mlp.fc1 /
+mlp.fc2`, `norm`), so a reference .pt loads with `load_state_dict` and no key
+map. Linear weights keep nn.Linear's [out, in] layout.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from artgraph_tpu_torch.ops import fused_block_attention, fused_block_mlp
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
+                              stride=patch_size)
+
+
+class Attention(nn.Module):
+    """Holds timm's fused qkv and output projections; the block runs them."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block: two fused kernels, residuals included."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, m = self.attn, self.mlp
+        x = fused_block_attention(x, self.norm1.weight, self.norm1.bias,
+                                  a.qkv.weight, a.qkv.bias, a.proj.weight,
+                                  a.proj.bias, a.num_heads, self.norm1.eps)
+        return fused_block_mlp(x, self.norm2.weight, self.norm2.bias,
+                               m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                               m.fc2.bias, self.norm2.eps)
+
+
+class ViT(nn.Module):
+    """Vision transformer trunk; NHWC float images in, [B, C] f32 out."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        n_patches = (img_size // patch_size) ** 2
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, embed_dim))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth))
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        proj = self.patch_embed.proj
+        x = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype),
+                     proj.weight.to(self.dtype), proj.bias.to(self.dtype),
+                     stride=proj.stride)
+        x = x.flatten(2).transpose(1, 2)                 # [B, patches, C]
+        cls = self.cls_token.expand(B, -1, -1).to(self.dtype)
+        x = torch.cat([cls, x], dim=1)
+        x = (x.to(torch.float32) + self.pos_embed).to(self.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        # LayerNorm is per token, so normalizing only the pooled CLS token
+        # gives the CLS row of the normalized sequence
+        return F.layer_norm(x[:, 0].to(torch.float32),
+                            self.norm.normalized_shape, self.norm.weight,
+                            self.norm.bias, self.norm.eps)
+
+
+def init_random_(module: nn.Module, generator: torch.Generator
+                 ) -> nn.Module:
+    """Fill every parameter from `generator`: LayerNorm weights 1 + N(0, 0.02),
+    everything else N(0, 0.02) (timm's init scale, with non-zero biases so the
+    bias paths are exercised). For runs without published weights."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            noise = torch.randn(p.shape, generator=generator) * 0.02
+            is_ln_weight = name.endswith("weight") and p.dim() == 1
+            p.copy_(noise + 1.0 if is_ln_weight else noise)
+    return module

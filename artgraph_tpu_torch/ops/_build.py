@@ -1,0 +1,126 @@
+"""Build the port's CUDA kernels (ops/csrc/*.cu) at first use and bind them.
+
+All sources compile in one `nvcc` call into one shared library with a plain C
+interface, loaded with `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/artgraph_tpu_torch/libartgraph_kernels-<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as built. Nothing here includes
+PyTorch's headers, which keeps a build to seconds. A failed build or load
+raises; there is no fallback.
+
+Each C entry point returns `cudaGetLastError()` after its launch; `check`
+raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+             / "artgraph_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # name: (argtypes, restype)
+    "ag_layernorm_bf16": ((_P, _P, _P, _P, _I, _I, _F, _P), _I),
+    "ag_gemm_nt_bf16": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "ag_attention_core_bf16": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
+    "ag_attention_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "ag_normalize_u8": ((_P, _P, _I, _F, _F, _F, _F, _F, _F, _P), _I),
+    "ag_error_string": ((_I,), ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "port's CUDA kernels are built from artgraph_tpu_torch/ops/csrc "
+            "at first use and need the CUDA toolkit")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libartgraph_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile csrc/*.cu unless the hashed library exists; (path, seconds).
+
+    The compiler's output (ptxas register and shared-memory report) is kept
+    beside the library as `<name>.log`.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
+    # atomic: a concurrent process never loads a partial library
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built and loaded on first call."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        handle = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib().ag_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`; without an NVIDIA GPU every test skips. The module imports
+no jax, so it runs on a GPU host without the JAX package:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(tests/conftest.py imports jax, hence --noconftest there.) Tolerances: the
+block kernels at rtol = atol = 3e-2 in bf16 (they round where the plain
+versions round and differ in accumulation order only), the normalize
+bit-exact. The f32 plain references run with TF32 off.
+"""
+import numpy as np
+import pytest
+import torch
+
+from artgraph_tpu_torch.ops import (attention, block_attention_plain,
+                                    block_mlp_plain, fused_block_attention,
+                                    fused_block_mlp, mlp, normalize_images,
+                                    normalize_images_plain, preprocess)
+
+
+def block_inputs(B, N, C, dense_shapes, seed):
+    """x, gamma, beta and (w [in, out], b) pairs as numpy f32, flax layout."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    x = f32(rng.normal(size=(B, N, C)))
+    gamma = f32(1.0 + 0.1 * rng.normal(size=(C,)))
+    beta = f32(0.1 * rng.normal(size=(C,)))
+    linears = []
+    for fan_in, fan_out in dense_shapes:
+        linears += [f32(rng.normal(size=(fan_in, fan_out)) / np.sqrt(fan_in)),
+                    f32(0.02 * rng.normal(size=(fan_out,)))]
+    return x, gamma, beta, linears
+
+
+def torch_args(x, gamma, beta, linears, dtype):
+    """Port layout: x in dtype, f32 params, Linear weights [out, in]."""
+    tx = torch.from_numpy(x).to(dtype)
+    params = [torch.from_numpy(gamma), torch.from_numpy(beta)]
+    for i, a in enumerate(linears):
+        params.append(torch.from_numpy(a.T.copy() if i % 2 == 0 else a))
+    return tx, params
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain references
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H,Hd", [(128, 2, 512), (192, 3, 320)])
+@pytest.mark.parametrize("N", [17, 197])
+def test_cuda_block_kernels_match_plain(N, C, H, Hd):
+    """(192, 3, 320) leaves partial GEMM tiles along N (576, 320, 192)."""
+    _need_cuda()
+    B = 3
+    for fn, plain, outs, extra in (
+            (fused_block_attention, block_attention_plain,
+             ((C, 3 * C), (C, C)), (H,)),
+            (fused_block_mlp, block_mlp_plain, ((C, Hd), (Hd, C)), ())):
+        x, gamma, beta, lin = block_inputs(B, N, C, outs, seed=N)
+        tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
+        tx, params = tx.cuda(), [p.cuda() for p in params]
+        ours = fn(tx, *params, *extra)
+        torch.cuda.synchronize()
+        ref = plain(tx, *params, *extra)
+        torch.testing.assert_close(ours.float(), ref.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["resnet", "vit"])
+def test_cuda_normalize_bit_exact(transform):
+    _need_cuda()
+    x = torch.randint(0, 256, (3, 224, 224, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0)).cuda()
+    ours = normalize_images(x, transform)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, normalize_images_plain(x, transform))
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
+    _need_cuda()
+    for mod in (attention, mlp, preprocess):
+        monkeypatch.setattr(mod, "LAUNCHES", 0)
+    C = 128
+    x, gamma, beta, lin = block_inputs(2, 9, C, ((C, 3 * C), (C, C)), seed=0)
+    tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
+    tx, params = tx.cuda(), [p.cuda() for p in params]
+    fused_block_attention(tx, *params, 2)
+    normalize_images(torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
+                                 device="cuda"), "vit")
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, mlp.LAUNCHES, preprocess.LAUNCHES) == (1, 0, 1)
+
+    with pytest.raises(TypeError):          # x must be bf16
+        fused_block_attention(tx.float(), *params, 2)
+    with pytest.raises(TypeError):          # params must be f32
+        fused_block_attention(tx, *[p.half() for p in params], 2)
+    with pytest.raises(ValueError):         # x must be contiguous
+        fused_block_attention(tx.transpose(0, 1), *params, 2)
+    with pytest.raises(ValueError):         # head dim 128/4 = 32 not built
+        fused_block_attention(tx, *params, 4)
+    with pytest.raises(TypeError):          # images must be uint8
+        normalize_images(torch.zeros((1, 8, 8, 3), device="cuda"), "vit")
+    assert (attention.LAUNCHES, preprocess.LAUNCHES) == (1, 1)
