@@ -1,8 +1,10 @@
-"""Reference .pt checkpoints into the port, and the JAX weights carried over.
+"""Reference .pt checkpoints in and out of the port, and the JAX weights
+carried over.
 
 The port's modules use the reference state_dict keys (timm ViT names plus the
 wrapper heads of artgraph_tpu/checkpointing/torch_interop.py `_MODEL_SPECS`),
-so a reference .pt loads with `load_state_dict(strict=True)` and no key map.
+so a reference .pt loads with `load_state_dict(strict=True)` and no key map,
+and `save_reference_checkpoint` writes one (the trainers' best checkpoint).
 
 `state_dict_from_flax` turns the JAX package's variables (a nested dict of
 arrays) into that state_dict: Linear kernels [in, out] -> [out, in], convs
@@ -49,7 +51,9 @@ def vit_state_from_flax(params: dict, prefix: str = "vit"
     """A flax `ViT`'s params -> timm-keyed state_dict entries under prefix.
 
     Depth is read from the params (`block0`, `block1`, ...), so trunks of any
-    size convert; an empty prefix gives bare timm keys.
+    size convert; an empty prefix gives bare timm keys. A gradient tree of
+    the same structure (jax.grad of the params) maps the same way, to the
+    layouts of the port's `.grad` tensors.
     """
     pre = f"{prefix}." if prefix else ""
     out = {
@@ -122,6 +126,13 @@ def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
         return heads.NewMultiModalMultiTaskViT(
             width - VIT_DIM, {"style": shape["class_style"][0],
                               "genre": shape["class_genre"][0]}, dtype=dtype)
+
+
+def save_reference_checkpoint(model: nn.Module, path: str) -> None:
+    """torch.save the model's state_dict (reference keys, f32 CPU tensors):
+    the .pt that load_reference_checkpoint and the reference read."""
+    torch.save({k: v.detach().to("cpu", torch.float32)
+                for k, v in model.state_dict().items()}, path)
 
 
 def load_reference_checkpoint(model_name: str, path: str,

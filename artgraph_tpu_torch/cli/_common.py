@@ -1,0 +1,114 @@
+"""Shared CLI plumbing of the port: the reference's base argparse surface,
+the --device, the single-task loss, checkpoints and the test evaluation.
+
+Port of the part of artgraph_tpu/cli/_common.py that `train_baseline` needs.
+Flag names, defaults, checkpoint naming, print formats and the results CSVs
+are the reference's. Added: `--device` (default `cuda`, as `predict`). The
+JAX CLIs' TPU extras (`--data_parallel`, `--resident_data`,
+`--no_epoch_scan`, `--image_cache`, `--init_checkpoint`, `--resume`) and
+MLflow tracking (`-t/--tracking`) need modules the port does not have yet
+(ROADMAP.md §1); the port's parser does not accept them.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from artgraph_tpu_torch import config
+from artgraph_tpu_torch.checkpointing import save_reference_checkpoint
+from artgraph_tpu_torch.data.loader import prepare_dataloader
+from artgraph_tpu_torch.metrics import summarize, write_results
+from artgraph_tpu_torch.train import cross_entropy
+from artgraph_tpu_torch.train.trainer import Trainer, accuracy_metrics
+
+
+def get_base_arguments() -> argparse.ArgumentParser:
+    """Shared argparse surface (ref: src/utils.py:17-28) plus --num_workers,
+    --results_dir and --device."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--image_path', type=str, default=config.IMAGE_DIR,
+                        help='Experiment name.')
+    parser.add_argument('--dataset_path', type=str, default=config.DATASET_DIR,
+                        help='Experiment name.')
+    parser.add_argument('--exp', type=str, default='test', help='Experiment name.')
+    parser.add_argument('--epochs', type=int, default=1,
+                        help='Number of epochs to train.')
+    parser.add_argument('--batch', type=int, default=32,
+                        help='Number of epochs to train.')
+    parser.add_argument('--lr', type=float, default=3e-4,
+                        help='Initial learning rate.')
+    parser.add_argument('--with_weights', action='store_true',
+                        help='If using class weights for tackling class imabalnces.')
+    parser.add_argument('--num_workers', type=int, default=6,
+                        help='Host data-loader worker threads.')
+    parser.add_argument('--results_dir', type=str, default=None,
+                        help='If set, emit reference-schema results CSVs here.')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help='Torch device to train on (cuda, cuda:N or cpu).')
+    return parser
+
+
+def resolve_device(name: str) -> torch.device:
+    """The --device of a CLI as a torch.device; cuda without a card raises,
+    never falls back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: CUDA is not available "
+                               f"(pass --device cpu to use the CPU)")
+        if device.index is not None:
+            torch.cuda.set_device(device)   # the kernels launch on this device
+    return device
+
+
+def make_loaders(datasets: Dict, batch_size: int, num_workers: int,
+                 seed: int = config.GLOBAL_SEED):
+    """Reference loader kwargs (ref: train_baseline.py:23-25): shuffled,
+    no drop_last; the last batch padded with a mask."""
+    return prepare_dataloader(datasets, batch_size=batch_size, shuffle=True,
+                              drop_last=False, num_workers=num_workers,
+                              seed=seed)
+
+
+def single_task_loss(class_weights: Optional[np.ndarray],
+                     device: str | torch.device = "cpu"):
+    """compute_loss for a single-task head: weighted masked cross-entropy and
+    the masked correct count; the class weights live on `device`."""
+    cw = None if class_weights is None else torch.as_tensor(
+        np.asarray(class_weights, np.float32)).to(device)
+
+    def compute(outputs, batch):
+        labels, mask = batch[-2], batch[-1]
+        loss = cross_entropy(outputs, labels, class_weights=cw, mask=mask)
+        return loss, accuracy_metrics(outputs, labels, mask)
+
+    return compute
+
+
+def save_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """EarlyStopping's save_fn: the model as a reference .pt."""
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    save_reference_checkpoint(model, path)
+
+
+def reload_state(trainer: Trainer, path: str) -> None:
+    """Load the best checkpoint back into the trainer's model (strict)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    trainer.model.load_state_dict(sd, strict=True)
+
+
+def evaluate_single_task(trainer: Trainer, loader, num_classes: int,
+                         results_dir: Optional[str] = None) -> float:
+    """Test-split accuracy; with results_dir also the reference CSVs."""
+    _, collected = trainer.eval_epoch(loader, collect_outputs=True)
+    scores = np.concatenate([out for out, _ in collected])
+    # labels are the last non-mask batch component
+    y_true = np.concatenate([rest[-1] for _, rest in collected])
+    summary = summarize(y_true, scores, num_classes)
+    if results_dir:
+        write_results(results_dir, summary)
+    return summary["accuracy"]

@@ -15,8 +15,9 @@ For the fusion models (NewMultiModal*), pass --emb_style/--emb_genre .pt (or
 runs the normalize kernel and, in each of the 12 blocks, the block attention
 and block MLP kernels; the CLI never moves to the CPU on its own.
 
-PIL (JPEG decode) and pandas (for --output) are imported only where they are
-used, so the rest of the port runs on a host that has neither.
+PIL (JPEG decode, data/transforms.py) and pandas (for --output) are imported
+only where they are used, so the rest of the port runs on a host that has
+neither.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ import sys
 import numpy as np
 import torch
 
-from artgraph_tpu import config
+from artgraph_tpu_torch import config
 from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+from artgraph_tpu_torch.cli._common import resolve_device
+from artgraph_tpu_torch.data.transforms import decode_resize_uint8
 from artgraph_tpu_torch.ops import normalize_images
 
 MODELS = {
@@ -55,24 +58,6 @@ def load_embedding(path: str) -> np.ndarray:
     else:
         arr = torch.load(path, map_location="cpu", weights_only=True).numpy()
     return np.ascontiguousarray(arr, dtype=np.float32)
-
-
-def decode_resize_uint8(path: str, size: int = config.IMAGE_SIZE
-                        ) -> np.ndarray:
-    """Open, force RGB, bilinear-resize: uint8 [size, size, 3].
-
-    The PIL path of artgraph_tpu.data.transforms.decode_resize_uint8 (its
-    native decoder is bit-exact with PIL), without that package's imports
-    (pandas, scikit-learn).
-    """
-    from PIL import Image, ImageFile
-
-    ImageFile.LOAD_TRUNCATED_IMAGES = True  # as the reference loader does
-    with Image.open(path) as image:
-        if image.mode != "RGB":
-            image = image.convert("RGB")
-        return np.asarray(image.resize((size, size), Image.BILINEAR),
-                          dtype=np.uint8)
 
 
 def gather_images(paths):
@@ -108,12 +93,7 @@ def main(argv=None):
                         help="Torch device to serve on (cuda, cuda:N or cpu).")
     args = parser.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available "
-                           f"(pass --device cpu to serve on the CPU)")
-    if device.type == "cuda" and device.index is not None:
-        torch.cuda.set_device(device)   # the kernels launch on this device
+    device = resolve_device(args.device)
     transform_type, needs_emb, multi_task = MODELS[args.model]
 
     emb_style = emb_genre = None

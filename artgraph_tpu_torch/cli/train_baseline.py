@@ -1,0 +1,92 @@
+"""Image-only single-task baseline trainer on the GPU — port of
+artgraph_tpu/cli/train_baseline.py with `--architecture vit`.
+
+Same flags as the reference's src/train_baseline.py (--label,
+--architecture, --dropout + the base arguments), checkpoint name, patience
+(10), loss (cross-entropy, optional class weights), Adam and prints, plus
+`--device` (default `cuda`):
+
+    python -m artgraph_tpu_torch.cli.train_baseline --architecture vit \
+        --dataset_path <dataset> --image_path <images> --label style
+
+On `cuda` every step runs the normalize kernel and, in each of the 12
+blocks, the block attention and block MLP kernels forward and backward.
+`--architecture resnet` (the reference's default) is not ported yet.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from artgraph_tpu_torch import config
+from artgraph_tpu_torch.cli._common import (
+    evaluate_single_task, get_base_arguments, make_loaders, reload_state,
+    resolve_device, save_checkpoint, single_task_loss)
+from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
+from artgraph_tpu_torch.models import ViTSingleTask
+from artgraph_tpu_torch.train import EarlyStopping
+from artgraph_tpu_torch.train.trainer import Trainer, adam
+
+
+def main(argv=None):
+    parser = get_base_arguments()
+    parser.add_argument('--label', type=str, default='genre',
+                        help='Label to predict (style|genre).')
+    parser.add_argument('--architecture', type=str, default='resnet',
+                        help='Architecture (vit|resnet).')
+    parser.add_argument('--dropout', type=float, default=0.4, help='Dropout.')
+    args = parser.parse_args(argv)
+    print(args)
+    if args.architecture != 'vit':
+        raise NotImplementedError(
+            f"--architecture {args.architecture}: the port trains ViT-B/16 "
+            f"only; ResNet50 is queued in ROADMAP.md §1 (ResNet50 eval, then "
+            f"its training step)")
+    device = resolve_device(args.device)
+
+    dataset_train, dataset_valid, dataset_test = load_dataset(
+        base_dir=args.dataset_path, image_dir=args.image_path,
+        mode='single_task', label=args.label, transform_type=args.architecture)
+    loaders = make_loaders({'train': dataset_train, 'valid': dataset_valid,
+                            'test': dataset_test}, args.batch,
+                           args.num_workers)
+
+    num_class = config.NUM_CLASSES[args.label]
+    torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
+    model = ViTSingleTask(num_class, args.dropout)
+    class_weights = (get_class_weights(dataset_train, num_class, args.label)
+                     if args.with_weights else None)
+    trainer = Trainer(model=model, optimizer=adam(args.lr),
+                      compute_loss=single_task_loss(class_weights, device),
+                      transform_type=args.architecture, device=device,
+                      seed=config.GLOBAL_SEED)
+
+    checkpoint_name = os.path.join(
+        config.CHECKPOINTS_DIR,
+        f'{args.label}_{args.architecture}_baseline_single-task_checkpoint.pt')
+    early_stop = EarlyStopping(patience=10, min_delta=0.001,
+                               checkpoint_path=checkpoint_name,
+                               save_fn=save_checkpoint)
+
+    # the reference epoch loop: all --epochs run; early stopping only selects
+    # the saved checkpoint (ref: train_baseline.py:133-137)
+    for _ in range(args.epochs):
+        m = trainer.train_epoch(loaders['train'])
+        print(f'Train loss: {m["loss"]}; train accuracy: {m["correct"]}')
+        m = trainer.eval_epoch(loaders['valid'])
+        early_stop(m['loss'], trainer.model)
+        print(f'Validation loss: {m["loss"]}; '
+              f'validation accuracy: {m["correct"]}')
+
+    # test(): the model from the best checkpoint
+    # (ref: train_baseline.py:102-128)
+    reload_state(trainer, checkpoint_name)
+    acc = evaluate_single_task(trainer, loaders['test'], num_class,
+                               results_dir=args.results_dir)
+    print(f'Test accuracy: {acc}')
+    return acc
+
+
+if __name__ == '__main__':
+    main()

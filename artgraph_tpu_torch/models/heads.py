@@ -10,8 +10,9 @@ torch_interop.py `_MODEL_SPECS`):
   * the other three keep timm's unused 1000-class `vit.head` and carry their
     own Sequential(Dropout, Linear) heads (`class_style.1.*`, ...).
 
-Logits are f32: the heads run in f32 on the f32 CLS feature, and the fusion
-models concatenate that feature with the f32 embedding first.
+The heads' Dropout is active in train(). Logits are f32: the heads run in
+f32 on the f32 CLS feature, and the fusion models concatenate that feature
+with the f32 embedding first.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ class ViTSingleTask(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.vit = ViT(dtype=dtype)
-        self.vit.head = _head(VIT_DIM, num_class, dropout)
+        self.vit.head = _head(self.vit.embed_dim, num_class, dropout)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         return self.vit.head(self.vit(img))

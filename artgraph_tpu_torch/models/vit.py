@@ -7,6 +7,11 @@ are added in f32 and the residual stream is then cast to `dtype`; each of the
 final LayerNorm runs in f32 and the CLS token is pooled (timm-0.4
 `forward_features`). Parameters are f32. Inputs are normalized NHWC images.
 
+In train() the block ops record their own backward (autograd Functions whose
+CUDA backward is a kernel path); the bf16 patch-embed conv, the f32 CLS/pos
+add and the final LayerNorm differentiate through torch autograd, as flax
+differentiates its bf16 nn.Conv. The trunk has no dropout.
+
 Module and parameter names are timm's (`patch_embed.proj`, `cls_token`,
 `pos_embed`, `blocks.{i}.norm1 / attn.qkv / attn.proj / norm2 / mlp.fc1 /
 mlp.fc2`, `norm`), so a reference .pt loads with `load_state_dict` and no key
@@ -73,6 +78,7 @@ class ViT(nn.Module):
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         n_patches = (img_size // patch_size) ** 2
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))

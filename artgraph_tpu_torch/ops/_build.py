@@ -1,18 +1,19 @@
 """Build the port's CUDA kernels (ops/csrc/*.cu) at first use and bind them.
 
-All sources compile in one `nvcc` call into one shared library with a plain C
+Each source compiles in its own `nvcc` process, all started together, and
+one more `nvcc` links the objects into one shared library with a plain C
 interface, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v \
-         -o build/artgraph_tpu_torch/libartgraph_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -shared -o build/artgraph_tpu_torch/libartgraph_kernels-<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edited source
 is rebuilt and an unchanged one is loaded as built. Nothing here includes
 PyTorch's headers, which keeps a build to seconds. A failed build or load
 raises; there is no fallback.
 
-Each C entry point returns `cudaGetLastError()` after its launch; `check`
+Each C entry point returns `cudaGetLastError()` after its launches; `check`
 raises on anything but 0.
 """
 from __future__ import annotations
@@ -32,15 +33,21 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "artgraph_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "ag_layernorm_bf16": ((_P, _P, _P, _P, _I, _I, _F, _P), _I),
-    "ag_gemm_nt_bf16": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "ag_gemm_bf16": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "ag_attention_core_bf16": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "ag_attention_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "ag_attention_core_bwd_bf16": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+    "ag_attention_bwd_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "ag_layernorm_bwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                               _I, _P), _I),
+    "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "ag_normalize_u8": ((_P, _P, _I, _F, _F, _F, _F, _F, _F, _P), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),
 }
@@ -67,7 +74,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -77,7 +84,7 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile csrc/*.cu unless the hashed library exists; (path, seconds).
 
-    The compiler's output (ptxas register and shared-memory report) is kept
+    The compilers' output (ptxas register and shared-memory report) is kept
     beside the library as `<name>.log`.
     """
     out = library_path()
@@ -86,17 +93,33 @@ def build() -> tuple[Path, float]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
-    # atomic: a concurrent process never loads a partial library
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        logs, failed = [], []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+        if not failed:
+            lib_tmp = os.path.join(tmpdir, "lib.so")
+            cmd = [nvcc, *LINK_FLAGS, "-o", lib_tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+        out.with_suffix(".log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
+        # atomic: a concurrent process never loads a partial library
+        os.replace(lib_tmp, out)
     return out, time.perf_counter() - t0
 
 

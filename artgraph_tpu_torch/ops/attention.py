@@ -1,24 +1,36 @@
-"""The ViT block's attention half, x + proj(MHA(LayerNorm(x))), in one call.
+"""The ViT block's attention half, x + proj(MHA(LayerNorm(x))), both directions.
 
-Port of artgraph_tpu/ops/attention.py:fused_block_attention (forward,
-`_block_fwd_kernel`). On a CUDA tensor it runs four hand-written launches
-from csrc/ on PyTorch's current stream:
+Port of artgraph_tpu/ops/attention.py:fused_block_attention, a
+`jax.custom_vjp` over two Pallas kernels (`_block_fwd_kernel`,
+`_block_bwd_kernel`), here a `torch.autograd.Function` over hand-written
+launches from csrc/ on PyTorch's current stream. Forward:
 
   (a) row LayerNorm -> bf16 y                     (block_gemm.cu)
-  (b) qkv = y . W_qkv^T + b_qkv, bf16              (block_gemm.cu, bias
-                                                    epilogue)
+  (b) qkv = y . W_qkv^T + b_qkv, bf16              (block_gemm.cu, NT, bias)
   (c) per (batch, head, 64-query tile) softmax attention core
                                                    (block_attention.cu)
-  (d) out = x + (attn . W_proj^T + b_proj), bf16   (block_gemm.cu, residual
-                                                    epilogue)
+  (d) out = x + (attn . W_proj^T + b_proj), bf16   (block_gemm.cu, NT,
+                                                    residual)
 
-The qkv tensor and the attention output are the only intermediates that
-reach device memory (the Pallas kernel keeps them in VMEM; fusing them here
-is later work). Rounding points are the Pallas kernel's, so the kernel and
-`block_attention_plain` differ only in accumulation order.
+As the Pallas VJP does, the Function saves only x and the parameters, and the
+backward recomputes (a)-(c) with the same launches, then:
+
+  (e) do_attn = bf16(do . W_proj)                  (block_gemm.cu, NN)
+  (f) dqkv per (image, head), bf16                 (block_attention_bwd.cu)
+  (g) dy = dqkv . W_qkv, f32                       (block_gemm.cu, NN, f32)
+  (h) dx = bf16(do + LN'(dy)), dgamma, dbeta       (block_norm_bwd.cu)
+  (i) dW_qkv = dqkv^T . y, dW_proj = do^T . attn   (block_gemm.cu, TN, f32)
+  (j) db_qkv, db_proj: column sums in f32          (block_norm_bwd.cu)
+
+Parameter gradients come back in f32 and dx in x's dtype, as
+`_fused_block_bwd` returns them. The intermediates that the Pallas kernels
+keep in VMEM (qkv, attn, dqkv, dy) pass through device memory here; fusing
+them is later work. Rounding points are the Pallas kernels', so the kernels
+and `block_attention_plain` / `block_attention_bwd_plain` differ only in
+accumulation order.
 
 Weights keep nn.Linear's [out, in] layout. As `_block_operands` does, the
-wrapper casts the f32 weights and biases to bf16 and keeps gamma/beta f32.
+wrappers cast the f32 weights and biases to bf16 and keep gamma/beta f32.
 """
 from __future__ import annotations
 
@@ -26,26 +38,57 @@ import torch
 
 from artgraph_tpu_torch.ops import _build
 
-# Launches of the CUDA kernel by `fused_block_attention` since the last reset.
+# Launches of the CUDA forward / backward by `fused_block_attention` since the
+# last reset (one per call of the block, however many kernels it runs).
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
-# GEMM epilogues of csrc/block_gemm.cu (enum Epilogue)
-EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL = 0, 1, 2
+# GEMM operand layouts and epilogues of csrc/block_gemm.cu (enums Layout,
+# Epilogue)
+LAYOUT_NT, LAYOUT_NN, LAYOUT_TN = 0, 1, 2
+(EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL, EPI_BIAS_GELU_AUX, EPI_NONE,
+ EPI_F32, EPI_DGELU) = range(7)
+
+# row groups of the two-pass column sums (block_norm_bwd.cu)
+SUM_GROUPS = 128
+
+_F32 = torch.float32
 
 
 # --- plain PyTorch pieces, shared with ops/mlp.py ---------------------------
 
-def ln_rows_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """flax-style LayerNorm in f32 (uncentered variance clipped at 0), cast
-    back to x.dtype: `_ln_rows` and the `y = ...` line of the Pallas kernel."""
-    xf = x.to(torch.float32)
+def ln_stats_plain(x: torch.Tensor, eps: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xhat, rstd) in f32: flax-style statistics, uncentered variance
+    clipped at 0 (`_ln_rows`)."""
+    xf = x.to(_F32)
     mean = xf.mean(-1, keepdim=True)
     mean2 = (xf * xf).mean(-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
-    xhat = (xf - mean) * torch.rsqrt(var + eps)
-    return (xhat * gamma.to(torch.float32)
-            + beta.to(torch.float32)).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mean) * rstd, rstd
+
+
+def ln_rows_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """LayerNorm in f32 cast back to x.dtype: the `y = ...` line of the
+    Pallas kernels."""
+    xhat, _ = ln_stats_plain(x, eps)
+    return (xhat * gamma.to(_F32) + beta.to(_F32)).to(x.dtype)
+
+
+def ln_bwd_plain(x, gamma, dy, dres, eps: float):
+    """(dx, dgamma, dbeta) of y = xhat * gamma + beta plus the residual
+    gradient dres, as the Pallas backward kernels write them: dy f32, dx
+    rounded once after adding dres in f32."""
+    xhat, rstd = ln_stats_plain(x, eps)
+    dyg = dy * gamma.to(_F32)
+    mean_dyg = dyg.mean(-1, keepdim=True)
+    mean_dyg_xhat = (dyg * xhat).mean(-1, keepdim=True)
+    dx_ln = rstd * (dyg - mean_dyg - xhat * mean_dyg_xhat)
+    dx = (dres.to(_F32) + dx_ln).to(x.dtype)
+    rows = tuple(range(dy.dim() - 1))
+    return dx, (dy * xhat).sum(rows), dy.sum(rows)
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor,
@@ -56,25 +99,80 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor,
     a bf16 product with f32 accumulation, as the Pallas kernel's jnp.dot.
     """
     dt = a.dtype
-    acc = a.to(torch.float32) @ w.to(dt).to(torch.float32).t()
-    return (acc + b.to(dt).to(torch.float32)).to(dt)
+    acc = a.to(_F32) @ w.to(dt).to(_F32).t()
+    return (acc + b.to(dt).to(_F32)).to(dt)
 
 
-def block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
-    """The plain PyTorch version of `fused_block_attention`."""
+def weight_f32(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The weight as the kernels read it (rounded to dt), in f32."""
+    return w.to(dt).to(_F32)
+
+
+def rows_t_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 a^T . b over all leading (row) dimensions: a weight gradient in
+    [out, in] layout."""
+    return a.reshape(-1, a.shape[-1]).to(_F32).t() @ \
+        b.reshape(-1, b.shape[-1]).to(_F32)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, C = t.shape
+    return t.view(B, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
+                     eps: float):
+    """Forward up to the attention output: (y, q, k, v, p, o f32, attn)."""
     B, N, C = x.shape
     D = C // num_heads
     y = ln_rows_plain(x, gamma, beta, eps)
     qkv = linear_plain(y, w_qkv, b_qkv)                  # [B, N, 3C]
     q, k, v = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    s = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
-        * (D ** -0.5)
+    s = (q.to(_F32) @ k.to(_F32).transpose(-1, -2)) * (D ** -0.5)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(x.dtype)
-    o = (p.to(torch.float32) @ v.to(torch.float32)).to(x.dtype)
-    attn = o.transpose(1, 2).reshape(B, N, C)
+    o = p.to(_F32) @ v.to(_F32)
+    attn = o.to(x.dtype).transpose(1, 2).reshape(B, N, C)
+    return y, q, k, v, p, o, attn
+
+
+def block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+    """The plain PyTorch version of `fused_block_attention`'s forward."""
+    attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads, eps)[-1]
     return x + linear_plain(attn, w_proj, b_proj)
+
+
+def block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, dout,
+                              num_heads: int, eps: float = 1e-6):
+    """The plain PyTorch version of the backward, `_block_bwd_kernel` line
+    by line: (dx, dgamma, dbeta, dw_qkv, db_qkv, dw_proj, db_proj), dx in
+    x.dtype, the rest f32, weights in [out, in] layout."""
+    B, N, C = x.shape
+    D = C // num_heads
+    dt = x.dtype
+    scale = D ** -0.5
+    y, q, k, v, p, o, attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv,
+                                              num_heads, eps)
+    do = dout.to(dt)
+    # proj backward: dp == do
+    do_attn = (do.to(_F32) @ weight_f32(w_proj, dt)).to(dt)
+    doh = _heads(do_attn, num_heads).to(_F32)            # [B, H, N, D]
+    pf = p.to(_F32)
+    dv = pf.transpose(-1, -2) @ doh
+    dp = doh @ v.to(_F32).transpose(-1, -2)
+    d_row = (doh * o).sum(-1, keepdim=True)
+    ds = (pf * (dp - d_row) * scale).to(dt).to(_F32)
+    dq = ds @ k.to(_F32)
+    dk = ds.transpose(-1, -2) @ q.to(_F32)
+    # [3, B, H, N, D] -> [B, N, 3, H, D]: the qkv column order
+    dqkv = torch.stack((dq, dk, dv)).to(dt).permute(1, 3, 0, 2, 4) \
+        .reshape(B, N, 3 * C)
+    dy = dqkv.to(_F32) @ weight_f32(w_qkv, dt)          # [B, N, C] f32
+    dx, dgamma, dbeta = ln_bwd_plain(x, gamma, dy, do, eps)
+    return (dx, dgamma, dbeta, rows_t_dot(dqkv, y),
+            dqkv.to(_F32).sum((0, 1)), rows_t_dot(do, attn),
+            do.to(_F32).sum((0, 1)))
 
 
 # --- CUDA launches, shared with ops/mlp.py ----------------------------------
@@ -92,12 +190,16 @@ def check_block_operands(name: str, x: torch.Tensor,
         raise ValueError(f"{name}: x must be a contiguous, 16-byte aligned "
                          f"[B, N, C] tensor, got {tuple(x.shape)}")
     for pname, (t, shape) in params.items():
-        if t.device != x.device or t.dtype != torch.float32:
+        if t.device != x.device or t.dtype != _F32:
             raise TypeError(f"{name}: {pname} must be float32 on {x.device}, "
                             f"got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {pname} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
+
+
+def bf16_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).contiguous()
 
 
 def layernorm_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -112,23 +214,82 @@ def layernorm_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+def gemm_cuda(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
+              bias: torch.Tensor | None = None,
+              aux: torch.Tensor | None = None) -> torch.Tensor | tuple:
+    """epilogue(A . B) on bf16 operands (csrc/block_gemm.cu:ag_gemm_bf16).
+
+    NT: a [M, K], b [N, K]; NN: a [M, K], b [K, N]; TN: a [K, M], b [K, N].
+    bias [N] for the EPI_BIAS* epilogues; aux [M, N] bf16 is the residual
+    (EPI_BIAS_RESIDUAL) or the fc1 output h (EPI_DGELU). Returns the f32
+    (EPI_F32) or bf16 output, and for EPI_BIAS_GELU_AUX the pair (h, gelu(h)).
+    """
+    for name, t in (("a", a), ("b", b), ("aux", aux)):
+        if t is not None and (t.dtype != torch.bfloat16
+                              or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"gemm_cuda: {name} must be a contiguous, "
+                             f"16-byte aligned bf16 tensor")
+    if layout == LAYOUT_TN:
+        K, M = a.shape
+    else:
+        M, K = a.shape
+    N = b.shape[0] if layout == LAYOUT_NT else b.shape[1]
+    if (b.shape[1] if layout == LAYOUT_NT else b.shape[0]) != K:
+        raise ValueError(f"gemm_cuda: inner dimensions {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ (layout {layout})")
+    out = torch.empty((M, N), device=a.device,
+                      dtype=_F32 if epilogue == EPI_F32 else torch.bfloat16)
+    out2 = torch.empty_like(out) if epilogue == EPI_BIAS_GELU_AUX else None
+    bias = None if bias is None else bf16_contiguous(bias)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _build.lib().ag_gemm_bf16(
+        a.data_ptr(), b.data_ptr(), ptr(bias), ptr(aux), out.data_ptr(),
+        ptr(out2), M, N, K, layout, epilogue, _build.stream_ptr(a))
+    _build.check(rc, "ag_gemm_bf16")
+    return out if out2 is None else (out, out2)
+
+
 def gemm_nt_cuda(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 epilogue: int, residual: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 epilogue: int, residual: torch.Tensor | None = None):
     """epilogue(a . w^T + b) with a [M, K] bf16 and f32 w [N, K], b [N]."""
-    M, K = a.shape
-    N = w.shape[0]
-    if K % 32:
-        raise ValueError(f"gemm_nt_cuda: K={K} must be a multiple of 32")
-    wc = w.to(torch.bfloat16).contiguous()
-    bc = b.to(torch.bfloat16).contiguous()
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    rc = _build.lib().ag_gemm_nt_bf16(
-        a.data_ptr(), wc.data_ptr(), bc.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(),
-        M, N, K, epilogue, _build.stream_ptr(a))
-    _build.check(rc, "ag_gemm_nt_bf16")
+    return gemm_cuda(a, bf16_contiguous(w), LAYOUT_NT, epilogue, bias=b, aux=residual)
+
+
+def layernorm_bwd_cuda(x2d, gamma, dy, dres, eps: float):
+    """(dx bf16, dgamma f32, dbeta f32) (csrc/block_norm_bwd.cu)."""
+    rows, cols = x2d.shape
+    dx = torch.empty_like(x2d)
+    dgamma = torch.empty(cols, device=x2d.device, dtype=_F32)
+    dbeta = torch.empty_like(dgamma)
+    groups = min(SUM_GROUPS, rows)
+    scratch = torch.empty((2, groups, cols), device=x2d.device, dtype=_F32)
+    rc = _build.lib().ag_layernorm_bwd_bf16(
+        x2d.data_ptr(), gamma.contiguous().data_ptr(), dy.data_ptr(),
+        dres.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), rows, cols, eps, groups, _build.stream_ptr(x2d))
+    _build.check(rc, "ag_layernorm_bwd_bf16")
+    return dx, dgamma, dbeta
+
+
+def colsum_cuda(t: torch.Tensor) -> torch.Tensor:
+    """f32 column sums of a contiguous bf16 [rows, cols] tensor."""
+    rows, cols = t.shape
+    groups = min(SUM_GROUPS, rows)
+    scratch = torch.empty((groups, cols), device=t.device, dtype=_F32)
+    out = torch.empty(cols, device=t.device, dtype=_F32)
+    rc = _build.lib().ag_colsum_bf16(t.data_ptr(), scratch.data_ptr(),
+                                     out.data_ptr(), rows, cols, groups,
+                                     _build.stream_ptr(t))
+    _build.check(rc, "ag_colsum_bf16")
     return out
+
+
+def _check_smem(what: str, smem: int, device: torch.device, N: int) -> None:
+    limit = torch.cuda.get_device_properties(device) \
+        .shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"{what}: N={N} needs {smem} bytes of shared "
+                         f"memory, the card allows {limit}")
 
 
 def attention_core_cuda(qkv: torch.Tensor, B: int, N: int,
@@ -136,12 +297,8 @@ def attention_core_cuda(qkv: torch.Tensor, B: int, N: int,
     C = qkv.shape[1] // 3
     D = C // num_heads
     lib = _build.lib()
-    smem = lib.ag_attention_smem_bytes(N, D)
-    limit = torch.cuda.get_device_properties(qkv.device) \
-        .shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"attention_core_cuda: N={N} needs {smem} bytes of "
-                         f"shared memory, the card allows {limit}")
+    _check_smem("attention_core_cuda", lib.ag_attention_smem_bytes(N, D),
+                qkv.device, N)
     out = torch.empty((B * N, C), dtype=torch.bfloat16, device=qkv.device)
     rc = lib.ag_attention_core_bf16(qkv.data_ptr(), out.data_ptr(), B, N,
                                     num_heads, D, D ** -0.5,
@@ -150,19 +307,23 @@ def attention_core_cuda(qkv: torch.Tensor, B: int, N: int,
     return out
 
 
-def fused_block_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
-    """x + proj(attention(LayerNorm(x))).
+def attention_core_bwd_cuda(qkv: torch.Tensor, do_attn: torch.Tensor, B: int,
+                            N: int, num_heads: int) -> torch.Tensor:
+    C = qkv.shape[1] // 3
+    D = C // num_heads
+    lib = _build.lib()
+    _check_smem("attention_core_bwd_cuda",
+                lib.ag_attention_bwd_smem_bytes(N, D), qkv.device, N)
+    dqkv = torch.empty_like(qkv)
+    rc = lib.ag_attention_core_bwd_bf16(
+        qkv.data_ptr(), do_attn.data_ptr(), dqkv.data_ptr(), B, N, num_heads,
+        D, D ** -0.5, _build.stream_ptr(qkv))
+    _build.check(rc, "ag_attention_core_bwd_bf16")
+    return dqkv
 
-    x: [B, N, C] residual stream; gamma, beta: [C]; w_qkv: [3C, C],
-    b_qkv: [3C] (timm fused-qkv layout, rows ordered qkv-slot, head, dim);
-    w_proj: [C, C], b_proj: [C]. A CPU tensor takes the plain version (any
-    float dtype); a CUDA tensor launches the kernel (bf16 x, f32 params).
-    """
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj,
-                                     b_proj, num_heads, eps)
+
+def _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                     num_heads: int) -> None:
     C = x.shape[-1]
     check_block_operands("fused_block_attention", x, {
         "gamma": (gamma, (C,)), "beta": (beta, (C,)),
@@ -171,12 +332,87 @@ def fused_block_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
     if C != 64 * num_heads:
         raise ValueError(f"fused_block_attention: head dim {C}/{num_heads} "
                          f"must be 64, the one the kernel is built for")
-    B, N, _ = x.shape
-    x2d = x.view(B * N, C)
+
+
+def _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv, B: int, N: int,
+                              num_heads: int, eps: float):
     y = layernorm_cuda(x2d, gamma, beta, eps)
     qkv = gemm_nt_cuda(y, w_qkv, b_qkv, EPI_BIAS)
-    attn = attention_core_cuda(qkv, B, N, num_heads)
-    out = gemm_nt_cuda(attn, w_proj, b_proj, EPI_BIAS_RESIDUAL,
-                       residual=x2d)
-    LAUNCHES += 1
-    return out.view(B, N, C)
+    return y, qkv, attention_core_cuda(qkv, B, N, num_heads)
+
+
+def block_attention_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                         num_heads: int, eps: float) -> torch.Tensor:
+    """The forward kernels on a CUDA tensor (checks, then launches)."""
+    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    B, N, C = x.shape
+    x2d = x.view(B * N, C)
+    _, _, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv, B,
+                                           N, num_heads, eps)
+    return gemm_nt_cuda(attn, w_proj, b_proj, EPI_BIAS_RESIDUAL,
+                        residual=x2d).view(B, N, C)
+
+
+def block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                             dout, num_heads: int, eps: float):
+    """The backward kernels on CUDA tensors: the gradients in the order and
+    dtypes of `block_attention_bwd_plain`."""
+    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    B, N, C = x.shape
+    x2d = x.view(B * N, C)
+    do = dout.to(torch.bfloat16).contiguous().view(B * N, C)
+    y, qkv, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv,
+                                             B, N, num_heads, eps)
+    do_attn = gemm_cuda(do, bf16_contiguous(w_proj), LAYOUT_NN, EPI_NONE)
+    dqkv = attention_core_bwd_cuda(qkv, do_attn, B, N, num_heads)
+    dy = gemm_cuda(dqkv, bf16_contiguous(w_qkv), LAYOUT_NN, EPI_F32)
+    dx, dgamma, dbeta = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
+    return (dx.view(B, N, C), dgamma, dbeta,
+            gemm_cuda(dqkv, y, LAYOUT_TN, EPI_F32), colsum_cuda(dqkv),
+            gemm_cuda(do, attn, LAYOUT_TN, EPI_F32), colsum_cuda(do))
+
+
+class _FusedBlockAttention(torch.autograd.Function):
+    """Saves x and the parameters only; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                num_heads, eps):
+        global LAUNCHES
+        ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        if x.device.type == "cpu":
+            return block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj,
+                                         b_proj, num_heads, eps)
+        out = block_attention_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj,
+                                   b_proj, num_heads, eps)
+        LAUNCHES += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global LAUNCHES_BWD
+        x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv,
+                                              w_proj, dout, ctx.num_heads,
+                                              ctx.eps)
+        else:
+            grads = block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv,
+                                             w_proj, b_proj, dout,
+                                             ctx.num_heads, ctx.eps)
+            LAUNCHES_BWD += 1
+        return (*grads, None, None)
+
+
+def fused_block_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+    """x + proj(attention(LayerNorm(x))), differentiable.
+
+    x: [B, N, C] residual stream; gamma, beta: [C]; w_qkv: [3C, C],
+    b_qkv: [3C] (timm fused-qkv layout, rows ordered qkv-slot, head, dim);
+    w_proj: [C, C], b_proj: [C]. A CPU tensor takes the plain versions (any
+    float dtype); a CUDA tensor launches the kernels (bf16 x, f32 params).
+    """
+    return _FusedBlockAttention.apply(x, gamma, beta, w_qkv, b_qkv, w_proj,
+                                      b_proj, num_heads, eps)

@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from artgraph_tpu import config
+from artgraph_tpu_torch import config
 from artgraph_tpu_torch.ops import _build
 
 # Launches of the CUDA kernel by `normalize_images` since the last reset.

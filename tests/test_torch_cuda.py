@@ -6,18 +6,27 @@ no jax, so it runs on a GPU host without the JAX package:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (tests/conftest.py imports jax, hence --noconftest there.) Tolerances: the
-block kernels at rtol = atol = 3e-2 in bf16 (they round where the plain
-versions round and differ in accumulation order only), the normalize
-bit-exact. The f32 plain references run with TF32 off.
+block kernels' outputs and dx at rtol = atol = 3e-2 in bf16 (they round where
+the plain versions round and differ in accumulation order only); their f32
+parameter gradients at relative L2 <= GRAD_REL_L2 and max|a-b| / mean|a| <=
+GRAD_MAX_REL, well inside the JAX tests' bf16 gradient bound of 0.2
+(tests/test_mlp_kernel.py); the K third of db_qkv, zero in exact arithmetic,
+by absolute error only; the normalize bit-exact. The f32 plain references
+run with TF32 off.
 """
 import numpy as np
 import pytest
 import torch
 
-from artgraph_tpu_torch.ops import (attention, block_attention_plain,
+from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
+                                    block_attention_plain, block_mlp_bwd_plain,
                                     block_mlp_plain, fused_block_attention,
                                     fused_block_mlp, mlp, normalize_images,
                                     normalize_images_plain, preprocess)
+
+GRAD_REL_L2 = 2e-2
+GRAD_MAX_REL = 0.1
+GRAD_NAMES = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 
 
 def block_inputs(B, N, C, dense_shapes, seed):
@@ -69,6 +78,76 @@ def test_cuda_block_kernels_match_plain(N, C, H, Hd):
         ref = plain(tx, *params, *extra)
         torch.testing.assert_close(ours.float(), ref.float(), rtol=3e-2,
                                    atol=3e-2)
+
+
+def check_grads(ours, ref, kind: str, C: int) -> None:
+    """dx at rtol = atol = 3e-2, each f32 parameter gradient by relative L2
+    and max|a-b| / mean|a|; for the attention block the K third of db_qkv
+    (exactly zero in exact arithmetic) by absolute error against the scale
+    of the whole db_qkv."""
+    torch.testing.assert_close(ours[0].float(), ref[0].float(), rtol=3e-2,
+                               atol=3e-2)
+    for name, a, r in zip(GRAD_NAMES, ours[1:], ref[1:]):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        a, r = a.double(), r.double()
+        if kind == "attention" and name == "db1":
+            scale = r.abs().mean()
+            k_err = (a[C:2 * C] - r[C:2 * C]).abs().max()
+            assert k_err <= GRAD_MAX_REL * scale, (name, float(k_err))
+            a, r = torch.cat((a[:C], a[2 * C:])), torch.cat((r[:C], r[2 * C:]))
+        rel_l2 = (a - r).norm() / r.norm()
+        max_rel = (a - r).abs().max() / r.abs().mean()
+        assert rel_l2 <= GRAD_REL_L2 and max_rel <= GRAD_MAX_REL, (
+            kind, name, float(rel_l2), float(max_rel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H,Hd", [(128, 2, 512), (192, 3, 320)])
+@pytest.mark.parametrize("N", [17, 197])
+def test_cuda_block_bwd_kernels_match_plain(N, C, H, Hd):
+    """The backward kernels against the plain backward, B = 3 (K = 3N rows
+    in the weight-gradient GEMMs: a ragged tail of the 32-row K step)."""
+    _need_cuda()
+    B = 3
+    do = torch.from_numpy(np.random.default_rng(N + C).normal(
+        size=(B, N, C)).astype(np.float32)).to("cuda", torch.bfloat16)
+    for kind, bwd, plain, outs, extra in (
+            ("attention", attention.block_attention_bwd_cuda,
+             block_attention_bwd_plain, ((C, 3 * C), (C, C)), (H,)),
+            ("mlp", mlp.block_mlp_bwd_cuda, block_mlp_bwd_plain,
+             ((C, Hd), (Hd, C)), ())):
+        x, gamma, beta, lin = block_inputs(B, N, C, outs, seed=N + 1)
+        tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
+        tx, params = tx.cuda(), [p.cuda() for p in params]
+        ours = bwd(tx, *params, do, *extra, 1e-6)
+        torch.cuda.synchronize()
+        ref = plain(tx, *params[:5], do, *extra)
+        check_grads(ours, ref, kind, C)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_reaches_every_block_parameter(monkeypatch):
+    """backward() through both block ops on cuda: each parameter gets a
+    finite f32 gradient from the backward kernels, x a bf16 one."""
+    _need_cuda()
+    for mod in (attention, mlp):
+        monkeypatch.setattr(mod, "LAUNCHES_BWD", 0)
+    C, H = 128, 2
+    x, gamma, beta, lin = block_inputs(2, 17, C, ((C, 3 * C), (C, C)), seed=3)
+    tx, ap = torch_args(x, gamma, beta, lin, torch.bfloat16)
+    _, _, _, lin = block_inputs(2, 17, C, ((C, 4 * C), (4 * C, C)), seed=4)
+    _, mp = torch_args(x, gamma, beta, lin, torch.bfloat16)
+    tx = tx.cuda().requires_grad_()
+    ap = [p.cuda().requires_grad_() for p in ap]
+    mp = [p.cuda().requires_grad_() for p in mp]
+    out = fused_block_mlp(fused_block_attention(tx, *ap, H), *mp)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD) == (1, 1)
+    assert tx.grad.dtype == torch.bfloat16
+    for p in (*ap, *mp):
+        assert p.grad is not None and p.grad.dtype == torch.float32
+        assert torch.isfinite(p.grad).all()
 
 
 @pytest.mark.cuda
