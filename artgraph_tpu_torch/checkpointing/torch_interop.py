@@ -11,7 +11,8 @@ arrays) into that state_dict: Linear kernels [in, out] -> [out, in], convs
 HWIO -> OIHW. It is numpy-only and re-states the ViT half of
 artgraph_tpu.checkpointing.torch_interop.export_model_state, which the port
 cannot import (that package pulls in jax); tests/test_torch_predict.py holds
-the two equal key for key.
+the two equal key for key. `gnn_state_from_flax` does the same for the GNN
+stage's `HeteroSGNN`, whose port keeps the flax names.
 """
 from __future__ import annotations
 
@@ -99,6 +100,47 @@ def state_dict_from_flax(model_name: str, variables: dict
         lin = params[flax_name]["linear"]
         sd[f"{tprefix}.1.weight"] = _linear(lin["kernel"])
         sd[f"{tprefix}.1.bias"] = _f32(lin["bias"])
+    return sd
+
+
+def _flat(tree: dict, prefix: str) -> dict[str, np.ndarray]:
+    """A nested dict of arrays -> {'prefix.a.b': f32 array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}.{k}"))
+        else:
+            out[f"{prefix}.{k}"] = _f32(v)
+    return out
+
+
+def gnn_state_from_flax(variables: dict) -> dict[str, np.ndarray]:
+    """A flax `HeteroSGNN`'s {'params', 'batch_stats'} -> the state_dict of
+    the port's models.gnn.HeteroSGNN (numpy). The port keeps the flax names
+    and layouts, so the map is mechanical:
+
+      <conv>__<src>__<rel>__<dst>/<leaf path> -> convs.<same name>.<leaf path>
+      bn<i>__<type>/{scale, bias}             -> bns.<same name>.{weight, bias}
+      batch_stats bn<i>__<type>/{mean, var}   -> bns.<same name>.running_*
+      prelu<i>                                -> prelu.prelu<i>
+
+    A gradient tree of the params ({'params': grads}) maps the same way.
+    """
+    sd: dict[str, np.ndarray] = {}
+    for name, tree in variables["params"].items():
+        if name.startswith("conv"):
+            sd.update(_flat(tree, f"convs.{name}"))
+        elif name.startswith("bn"):
+            sd[f"bns.{name}.weight"] = _f32(tree["scale"])
+            sd[f"bns.{name}.bias"] = _f32(tree["bias"])
+        elif name.startswith("prelu"):
+            sd[f"prelu.{name}"] = _f32(tree)
+        else:
+            raise ValueError(f"unexpected HeteroSGNN parameter {name!r}")
+    for name, stats in variables.get("batch_stats", {}).items():
+        sd[f"bns.{name}.running_mean"] = _f32(stats["mean"])
+        sd[f"bns.{name}.running_var"] = _f32(stats["var"])
+        sd[f"bns.{name}.num_batches_tracked"] = np.zeros((), np.int64)
     return sd
 
 

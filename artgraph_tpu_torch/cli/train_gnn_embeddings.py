@@ -1,0 +1,164 @@
+"""KG node-embedding producer (pipeline stage 1) on the GPU: full-batch
+transductive hetero-GNN training.
+
+Port of artgraph_tpu/cli/train_gnn_embeddings.py (ref:
+src/train_gnn_embeddings.py). It loads the 4 graph variants (train,
+train_train, train_validation, train_test) from config.DATASET_DIR, applies
+ToUndirected and, for GATConv, the pyg 2.0.2 self-loops, sorts every
+relation by destination once (`with_csr`, metadata on the device), trains a
+2-layer HeteroSGNN (hidden 128, sum aggregation, BN, dropout 0.4) with NLL on
+the artwork nodes and Adam, prints the metrics every 5 epochs, then saves
+the 128-dim artwork hidden states of an eval forward on the full train graph
+under the reference's two file names in config.EMBEDDINGS_DIR:
+
+    python -m artgraph_tpu_torch.cli.train_gnn_embeddings --label style
+
+Same flags and defaults as the JAX CLI, plus `--device` (default `cuda`). On
+`cuda` every GATConv runs the CSR softmax kernel forward and the segment-sum
+and scalar-sum kernels in its backward. `--no_epoch_scan` is accepted and
+changes nothing: the port dispatches one step per epoch either way, which is
+what the JAX CLI's epoch chunks compute. `--data_parallel` other than 0 and
+`--resume` are not ported (ROADMAP.md §1).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from artgraph_tpu_torch import config
+from artgraph_tpu_torch.cli._common import resolve_device
+from artgraph_tpu_torch.data.artgraph import (ArtGraph, gat_self_loops,
+                                              to_undirected, with_csr)
+from artgraph_tpu_torch.data.embeddings import save_embedding
+from artgraph_tpu_torch.models.gnn import (HeteroSGNN, feature_dims,
+                                          graph_tensors)
+from artgraph_tpu_torch.train import adam, nll_loss
+
+
+def get_accuracy(log_probs: torch.Tensor, labels: torch.Tensor) -> float:
+    return float((log_probs.argmax(1) == labels).float().mean())
+
+
+def load_graphs(dataset_dir: str, operator: str, self_loops: bool,
+                device: torch.device) -> dict:
+    """The 4 graph variants, undirected, with GAT self-loops when asked, as
+    (x_dict, edge_dict, csr_dict, labels) on `device`."""
+    graphs = {}
+    for name, split in (("train", "train"), ("train_train", "train"),
+                        ("train_validation", "validation"),
+                        ("train_test", "test")):
+        g = to_undirected(ArtGraph(os.path.join(dataset_dir, name),
+                                   preprocess='one-hot', features=True,
+                                   type=split)[0])
+        if operator == 'GATConv' and self_loops:
+            g = gat_self_loops(g)
+        g, csr = with_csr(g, device)
+        x, edges = graph_tensors(g, device)
+        labels = {k: torch.from_numpy(v.astype(np.int64)).to(device)
+                  for k, v in g.labels.items()}
+        graphs[name] = (g, x, edges, csr, labels)
+    return graphs
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--label', type=str, default='style',
+                        help='Label to predict (style|genre).')
+    parser.add_argument('--operator', type=str, default='GATConv',
+                        help='GCN operator.')
+    parser.add_argument('--lr', type=float, default=0.01, help='Learning rate.')
+    parser.add_argument('--epochs', type=int, default=50, help='Epochs.')
+    parser.add_argument('--activation', type=str, default='relu',
+                        help='Activation (relu|prelu).')
+    parser.add_argument('--data_parallel', type=int, default=0,
+                        help='Devices for edge-sharded message passing '
+                             '(0 = single device; the only value ported).')
+    parser.add_argument('--no_self_loops', action='store_true',
+                        help='Disable the PyG GATConv add_self_loops=True '
+                             'semantics (reference default adds min(N_src, '
+                             'N_dst) self-loops per relation).')
+    parser.add_argument('--resume', type=str, default=None,
+                        help='Checkpoint directory for crash recovery (not '
+                             'ported).')
+    parser.add_argument('--no_epoch_scan', action='store_true',
+                        help='Accepted for the JAX CLI\'s surface; the port '
+                             'runs one step per epoch either way.')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help='Torch device to train on (cuda, cuda:N or cpu).')
+    args = parser.parse_args(argv)
+    if args.data_parallel:
+        raise NotImplementedError(
+            f"--data_parallel {args.data_parallel}: the edge-sharded GNN is "
+            f"not ported yet (ROADMAP.md §1, data parallelism)")
+    if args.resume:
+        raise NotImplementedError(
+            "--resume: crash recovery is not ported yet (ROADMAP.md §1)")
+    device = resolve_device(args.device)
+
+    graphs = load_graphs(config.DATASET_DIR, args.operator,
+                         not args.no_self_loops, device)
+    label = args.label
+    g_train = graphs["train_train"][0]
+    torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
+    model = HeteroSGNN(metadata=g_train.metadata,
+                       in_channels=feature_dims(g_train.node_features),
+                       operator=args.operator, activation=args.activation,
+                       aggr='sum', hidden_channels=128,
+                       out_channels=config.NUM_CLASSES[label], n_layers=2,
+                       dropout=0.4).to(device)
+    optimizer = adam(args.lr)(model.parameters())
+    generator = torch.Generator(device).manual_seed(config.GLOBAL_SEED)
+
+    def forward(name: str, train: bool):
+        _, x, edges, csr, labels = graphs[name]
+        model.train(train)
+        emb, outs = model(x, edges, csr=csr, generator=generator)
+        logp = outs[0]["artwork"]
+        return nll_loss(logp, labels[f"y_{label}"]), logp, emb["artwork"]
+
+    @torch.no_grad()
+    def evaluate(name: str):
+        loss, logp, emb = forward(name, train=False)
+        return float(loss), get_accuracy(
+            logp, graphs[name][4][f"y_{label}"]), emb
+
+    def print_metrics(train_loss, train_acc, val_loss, val_acc):
+        print(f'{label}_train_loss', round(train_loss, 4))
+        print(f'{label}_train_accuracy', round(train_acc, 2) * 100)
+        print(f'{label}_val_loss', round(val_loss, 4))
+        print(f'{label}_val_accuracy', round(val_acc, 2) * 100)
+
+    train_loss = train_acc = 0.0
+    for epoch in range(args.epochs):
+        loss, logp, _ = forward("train_train", train=True)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        train_loss = loss.item()
+        train_acc = get_accuracy(logp.detach(),
+                                 graphs["train_train"][4][f"y_{label}"])
+        if epoch % 5 == 0:
+            val_loss, val_acc, _ = evaluate("train_validation")
+            print_metrics(train_loss, train_acc, val_loss, val_acc)
+
+    val_loss, val_acc, _ = evaluate("train_validation")
+    test_loss, test_acc, _ = evaluate("train_test")
+    print_metrics(train_loss, train_acc, val_loss, val_acc)
+    print(f'{label}_test_loss', round(test_loss, 4))
+    print(f'{label}_test_accuracy', round(test_acc, 2) * 100)
+
+    # save_embeddings (ref :82-93): eval forward on the FULL train graph; the
+    # artwork embedding is the post-BN pre-activation hidden state
+    print('Saving embeddings...')
+    _, _, emb = evaluate("train")
+    os.makedirs(config.EMBEDDINGS_DIR, exist_ok=True)
+    for stem in (f"test_gnn_artwork_{label}_embs", f"test_gnn_{label}_embs"):
+        save_embedding(os.path.join(config.EMBEDDINGS_DIR, f"{stem}.pt"), emb)
+    print('Saved.')
+
+
+if __name__ == '__main__':
+    main()

@@ -4,8 +4,8 @@ A copy of the constants the port needs from artgraph_tpu/config.py (the
 reference's src/config.py paths plus the per-script literals), kept here so
 that nothing of the port imports the JAX package. The path constants take
 the same `ARTGRAPH_*` environment overrides, read when this module is first
-imported. The embeddings, projections and results paths join when the
-stages that read them are ported.
+imported. The projections and results paths join when the stages that
+read them are ported.
 """
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ import os
 # --- Path constants (ref: src/config.py:1-7). Same defaults, env-overridable.
 IMAGE_DIR = os.environ.get("ARTGRAPH_IMAGE_DIR", "../../images/imagesf2")
 DATASET_DIR = os.environ.get("ARTGRAPH_DATASET_DIR", "../dataset")
+EMBEDDINGS_DIR = os.environ.get(
+    "ARTGRAPH_EMBEDDINGS_DIR", os.path.join(DATASET_DIR, "train", "embeddings")
+)
 CHECKPOINTS_DIR = os.environ.get("ARTGRAPH_CHECKPOINTS_DIR", "../checkpoints")
 
 # --- Task constants (ref: train_baseline.py:27-30 et al.).

@@ -1,4 +1,5 @@
-"""The port's models: ViT-B/16 trunk and the four ViT heads."""
+"""The port's models: ViT-B/16 trunk and the four ViT heads; the
+hetero-GNN of the KG-embedding stage is `models.gnn`, imported by name."""
 from artgraph_tpu_torch.models.heads import (NewMultiModalMultiTaskViT,
                                              NewMultiModalSingleTaskVit,
                                              ViTMultiTask, ViTSingleTask)

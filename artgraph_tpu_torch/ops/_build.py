@@ -49,6 +49,12 @@ _SIGNATURES = {
                                _I, _P), _I),
     "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _P), _I),
     "ag_normalize_u8": ((_P, _P, _I, _F, _F, _F, _F, _F, _F, _P), _I),
+    "ag_csr_sum_f32": ((_P, _P, _I, _I, _I, _P, _P, _I, _I, _P), _I),
+    "ag_csr_weighted_sum_f32": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
+                                 _P), _I),
+    "ag_csr_softmax_f32": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                            _P), _I),
+    "ag_csr_scalar_sum_f32": ((_P, _P, _P, _I, _P), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,10 +1,11 @@
-"""Cross-entropy with torch-criterion semantics over masked static batches.
+"""Cross-entropy and NLL with torch-criterion semantics over masked batches.
 
-Port of artgraph_tpu/train/losses.py:cross_entropy (without the data-mesh
-psum scope). torch.nn.CrossEntropyLoss with class weights divides by the SUM
-OF SAMPLE WEIGHTS, not the batch size; padded rows of the static-shape final
-batch carry mask 0 and drop out of both sums. The softmax runs in f32 (f64
-inputs stay f64).
+Port of artgraph_tpu/train/losses.py:cross_entropy and nll_loss (without the
+data-mesh psum scope, and nll_loss without the mask no caller passes).
+torch.nn.CrossEntropyLoss with class weights divides by the SUM OF SAMPLE
+WEIGHTS, not the batch size; padded rows of the static-shape final batch
+carry mask 0 and drop out of both sums. The softmax runs in f32 (f64 inputs
+stay f64).
 """
 from __future__ import annotations
 
@@ -28,3 +29,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         weights = weights * mask.to(per_sample)
     return (per_sample * weights).sum() / weights.sum().clamp_min(1e-12)
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """torch F.nll_loss over precomputed log-probabilities [N, C]: the mean
+    of -log_probs[i, labels[i]], in f32 (f64 inputs stay f64)."""
+    log_probs = log_probs.to(torch.promote_types(log_probs.dtype,
+                                                 torch.float32))
+    return -log_probs.gather(-1, labels.long()[:, None]).mean()

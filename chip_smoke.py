@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths and its
+KG-embedding stage (the hetero-GAT of train_gnn_embeddings) once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It imports nothing of JAX or of the JAX package, and no PIL or pandas outside
-the CLI phase (whose data decode and results need them). Phases, each
-printing its lines; any failure raises and exits non-zero:
+It imports nothing of JAX or of the JAX package; PIL only in the ViT CLI
+phase (data decode), pandas there and with the KG container of the GNN
+phases. Phases, each printing its lines; any failure raises and exits
+non-zero:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions;
               no CUDA -> exit 1 before anything else
@@ -50,6 +52,28 @@ printing its lines; any failure raises and exits non-zero:
               (tests/_make_synth.py), with ARTGRAPH_CHECKPOINTS_DIR in a
               temporary directory: its train/valid/test lines, and its
               checkpoint reloaded with load_reference_checkpoint.
+  9. gnn train  HeteroSGNN GATConv (hidden 128, out 32, 2 layers, BN,
+              dropout 0.4, adam(0.01)) on cuda on the JAX package's GNN
+              benchmark graph (bench.py:221-246, from a numpy seed): 100K
+              artworks, 4 relations and their reverses of 1M edges each.
+              2 warm-up steps, then 5 timed steps with the counters zeroed
+              just before: the softmax kernel 3R per step (R = 8 relations),
+              the sum and scalar kernels once per backward of a conv on a
+              path to the loss, the weighted kernel never; losses finite
+              and falling; edges/s, ms/step, peak memory, one eval forward,
+              and 2 profiled steps.
+ 10. gnn grads  one train-mode step (dropout 0) on a reduced graph of the same
+              schema: loss, artwork embeddings, the concatenated parameter
+              gradient and the BN running statistics, kernels on cuda
+              against the plain path in f32 on the CPU, at relative L2 <=
+              GNN_GRAD_REL_L2.
+ 11. gnn cli  cli.train_gnn_embeddings --device cuda --epochs 6 on a small KG
+              tree written here with pandas; its metric lines, and both
+              embedding files reloaded ([n_artwork, 128], finite).
+
+Phases 3 and 4 also hold the four CSR segment kernels (f32) against their
+plain twins in f64 at rtol = 1e-4, atol = 1e-3, bit-identical from call to
+call, at the benchmark graph's shapes, and time them (csr_kernel_phases).
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -84,7 +108,13 @@ SEED = 0
 BATCHES = 3
 TRAIN_WARMUP, TRAIN_STEPS, PROFILED_STEPS = 2, 8, 2
 PEAK_FLOPS = 989e12        # H100 SXM bf16 dense
+PEAK_F32 = 67e12           # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# the GNN stage at the JAX package's benchmark graph (bench.py:221-246)
+GNN_ARTWORKS, GNN_EDGES = 100_000, 1_000_000
+GNN_WARMUP, GNN_STEPS = 2, 5
+CSR_RTOL, CSR_ATOL = 1e-4, 1e-3   # hub bound of tests/test_csr_segment.py:49
+GNN_GRAD_REL_L2 = 1e-3     # one GNN step, kernels on cuda vs plain on the CPU
 
 
 def device_phase() -> None:
@@ -189,10 +219,12 @@ def _time_ms(fn, timings: int = 10, reps: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms, what bounds it): FLOPs at the bf16 dense peak or bytes
-    (each input read once, each output written once) at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flops: float, nbytes: float,
+           peak_flops: float = PEAK_FLOPS) -> tuple[float, str]:
+    """(least ms, what bounds it): FLOPs at the type's peak (bf16 dense by
+    default) or bytes (each input read once, each output written once) at
+    the HBM rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -355,13 +387,169 @@ def _counters():
             "fused_block_mlp_bwd": (mlp, "LAUNCHES_BWD")}
 
 
+def _csr_counters():
+    from artgraph_tpu_torch.ops import csr_segment
+
+    return {"csr_segment_sum": (csr_segment, "LAUNCHES_SUM"),
+            "csr_weighted_segment_sum": (csr_segment, "LAUNCHES_WEIGHTED"),
+            "csr_attention_aggregate": (csr_segment, "LAUNCHES_SOFTMAX"),
+            "csr_scalar_segment_sum": (csr_segment, "LAUNCHES_SCALAR")}
+
+
 def _zero_counts() -> None:
-    for mod, attr in _counters().values():
+    for mod, attr in (*_counters().values(), *_csr_counters().values()):
         setattr(mod, attr, 0)
 
 
-def _read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+def _read_counts(counters=_counters) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+
+
+def _csr_err(ours: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, worst error / (CSR_ATOL + CSR_RTOL |ref|)) of an f32
+    output against an f64 reference; equal values, infinities included (the
+    m of an empty segment), count as no error, a NaN as a failure."""
+    a, r = ours.double(), ref.double()
+    same = a == r
+    err = torch.where(same, 0.0, (a - r).abs())
+    ratio = torch.where(same, 0.0, err / (CSR_ATOL + CSR_RTOL * r.abs()))
+    return err.max().item(), ratio.max().item()
+
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def csr_kernel_phases() -> dict:
+    """Phases 3 and 4 for the four CSR segment kernels of the GNN stage, at
+    the benchmark graph's shapes: E = 1M edges into the 32 `style` hubs
+    (artwork -> style, "hub") and into 100K artworks (its reverse, "rev"),
+    rows of F = 128 (the hidden convs) and 32 (the output conv). Each output
+    against the plain twin in f64 on the same f32 inputs (the f32 twin sums
+    the hubs' 31K edges with float atomics in a varying order, so its own
+    error is printed beside), bit-identical from call to call; the softmax
+    also with one logit +200. A kernel's row in the kernels line sums its
+    cases' times and bounds."""
+    from artgraph_tpu_torch.ops import csr_segment as T
+
+    rng = np.random.default_rng(SEED + 30)
+    E = GNN_EDGES
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    graphs = {}
+    for label, S in (("hub", 32), ("rev", GNN_ARTWORKS)):
+        ei = np.stack([rng.integers(0, GNN_ARTWORKS, E),
+                       rng.integers(0, S, E)])
+        csr = T.build_csr(ei, S, "cuda")[1]
+        graphs[label] = (csr, torch.diff(csr.row_ptr).long())
+    rows = {F: dev(rng.normal(size=(E, F))) for F in (128, 32)}
+    w, logits = dev(rng.random(E)), dev(rng.normal(size=E))
+    hot = logits.clone()
+    hot[E // 2] += 200.0
+
+    def library(name, csr, lengths, data, v):
+        """One PyTorch composition per kernel: the yardstick."""
+        def seg(t, how="sum"):
+            return torch.segment_reduce(t, how, lengths=lengths, axis=0,
+                                        unsafe=True)
+
+        def softmax():
+            m = seg(v, "max")
+            e = torch.exp(v - m[csr.dst_sorted])
+            num = data.new_zeros((csr.num_segments, data.shape[1]))
+            return (num.index_add_(0, csr.dst_sorted, e[:, None] * data), m,
+                    e.new_zeros(csr.num_segments).index_add_(
+                        0, csr.dst_sorted, e))
+        return {"csr_segment_sum": lambda: seg(data),
+                "csr_weighted_segment_sum": lambda: (seg(v[:, None] * data),
+                                                     seg(v)),
+                "csr_attention_aggregate": softmax,
+                "csr_scalar_segment_sum": lambda: seg(v)}[name]
+
+    # name: kernel, plain twin, inputs of width F, (bytes, flops)(S, F),
+    # Pallas call replaced
+    specs = {
+        "csr_segment_sum": (
+            T.segment_sum_cuda, T.segment_sum_plain, lambda F: (rows[F],),
+            lambda S, F: (4 * (E * F + S + 1 + S * F), E * F),
+            "artgraph_tpu/ops/csr_segment.py:323"),
+        "csr_weighted_segment_sum": (
+            T.weighted_segment_sum_cuda, T.weighted_segment_sum_plain,
+            lambda F: (rows[F], w),
+            lambda S, F: (4 * (E * F + E + S + 1 + S * F + S), 2 * E * F + E),
+            "artgraph_tpu/ops/csr_segment.py:355"),
+        "csr_attention_aggregate": (
+            T.softmax_aggregate_cuda, T.softmax_aggregate_plain,
+            lambda F: (rows[F], logits),
+            lambda S, F: (4 * (E * F + E + S + 1 + S * F + 2 * S),
+                          2 * E * F + 4 * E),
+            "artgraph_tpu/ops/csr_segment.py:452"),
+        "csr_scalar_segment_sum": (
+            T.scalar_segment_sum_cuda, T.scalar_segment_sum_plain,
+            lambda F: (w,), lambda S, F: (4 * (E + S + 1 + S), E),
+            "artgraph_tpu/ops/csr_segment.py:504"),
+    }
+    results = {}
+    for name, (kernel, plain, inputs, cost, replaces) in specs.items():
+        row = {"name": name, "route": "cuda",
+               "source": "artgraph_tpu_torch/ops/csrc/csr_segment.cu",
+               "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+               "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": "bytes", "library_ms": 0.0}
+        widths = (1,) if name == "csr_scalar_segment_sum" else (128, 32)
+        for label, (csr, lengths) in graphs.items():
+            for F in widths:
+                args = inputs(F)
+                variants = [("", args)]
+                if name == "csr_attention_aggregate":
+                    variants.append((", one logit +200", (args[0], hot)))
+                for note, a in variants:
+                    ours, again = kernel(*a, csr), kernel(*a, csr)
+                    torch.cuda.synchronize()
+                    ours, again = _as_tuple(ours), _as_tuple(again)
+                    ref = _as_tuple(plain(*[t.double() for t in a], csr))
+                    ref32 = _as_tuple(plain(*a, csr))
+                    if not all(torch.equal(x, y) for x, y in zip(ours, again)):
+                        raise AssertionError(f"{name} ({label}, F={F}{note}) "
+                                             f"differs from call to call")
+                    errs = [_csr_err(x, r) for x, r in zip(ours, ref)]
+                    max_abs = max(e[0] for e in errs)
+                    ratio = max(e[1] for e in errs)
+                    plain_ratio = max(_csr_err(x, r)[1]
+                                      for x, r in zip(ref32, ref))
+                    shape = [E] + ([F] if name != "csr_scalar_segment_sum"
+                                   else [])
+                    print(f"check: {name} {label} S={csr.num_segments} "
+                          f"{shape} f32{note} vs plain in f64: max abs "
+                          f"{max_abs:.4g}, worst err/(atol+rtol|ref|) "
+                          f"{ratio:.4g} (the f32 plain twin's own: "
+                          f"{plain_ratio:.4g}); bit-identical on repeat",
+                          flush=True)
+                    if not ratio <= 1.0:
+                        raise AssertionError(
+                            f"{name} ({label}, F={F}{note}) disagrees with "
+                            f"its plain twin beyond rtol={CSR_RTOL}, "
+                            f"atol={CSR_ATOL}")
+                    row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+                ms = _time_ms(lambda: kernel(*args, csr))
+                plain_ms = _time_ms(lambda: plain(*args, csr))
+                library_ms = _time_ms(library(name, csr, lengths, args[0],
+                                              args[-1]))
+                nbytes, flops = cost(csr.num_segments, F)
+                bound_ms, bound_by = _bound(flops, nbytes, PEAK_F32)
+                print(f"time: {name} {label} S={csr.num_segments} F={F} "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                      f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({bound_by}) (median of 10 CUDA-event timings of 10 "
+                      f"calls)", flush=True)
+                row["ms"] += ms
+                row["plain_ms"] += plain_ms
+                row["library_ms"] += library_ms
+                row["bound_ms"] += bound_ms
+                row["bound_by"] = bound_by
+        results[name] = row
+    del rows, graphs
+    torch.cuda.empty_cache()
+    return results
 
 
 def serve_phase() -> dict:
@@ -435,7 +623,8 @@ def serve_phase() -> dict:
     return launches
 
 
-def _profile_steps(step, steps: int, step_ms: float) -> None:
+def _profile_steps(step, steps: int, step_ms: float,
+                   label: str = "train") -> None:
     """Device time by kernel over `steps` profiled steps, and the device idle
     share against the unprofiled step time."""
     from torch.autograd import DeviceType
@@ -455,15 +644,15 @@ def _profile_steps(step, steps: int, step_ms: float) -> None:
         kernels.append((us / steps / 1e3, e.count // steps, e.key))
     busy = sum(ms for ms, _, _ in kernels)
     if busy <= 0:
-        print("train profile: the profiler saw no device time; idle share "
+        print(f"{label} profile: the profiler saw no device time; idle share "
               "not measured", flush=True)
         return
     kernels.sort(reverse=True)
-    print(f"train profile: device busy {busy:.3f} ms per step against "
+    print(f"{label} profile: device busy {busy:.3f} ms per step against "
           f"{step_ms:.3f} ms per unprofiled step: idle share "
           f"{max(0.0, 1 - busy / step_ms):.4f}", flush=True)
     for ms, calls, name in kernels[:14]:
-        print(f"train profile:   {ms:8.3f} ms/step {100 * ms / busy:5.1f}% "
+        print(f"{label} profile:   {ms:8.3f} ms/step {100 * ms / busy:5.1f}% "
               f"{calls:4d} calls  {name[:110]}", flush=True)
 
 
@@ -598,6 +787,263 @@ def cli_phase(checkpoints_dir: Path) -> None:
           f"test accuracy {acc}", flush=True)
 
 
+def _bench_graph(artworks: int, edges_per_rel: int, artists: int, tags: int,
+                 seed: int):
+    """The JAX package's GNN benchmark graph (bench.py:221-246) as the
+    port's HeteroGraph, from a numpy seed: artworks with 128-d features, 32
+    styles, 18 genres, the artists and tags one-hot; 4 relations out of the
+    artworks, each with its reverse, of `edges_per_rel` random edges; random
+    style labels."""
+    from artgraph_tpu_torch.data.artgraph import HeteroGraph, OneHot
+
+    rng = np.random.default_rng(seed)
+    num = {"artwork": artworks, "style": 32, "genre": 18, "artist": artists,
+           "tag": tags}
+    feats = {t: OneHot(n) for t, n in num.items() if t != "artwork"}
+    feats["artwork"] = rng.normal(size=(artworks, 128)).astype(np.float32)
+    edges = {}
+    for h, r, t in (("artwork", "style_rel", "style"),
+                    ("artwork", "genre_rel", "genre"),
+                    ("artwork", "author_rel", "artist"),
+                    ("artwork", "about_rel", "tag")):
+        e = np.stack([rng.integers(0, num[h], edges_per_rel),
+                      rng.integers(0, num[t], edges_per_rel)]).astype(np.int32)
+        edges[(h, r, t)] = e
+        edges[(t, f"rev_{r}", h)] = e[::-1].copy()
+    labels = {"y_style": rng.integers(0, 32, artworks).astype(np.int32)}
+    return HeteroGraph(node_features=feats, num_nodes=num, edges=edges,
+                       labels=labels)
+
+
+def _gnn_model(graph, dropout: float):
+    """HeteroSGNN as train_gnn_embeddings builds it (GATConv, hidden 128,
+    out 32, 2 layers, sum, BN), seeded weights, on the CPU."""
+    from artgraph_tpu_torch.models.gnn import HeteroSGNN, feature_dims
+
+    torch.manual_seed(SEED)
+    return HeteroSGNN(graph.metadata, feature_dims(graph.node_features),
+                      operator="GATConv", hidden_channels=128,
+                      out_channels=32, n_layers=2, dropout=dropout)
+
+
+def _graph_on(graph, device: str):
+    """(x, edges, csr, y) on `device`: edges sorted by destination and the
+    CSR metadata built once (with_csr)."""
+    from artgraph_tpu_torch.data.artgraph import with_csr
+    from artgraph_tpu_torch.models.gnn import graph_tensors
+
+    g, csr = with_csr(graph, device)
+    x, edges = graph_tensors(g, device)
+    y = torch.from_numpy(g.labels["y_style"].astype(np.int64)).to(device)
+    return x, edges, csr, y
+
+
+def _gnn_loss(model, x, edges, csr, y, generator=None):
+    from artgraph_tpu_torch.train import nll_loss
+
+    emb, outs = model(x, edges, csr=csr, generator=generator)
+    return nll_loss(outs[0]["artwork"], y), emb
+
+
+def gnn_train_phase() -> dict:
+    """Phase 9: HeteroSGNN GAT training steps on the benchmark graph on cuda
+    (100K artworks, 8 relations of 1M edges)."""
+    from artgraph_tpu_torch.train import adam
+
+    t0 = time.perf_counter()
+    graph = _bench_graph(GNN_ARTWORKS, GNN_EDGES, 5_000, 10_000, SEED)
+    x, edges, csr, y = _graph_on(graph, "cuda")
+    model = _gnn_model(graph, 0.4).cuda().train()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    opt = adam(0.01)(model.parameters())
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def step():
+        loss, _ = _gnn_loss(model, x, edges, csr, y, gen)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(GNN_WARMUP)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(GNN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, vit = _read_counts(_csr_counters), _read_counts()
+    # the softmax kernel runs in every conv's forward; the sum and scalar
+    # kernels in the backward of every conv on a path to the loss, which
+    # reads the artwork log-probs only: all hidden convs, and the output
+    # convs into the artworks (autograd never reaches the others)
+    n_rel = len(graph.edges)
+    into_artwork = sum(t == "artwork" for _, _, t in graph.edges)
+    bwd = (2 * n_rel + into_artwork) * GNN_STEPS
+    expect = {"csr_segment_sum": bwd, "csr_weighted_segment_sum": 0,
+              "csr_attention_aggregate": 3 * n_rel * GNN_STEPS,
+              "csr_scalar_segment_sum": bwd}
+    if counts != expect or any(vit.values()):
+        raise AssertionError(f"gnn train: launch counts {counts} and {vit}, "
+                             f"expected {expect} and none of the ViT kernels")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    total_edges = sum(e.shape[1] for e in graph.edges.values())
+    step_ms = 1e3 * seconds / GNN_STEPS
+    print(f"gnn train: HeteroSGNN GATConv hidden 128, out 32, 2 layers, BN, "
+          f"dropout 0.4, adam(0.01) on cuda; {GNN_ARTWORKS} artworks, "
+          f"{n_rel} relations, {total_edges} edges (setup {setup_s:.1f} s): "
+          f"{GNN_STEPS} steps in {seconds:.4f} s, {step_ms:.3f} ms/step, "
+          f"{total_edges * GNN_STEPS / seconds:.4g} edges/s; peak memory "
+          f"{peak_gb:.2f} GB (max_memory_allocated); launches {counts}; "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"gnn train: losses not finite and falling: "
+                             f"{losses}")
+    model.eval()
+
+    def embed():
+        with torch.no_grad():
+            return model(x, edges, csr=csr)[0]["artwork"]
+
+    emb = embed()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embed()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    if emb.shape != (GNN_ARTWORKS, 128) or not torch.isfinite(emb).all():
+        raise AssertionError(f"gnn eval: embeddings {tuple(emb.shape)} not "
+                             f"finite or not [{GNN_ARTWORKS}, 128]")
+    print(f"gnn eval: one eval forward (the embedding save) "
+          f"{float(np.median(times)):.3f} ms (median of 3), embeddings "
+          f"{list(emb.shape)} finite", flush=True)
+    model.train()
+    _profile_steps(step, PROFILED_STEPS, step_ms, label="gnn")
+    del model, opt, x, edges, csr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gnn_grad_phase() -> None:
+    """Phase 10: one train-mode GNN step (dropout 0) on a reduced graph of
+    the benchmark's schema, the kernels on cuda against the plain path in
+    f32 on the CPU with the same weights."""
+    import copy
+
+    graph = _bench_graph(5_000, 20_000, 250, 500, SEED + 40)
+    src = _gnn_model(graph, 0.0)
+    got = {}
+    for device in ("cuda", "cpu"):
+        x, edges, csr, y = _graph_on(graph, device)
+        model = copy.deepcopy(src).to(device).train()
+        loss, emb = _gnn_loss(model, x, edges, csr, y)
+        loss.backward()
+        reached = [p.grad is not None for p in model.parameters()]
+        grads = torch.cat([(p.grad if p.grad is not None
+                            else torch.zeros_like(p)).flatten()
+                           for p in model.parameters()])
+        stats = torch.cat([b.flatten().double() for n, b in
+                           model.named_buffers() if "running" in n])
+        got[device] = (reached, loss.item(),
+                       *[t.detach().cpu().double()
+                         for t in (emb["artwork"], grads, stats)])
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    (r_gpu, l_gpu, *gpu), (r_cpu, l_cpu, *cpu) = got["cuda"], got["cpu"]
+    rels = {"loss": abs(l_gpu - l_cpu) / abs(l_cpu),
+            **{k: rel(a, b) for k, a, b in zip(
+                ("artwork embeddings", "parameter gradient", "BN stats"),
+                gpu, cpu)}}
+    print(f"gnn grads: one step, {graph.num_nodes['artwork']} artworks, "
+          f"{sum(e.shape[1] for e in graph.edges.values())} edges, kernels "
+          f"on cuda vs plain f32 on the CPU: relative L2 "
+          f"{ {k: float(f'{v:.4g}') for k, v in rels.items()} } (bound "
+          f"{GNN_GRAD_REL_L2}); {sum(r_gpu)} of {len(r_gpu)} parameter "
+          f"tensors reached on both", flush=True)
+    if r_gpu != r_cpu or not all(v <= GNN_GRAD_REL_L2 for v in rels.values()):
+        raise AssertionError(f"gnn grads: {rels} beyond {GNN_GRAD_REL_L2}, "
+                             f"or other parameters reached")
+
+
+def _write_kg(root: Path, seed: int) -> dict:
+    """A small ArtGraph KG tree (the layout of tests/conftest.py's
+    synthetic_graph): the 4 graph variants, each with 128-d artwork
+    features, style/genre labels, num-node-dict and the 9 relations."""
+    import pandas as pd
+
+    from artgraph_tpu_torch.data.artgraph import EDGE_TYPES
+
+    rng = np.random.default_rng(seed)
+    counts = {"artwork": 200, "artist": 20, "gallery": 6, "style": 8,
+              "genre": 6, "tag": 30, "media": 5, "field": 4, "movement": 4}
+    for name in ("train", "train_train", "train_validation", "train_test"):
+        raw = root / name / "raw"
+        (raw / "node-feat" / "artwork").mkdir(parents=True)
+        (raw / "node-label" / "artwork").mkdir(parents=True)
+        pd.DataFrame(rng.normal(size=(counts["artwork"], 128)).astype(
+            np.float32)).to_csv(raw / "node-feat" / "artwork" /
+                                "node-feat.csv", header=False, index=False)
+        for label in ("style", "genre"):
+            pd.Series(rng.integers(0, counts[label], counts["artwork"])
+                      .astype(np.float32)).to_csv(
+                raw / "node-label" / "artwork" / f"node-label-{label}.csv",
+                header=False, index=False)
+        pd.DataFrame({k: [v] for k, v in counts.items()}).to_csv(
+            raw / "num-node-dict.csv", index=False)
+        for h, r, t in EDGE_TYPES:
+            d = raw / "relations" / f"{h}___{r}___{t}"
+            d.mkdir(parents=True)
+            pd.DataFrame({"src": rng.integers(0, counts[h], 400),
+                          "dst": rng.integers(0, counts[t], 400)}).to_csv(
+                d / "edge.csv", header=False, index=False)
+    return counts
+
+
+def gnn_cli_phase() -> None:
+    """Phase 11: cli.train_gnn_embeddings --device cuda --epochs 6 on a
+    small KG tree; both embedding files reloaded."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli import train_gnn_embeddings
+    from artgraph_tpu_torch.data.embeddings import load_embedding
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = _write_kg(root / "kg", SEED + 50)
+        saved = config.DATASET_DIR, config.EMBEDDINGS_DIR
+        config.DATASET_DIR, config.EMBEDDINGS_DIR = (str(root / "kg"),
+                                                     str(root / "emb"))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                train_gnn_embeddings.main(["--device", "cuda", "--epochs",
+                                           "6"])
+        finally:
+            config.DATASET_DIR, config.EMBEDDINGS_DIR = saved
+        seconds = time.perf_counter() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            print(f"gnn cli: {line}")
+        if text.count("style_val_loss") != 3 or "style_test_accuracy" \
+                not in text or "Saved." not in text:
+            raise AssertionError("gnn cli: missing metric lines")
+        shapes = []
+        for stem in ("test_gnn_artwork_style_embs", "test_gnn_style_embs"):
+            emb = load_embedding(str(root / "emb" / f"{stem}.pt"))
+            if emb.shape != (counts["artwork"], 128) \
+                    or not np.isfinite(emb).all():
+                raise AssertionError(f"gnn cli: {stem}.pt is {emb.shape} or "
+                                     f"not finite")
+            shapes.append(f"{stem}.pt {list(emb.shape)}")
+    print(f"gnn cli: train_gnn_embeddings --device cuda --epochs 6 on a "
+          f"{counts['artwork']}-artwork KG in {seconds:.1f} s; reloaded "
+          f"{', '.join(shapes)}, finite", flush=True)
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -609,11 +1055,15 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         build_phase()
         kernels = kernel_phases()
+        kernels.update(csr_kernel_phases())
         launches = serve_phase()
         for k, n in train_phase().items():
             launches[k] += n
         grad_phase()
         cli_phase(checkpoints_dir)
+        launches.update(gnn_train_phase())
+        gnn_grad_phase()
+        gnn_cli_phase()
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
     for name, n in launches.items():

@@ -12,7 +12,9 @@ parameter gradients at relative L2 <= GRAD_REL_L2 and max|a-b| / mean|a| <=
 GRAD_MAX_REL, well inside the JAX tests' bf16 gradient bound of 0.2
 (tests/test_mlp_kernel.py); the K third of db_qkv, zero in exact arithmetic,
 by absolute error only; the normalize bit-exact. The f32 plain references
-run with TF32 off.
+run with TF32 off. The f32 CSR segment kernels against their plain twins in
+f64 at rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
+and bit-identical from call to call.
 """
 import numpy as np
 import pytest
@@ -20,8 +22,9 @@ import torch
 
 from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
                                     block_attention_plain, block_mlp_bwd_plain,
-                                    block_mlp_plain, fused_block_attention,
-                                    fused_block_mlp, mlp, normalize_images,
+                                    block_mlp_plain, csr_segment,
+                                    fused_block_attention, fused_block_mlp,
+                                    mlp, normalize_images,
                                     normalize_images_plain, preprocess)
 
 GRAD_REL_L2 = 2e-2
@@ -187,3 +190,84 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
     with pytest.raises(TypeError):          # images must be uint8
         normalize_images(torch.zeros((1, 8, 8, 3), device="cuda"), "vit")
     assert (attention.LAUNCHES, preprocess.LAUNCHES) == (1, 1)
+
+
+def csr_case(S: int, F: int, seed: int, device: str = "cuda"):
+    """Sorted segment ids over 3000 edges into S segments (segment 0 a hub
+    of half the edges, some segments empty), f32 rows [E, F], weights and
+    logits [E] (one logit +200), and the CSR metadata on `device`."""
+    rng = np.random.default_rng(seed)
+    E = 3000
+    ids = np.sort(np.where(rng.random(E) < 0.5, 0,
+                           rng.integers(S // 2, S, E)))
+    csr = csr_segment._csr_from_sorted(ids, S, device)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    logits = rng.normal(size=E)
+    logits[E // 3] += 200.0
+    return (csr, f32(rng.normal(size=(E, F))), f32(rng.random(E)),
+            f32(logits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [128, 32, 18])
+def test_cuda_csr_kernels_match_plain(F, monkeypatch):
+    """Each CSR kernel against its plain twin in f64 on the same inputs at
+    rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
+    bit-identical from call to call, one launch per call."""
+    _need_cuda()
+    for name in ("LAUNCHES_SUM", "LAUNCHES_WEIGHTED", "LAUNCHES_SOFTMAX",
+                 "LAUNCHES_SCALAR"):
+        monkeypatch.setattr(csr_segment, name, 0)
+    csr, data, w, logits = csr_case(100, F, seed=F)
+    T = csr_segment
+    cases = ((T.segment_sum_cuda, T.segment_sum_plain, (data,)),
+             (T.weighted_segment_sum_cuda, T.weighted_segment_sum_plain,
+              (data, w)),
+             (T.softmax_aggregate_cuda, T.softmax_aggregate_plain,
+              (data, logits)),
+             (T.scalar_segment_sum_cuda, T.scalar_segment_sum_plain, (w,)))
+    for kernel, plain, args in cases:
+        ours, again = kernel(*args, csr), kernel(*args, csr)
+        torch.cuda.synchronize()
+        ref = plain(*[a.double() for a in args], csr)
+        ours = ours if isinstance(ours, tuple) else (ours,)
+        again = again if isinstance(again, tuple) else (again,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b, r in zip(ours, again, ref):
+            assert torch.equal(a, b), kernel.__name__
+            torch.testing.assert_close(a.double(), r, rtol=1e-4, atol=1e-3)
+    assert (T.LAUNCHES_SUM, T.LAUNCHES_WEIGHTED, T.LAUNCHES_SOFTMAX,
+            T.LAUNCHES_SCALAR) == (2, 2, 2, 2)
+    with pytest.raises(TypeError):          # rows must be f32
+        T.segment_sum_cuda(data.double(), csr)
+    with pytest.raises(ValueError):         # metadata on another device
+        T.segment_sum_cuda(data, csr_case(100, F, seed=F, device="cpu")[0])
+
+
+@pytest.mark.cuda
+def test_cuda_csr_gradients_match_the_cpu():
+    """Gradients through csr_gather (both axes, 2-D and 1-D) and
+    csr_attention_aggregate on the card against the plain path on the
+    CPU."""
+    _need_cuda()
+    T = csr_segment
+    rng = np.random.default_rng(0)
+    n_src, n_dst, E, F = 60, 40, 3000, 32
+    ei = np.stack([np.where(rng.random(E) < 0.5, 3, rng.integers(0, n_src, E)),
+                   rng.integers(0, n_dst, E)])
+    h = rng.normal(size=(n_src, F)).astype(np.float32)
+    a = rng.normal(size=(n_dst,)).astype(np.float32)
+    att = rng.normal(size=(F,)).astype(np.float32)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        _, ecsr = T.build_edge_csr(ei, n_src, n_dst, device)
+        ht, at, attt = (torch.from_numpy(v).to(device).requires_grad_()
+                        for v in (h, a, att))
+        msgs = T.csr_gather(ht, ecsr, "src")
+        logits = torch.nn.functional.leaky_relu(
+            msgs @ attt + T.csr_gather(at, ecsr, "dst"), 0.2)
+        out = T.csr_attention_aggregate(msgs, logits, ecsr.dst)
+        out.square().sum().backward()
+        grads[device] = [t.grad.cpu() for t in (ht, at, attt)]
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
