@@ -1,30 +1,42 @@
 """Reference .pt checkpoints in and out of the port, and the JAX weights
 carried over.
 
-The port's modules use the reference state_dict keys (timm ViT names plus the
+The port's modules use the reference state_dict keys (timm ViT names, the
+torchvision ResNet50 trunk wrapped in Sequential(*children[:-1]), plus the
 wrapper heads of artgraph_tpu/checkpointing/torch_interop.py `_MODEL_SPECS`),
 so a reference .pt loads with `load_state_dict(strict=True)` and no key map,
 and `save_reference_checkpoint` writes one (the trainers' best checkpoint).
 
 `state_dict_from_flax` turns the JAX package's variables (a nested dict of
-arrays) into that state_dict: Linear kernels [in, out] -> [out, in], convs
-HWIO -> OIHW. It is numpy-only and re-states the ViT half of
-artgraph_tpu.checkpointing.torch_interop.export_model_state, which the port
-cannot import (that package pulls in jax); tests/test_torch_predict.py holds
-the two equal key for key. `gnn_state_from_flax` does the same for the GNN
-stage's `HeteroSGNN`, whose port keeps the flax names.
+arrays, params and batch_stats) into that state_dict: Linear kernels
+[in, out] -> [out, in], convs HWIO -> OIHW, BatchNorm scale/bias/mean/var ->
+weight/bias/running_mean/running_var. It is numpy-only and re-states
+artgraph_tpu.checkpointing.torch_interop.export_model_state for the eight
+models of `predict` (`vit_to_torch`, `resnet_to_torch`, the heads), which
+the port cannot import (that package pulls in jax); the tests hold the two
+equal key for key. `gnn_state_from_flax` does the same for the GNN stage's
+`HeteroSGNN`, whose port keeps the flax names.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 
 from artgraph_tpu_torch.models import heads
-from artgraph_tpu_torch.models.heads import TIMM_HEAD_CLASSES, VIT_DIM
+from artgraph_tpu_torch.models.heads import (RESNET_DIM, TIMM_HEAD_CLASSES,
+                                             VIT_DIM)
 
 # model name -> {flax head: torch prefix of its Sequential(Dropout, Linear)}
 _HEADS = {
+    "ResnetSingleTask": {"classifier": "classifier"},
+    "ResnetMultiTask": {"style_classifier": "style_classifier",
+                        "genre_classifier": "genre_classifier"},
+    "NewMultiModalSingleTask": {"classifier": "classifier"},
+    "NewMultiModalMultiTask": {"class_style": "class_style",
+                               "class_genre": "class_genre"},
     "ViTSingleTask": {"head": "vit.head"},
     "ViTMultiTask": {"style_classifier": "style_classifier",
                      "genre_classifier": "genre_classifier"},
@@ -33,6 +45,12 @@ _HEADS = {
                                   "class_genre": "class_genre"},
 }
 MODEL_NAMES = tuple(_HEADS)
+RESNET_MODELS = MODEL_NAMES[:4]
+
+# torchvision resnet50 child name -> its index in Sequential(*children[:-1])
+# (children: conv1, bn1, relu, maxpool, layer1..4, avgpool)
+_SEQ_INDEX = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5",
+              "layer3": "6", "layer4": "7"}
 
 
 def _f32(x) -> np.ndarray:
@@ -80,17 +98,66 @@ def vit_state_from_flax(params: dict, prefix: str = "vit"
     return out
 
 
+def resnet_state_from_flax(params: dict, batch_stats: dict,
+                           prefix: str = "resnet", seq: bool = True
+                           ) -> dict[str, np.ndarray]:
+    """A flax `ResNet50`'s params and batch_stats -> torchvision-keyed
+    state_dict entries under prefix, index-prefixed (`resnet.0.weight`,
+    `resnet.4.0.conv1.weight`) with seq, named (`resnet.conv1.weight`)
+    without; an empty prefix gives the bare trunk's keys. Depth is read from
+    the params (`layer<stage>_<block>`), so trunks of any stage sizes
+    convert.
+    """
+    pre = f"{prefix}." if prefix else ""
+
+    def key(child: str, rest: str) -> str:
+        return f"{pre}{_SEQ_INDEX[child] if seq else child}.{rest}"
+
+    out: dict[str, np.ndarray] = {}
+
+    def bn(p: dict, s: dict, child: str, rest: str) -> None:
+        out[key(child, f"{rest}weight")] = _f32(p["scale"])
+        out[key(child, f"{rest}bias")] = _f32(p["bias"])
+        out[key(child, f"{rest}running_mean")] = _f32(s["mean"])
+        out[key(child, f"{rest}running_var")] = _f32(s["var"])
+        out[key(child, f"{rest}num_batches_tracked")] = np.zeros((), np.int64)
+
+    def stats(*path: str) -> dict:
+        return functools.reduce(dict.__getitem__, path, batch_stats)
+
+    out[key("conv1", "weight")] = _conv(params["conv1"]["kernel"])
+    bn(params["bn1"], stats("bn1"), "bn1", "")
+    blocks = sorted((int(n[5]), int(n.split("_")[1]), n)
+                    for n in params if n.startswith("layer"))
+    for stage, block, name in blocks:
+        p, layer = params[name], f"layer{stage}"
+        for i in (1, 2, 3):
+            out[key(layer, f"{block}.conv{i}.weight")] = _conv(
+                p[f"conv{i}"]["kernel"])
+            bn(p[f"bn{i}"], stats(name, f"bn{i}"), layer, f"{block}.bn{i}.")
+        if "downsample_conv" in p:
+            out[key(layer, f"{block}.downsample.0.weight")] = _conv(
+                p["downsample_conv"]["kernel"])
+            bn(p["downsample_bn"], stats(name, "downsample_bn"), layer,
+               f"{block}.downsample.1.")
+    return out
+
+
 def state_dict_from_flax(model_name: str, variables: dict
                          ) -> dict[str, np.ndarray]:
-    """JAX variables {'params': ...} of one of MODEL_NAMES -> reference
-    state_dict (numpy), the same key set and values as the JAX package's
-    export_model_state."""
+    """JAX variables {'params': ..., 'batch_stats': ...} of one of
+    MODEL_NAMES -> reference state_dict (numpy), the same key set and values
+    as the JAX package's export_model_state."""
     if model_name not in _HEADS:
         raise ValueError(f"unsupported model {model_name!r}; the port has "
                          f"{MODEL_NAMES}")
     params = variables["params"]
-    sd = vit_state_from_flax(params["vit"], "vit")
-    if model_name != "ViTSingleTask":
+    if model_name in RESNET_MODELS:
+        sd = resnet_state_from_flax(
+            params["resnet"], variables["batch_stats"]["resnet"])
+    else:
+        sd = vit_state_from_flax(params["vit"], "vit")
+    if model_name not in RESNET_MODELS + ("ViTSingleTask",):
         # timm's 1000-class head survives in the reference state_dicts of the
         # models that never call it
         sd["vit.head.weight"] = np.zeros((TIMM_HEAD_CLASSES, VIT_DIM),
@@ -153,21 +220,34 @@ def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
                          f"{MODEL_NAMES}")
     shape = {tprefix: tuple(sd[f"{tprefix}.1.weight"].shape)
              for tprefix in _HEADS[model_name].values()}
+    nc = lambda style, genre: {"style": shape[style][0],
+                               "genre": shape[genre][0]}
     with torch.device("meta"):
+        if model_name == "ResnetSingleTask":
+            return heads.ResnetSingleTask(shape["classifier"][0], dtype=dtype)
+        if model_name == "ResnetMultiTask":
+            return heads.ResnetMultiTask(
+                nc("style_classifier", "genre_classifier"), dtype=dtype)
+        if model_name == "NewMultiModalSingleTask":
+            n, width = shape["classifier"]
+            return heads.NewMultiModalSingleTask(width - RESNET_DIM, n,
+                                                 dtype=dtype)
+        if model_name == "NewMultiModalMultiTask":
+            return heads.NewMultiModalMultiTask(
+                shape["class_style"][1] - RESNET_DIM,
+                nc("class_style", "class_genre"), dtype=dtype)
         if model_name == "ViTSingleTask":
             return heads.ViTSingleTask(shape["vit.head"][0], dtype=dtype)
         if model_name == "ViTMultiTask":
             return heads.ViTMultiTask(
-                {"style": shape["style_classifier"][0],
-                 "genre": shape["genre_classifier"][0]}, dtype=dtype)
+                nc("style_classifier", "genre_classifier"), dtype=dtype)
         if model_name == "NewMultiModalSingleTaskVit":
-            nc, width = shape["classifier"]
-            return heads.NewMultiModalSingleTaskVit(width - VIT_DIM, nc,
+            n, width = shape["classifier"]
+            return heads.NewMultiModalSingleTaskVit(width - VIT_DIM, n,
                                                     dtype=dtype)
-        width = shape["class_style"][1]
         return heads.NewMultiModalMultiTaskViT(
-            width - VIT_DIM, {"style": shape["class_style"][0],
-                              "genre": shape["class_genre"][0]}, dtype=dtype)
+            shape["class_style"][1] - VIT_DIM,
+            nc("class_style", "class_genre"), dtype=dtype)
 
 
 def save_reference_checkpoint(model: nn.Module, path: str) -> None:

@@ -1,8 +1,8 @@
 """Batched inference CLI on the GPU — port of artgraph_tpu/cli/predict.py.
 
-Loads a reference-format .pt checkpoint of one of the four ViT models and
-classifies images, with the JAX CLI's flags, output rows and CSV schema, plus
-`--device` (default `cuda`):
+Loads a reference-format .pt checkpoint of one of the eight models (four on
+the ViT-B/16 trunk, four on ResNet50) and classifies images, with the JAX
+CLI's flags, output rows and CSV schema, plus `--device` (default `cuda`):
 
     python -m artgraph_tpu_torch.cli.predict \
         --checkpoint checkpoints/style_vit_single-task_checkpoint.pt \
@@ -12,8 +12,11 @@ classifies images, with the JAX CLI's flags, output rows and CSV schema, plus
 For the fusion models (NewMultiModal*), pass --emb_style/--emb_genre .pt (or
 .npy) files with row-aligned projected embeddings. Batches are padded to
 --batch, as the JAX CLI pads them to one static shape. On `cuda` every batch
-runs the normalize kernel and, in each of the 12 blocks, the block attention
-and block MLP kernels; the CLI never moves to the CPU on its own.
+runs the normalize kernel and, for the ViT models, in each of the 12 blocks,
+the block attention and block MLP kernels; the ResNet models run their
+convolutions on cuDNN with BatchNorm's running statistics (the fused
+conv + BN-statistics unit is a train-mode kernel). The CLI never moves to
+the CPU on its own.
 
 PIL (JPEG decode, data/transforms.py) and pandas (for --output) are imported
 only where they are used, so the rest of the port runs on a host that has
@@ -37,9 +40,13 @@ from artgraph_tpu_torch.ops import normalize_images
 
 MODELS = {
     # name -> (transform_type, needs_embeddings, multi_task)
+    "ResnetSingleTask": ("resnet", False, False),
     "ViTSingleTask": ("vit", False, False),
+    "ResnetMultiTask": ("resnet", False, True),
     "ViTMultiTask": ("vit", False, True),
+    "NewMultiModalSingleTask": ("resnet", True, False),
     "NewMultiModalSingleTaskVit": ("vit", True, False),
+    "NewMultiModalMultiTask": ("resnet", True, True),
     "NewMultiModalMultiTaskViT": ("vit", True, True),
 }
 

@@ -1,17 +1,22 @@
 """Image-only single-task baseline trainer on the GPU — port of
-artgraph_tpu/cli/train_baseline.py with `--architecture vit`.
+artgraph_tpu/cli/train_baseline.py.
 
 Same flags as the reference's src/train_baseline.py (--label,
 --architecture, --dropout + the base arguments), checkpoint name, patience
 (10), loss (cross-entropy, optional class weights), Adam and prints, plus
 `--device` (default `cuda`):
 
-    python -m artgraph_tpu_torch.cli.train_baseline --architecture vit \
+    python -m artgraph_tpu_torch.cli.train_baseline --architecture resnet \
         --dataset_path <dataset> --image_path <images> --label style
 
-On `cuda` every step runs the normalize kernel and, in each of the 12
-blocks, the block attention and block MLP kernels forward and backward.
-`--architecture resnet` (the reference's default) is not ported yet.
+`--architecture resnet` (the default) trains ResnetSingleTask, anything else
+ViTSingleTask, as the JAX CLI does. On `cuda` every step runs the normalize
+kernel; the ViT runs, in each of the 12 blocks, the block attention and
+block MLP kernels forward and backward; ResNet50 runs cuDNN convolutions
+and, with ARTGRAPH_CONVBN=1 in the environment, the fused 1x1-conv +
+BN-statistics unit in each bottleneck forward and backward (off by default,
+as in the JAX package). The ragged last batch's BN statistics cover its
+valid rows only.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from artgraph_tpu_torch.cli._common import (
     evaluate_single_task, get_base_arguments, make_loaders, reload_state,
     resolve_device, save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
-from artgraph_tpu_torch.models import ViTSingleTask
+from artgraph_tpu_torch.models import ResnetSingleTask, ViTSingleTask
 from artgraph_tpu_torch.train import EarlyStopping
 from artgraph_tpu_torch.train.trainer import Trainer, adam
 
@@ -38,11 +43,6 @@ def main(argv=None):
     parser.add_argument('--dropout', type=float, default=0.4, help='Dropout.')
     args = parser.parse_args(argv)
     print(args)
-    if args.architecture != 'vit':
-        raise NotImplementedError(
-            f"--architecture {args.architecture}: the port trains ViT-B/16 "
-            f"only; ResNet50 is queued in ROADMAP.md §1 (ResNet50 eval, then "
-            f"its training step)")
     device = resolve_device(args.device)
 
     dataset_train, dataset_valid, dataset_test = load_dataset(
@@ -54,7 +54,8 @@ def main(argv=None):
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
-    model = ViTSingleTask(num_class, args.dropout)
+    model = (ResnetSingleTask if args.architecture == 'resnet'
+             else ViTSingleTask)(num_class, args.dropout)
     class_weights = (get_class_weights(dataset_train, num_class, args.label)
                      if args.with_weights else None)
     trainer = Trainer(model=model, optimizer=adam(args.lr),

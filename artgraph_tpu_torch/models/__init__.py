@@ -1,10 +1,17 @@
-"""The port's models: ViT-B/16 trunk and the four ViT heads; the
-hetero-GNN of the KG-embedding stage is `models.gnn`, imported by name."""
-from artgraph_tpu_torch.models.heads import (NewMultiModalMultiTaskViT,
+"""The port's models: the ViT-B/16 and ResNet50 trunks and the eight
+classifier and fusion models of `predict`; the hetero-GNN of the
+KG-embedding stage is `models.gnn`, imported by name."""
+from artgraph_tpu_torch.models.heads import (NewMultiModalMultiTask,
+                                             NewMultiModalMultiTaskViT,
+                                             NewMultiModalSingleTask,
                                              NewMultiModalSingleTaskVit,
+                                             ResnetMultiTask, ResnetSingleTask,
                                              ViTMultiTask, ViTSingleTask)
+from artgraph_tpu_torch.models.resnet import MixedBatchNorm, ResNet50
 from artgraph_tpu_torch.models.vit import ViT, init_random_
 
-__all__ = ["ViT", "ViTSingleTask", "ViTMultiTask",
-           "NewMultiModalSingleTaskVit", "NewMultiModalMultiTaskViT",
+__all__ = ["ViT", "ResNet50", "MixedBatchNorm", "ViTSingleTask",
+           "ViTMultiTask", "NewMultiModalSingleTaskVit",
+           "NewMultiModalMultiTaskViT", "ResnetSingleTask", "ResnetMultiTask",
+           "NewMultiModalSingleTask", "NewMultiModalMultiTask",
            "init_random_"]

@@ -1,27 +1,35 @@
-"""The four ViT classifier and fusion models, with the reference's keys.
+"""The eight ViT and ResNet50 classifier and fusion models of `predict`,
+with the reference's keys.
 
-Port of artgraph_tpu/models/heads.py (ViTSingleTask, ViTMultiTask,
+Port of artgraph_tpu/models/heads.py (ResnetSingleTask, ResnetMultiTask,
+ViTSingleTask, ViTMultiTask, NewMultiModalSingleTask, NewMultiModalMultiTask,
 NewMultiModalSingleTaskVit, NewMultiModalMultiTaskViT). Module nesting
 reproduces the reference state_dict exactly (artgraph_tpu/checkpointing/
 torch_interop.py `_MODEL_SPECS`):
 
+  * the ResNet models hold the trunk as `resnet` (the reference's
+    Sequential(*children[:-1]), models/resnet.py) and Sequential(Dropout,
+    Linear) heads (`classifier.1.*`, `style_classifier.1.*`,
+    `class_style.1.*`, ...);
   * ViTSingleTask replaces timm's `vit.head` with Sequential(Dropout, Linear),
     so its classifier keys are `vit.head.1.*`;
-  * the other three keep timm's unused 1000-class `vit.head` and carry their
-    own Sequential(Dropout, Linear) heads (`class_style.1.*`, ...).
+  * the other three ViT models keep timm's unused 1000-class `vit.head` and
+    carry their own Sequential(Dropout, Linear) heads.
 
 The heads' Dropout is active in train(). Logits are f32: the heads run in
-f32 on the f32 CLS feature, and the fusion models concatenate that feature
-with the f32 embedding first.
+f32 on the f32 feature (ResNet's pooled 2048-d one, ViT's CLS token), and
+the fusion models concatenate that feature with the f32 embedding first.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from artgraph_tpu_torch.models.resnet import ResNet50
 from artgraph_tpu_torch.models.vit import ViT
 
 VIT_DIM = 768
+RESNET_DIM = 2048
 TIMM_HEAD_CLASSES = 1000
 
 
@@ -33,6 +41,64 @@ def _vit_with_timm_head(dtype: torch.dtype) -> ViT:
     vit = ViT(dtype=dtype)
     vit.head = nn.Linear(VIT_DIM, TIMM_HEAD_CLASSES)  # present, never called
     return vit
+
+
+def _cat_f32(feat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    return torch.cat([feat, emb.to(torch.float32)], dim=1)
+
+
+class ResnetSingleTask(nn.Module):
+    def __init__(self, num_class: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        self.classifier = _head(RESNET_DIM, num_class, dropout)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        return self.classifier(self.resnet(img))
+
+
+class ResnetMultiTask(nn.Module):
+    def __init__(self, num_classes: dict[str, int], dropout: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        dim = RESNET_DIM
+        self.style_classifier = _head(dim, num_classes["style"], dropout)
+        self.genre_classifier = _head(dim, num_classes["genre"], dropout)
+
+    def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
+        feat = self.resnet(img)
+        return [self.style_classifier(feat), self.genre_classifier(feat)]
+
+
+class NewMultiModalSingleTask(nn.Module):
+    def __init__(self, emb_size: int, num_class: int, dropout: float = 0.4,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        self.classifier = _head(RESNET_DIM + emb_size, num_class,
+                                dropout)
+
+    def forward(self, img: torch.Tensor,
+                embedding: torch.Tensor) -> torch.Tensor:
+        return self.classifier(_cat_f32(self.resnet(img), embedding))
+
+
+class NewMultiModalMultiTask(nn.Module):
+    def __init__(self, emb_size: int, num_classes: dict[str, int],
+                 dropout: float = 0.4, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        dim = RESNET_DIM + emb_size
+        self.class_style = _head(dim, num_classes["style"], dropout)
+        self.class_genre = _head(dim, num_classes["genre"], dropout)
+
+    def forward(self, img: torch.Tensor, embedding_style: torch.Tensor,
+                embedding_genre: torch.Tensor) -> list[torch.Tensor]:
+        feat = self.resnet(img)
+        return [self.class_style(_cat_f32(feat, embedding_style)),
+                self.class_genre(_cat_f32(feat, embedding_genre))]
 
 
 class ViTSingleTask(nn.Module):
@@ -68,9 +134,7 @@ class NewMultiModalSingleTaskVit(nn.Module):
 
     def forward(self, img: torch.Tensor,
                 embedding: torch.Tensor) -> torch.Tensor:
-        feat = self.vit(img)
-        return self.classifier(
-            torch.cat([feat, embedding.to(torch.float32)], dim=1))
+        return self.classifier(_cat_f32(self.vit(img), embedding))
 
 
 class NewMultiModalMultiTaskViT(nn.Module):
@@ -86,9 +150,5 @@ class NewMultiModalMultiTaskViT(nn.Module):
     def forward(self, img: torch.Tensor, embedding_style: torch.Tensor,
                 embedding_genre: torch.Tensor) -> list[torch.Tensor]:
         feat = self.vit(img)
-        return [
-            self.class_style(
-                torch.cat([feat, embedding_style.to(torch.float32)], dim=1)),
-            self.class_genre(
-                torch.cat([feat, embedding_genre.to(torch.float32)], dim=1)),
-        ]
+        return [self.class_style(_cat_f32(feat, embedding_style)),
+                self.class_genre(_cat_f32(feat, embedding_genre))]

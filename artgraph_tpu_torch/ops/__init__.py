@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches its kernel or raises. The block ops are autograd Functions whose
-backward is a kernel path too.
+launches its kernel or raises. The block ops and the conv + BN-statistics
+unit are autograd Functions whose backward is a kernel path too.
 """
 from artgraph_tpu_torch.ops.attention import (block_attention_bwd_plain,
                                               block_attention_plain,
                                               fused_block_attention)
+from artgraph_tpu_torch.ops.conv_bn import (conv1x1_bn_stats,
+                                            conv1x1_bn_stats_bwd_plain,
+                                            conv1x1_bn_stats_plain)
 from artgraph_tpu_torch.ops.mlp import (block_mlp_bwd_plain, block_mlp_plain,
                                         fused_block_mlp)
 from artgraph_tpu_torch.ops.preprocess import (normalize_images,
@@ -14,4 +17,6 @@ from artgraph_tpu_torch.ops.preprocess import (normalize_images,
 
 __all__ = ["block_attention_plain", "block_attention_bwd_plain",
            "fused_block_attention", "block_mlp_plain", "block_mlp_bwd_plain",
-           "fused_block_mlp", "normalize_images", "normalize_images_plain"]
+           "fused_block_mlp", "normalize_images", "normalize_images_plain",
+           "conv1x1_bn_stats", "conv1x1_bn_stats_plain",
+           "conv1x1_bn_stats_bwd_plain"]

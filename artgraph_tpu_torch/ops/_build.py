@@ -55,6 +55,8 @@ _SIGNATURES = {
     "ag_csr_softmax_f32": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                             _P), _I),
     "ag_csr_scalar_sum_f32": ((_P, _P, _P, _I, _P), _I),
+    "ag_conv_bn_fwd_bf16": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
+    "ag_conv_bn_bwd_bf16": ((_P,) * 15 + (_I,) * 6 + (_P,), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -9,8 +9,14 @@ function, as in the JAX trainer:
 
 Each step: the host batch (uint8 NHWC images, labels, f32 mask) moves to the
 device, the normalize kernel runs (ops/preprocess.py), then the model, the
-loss, `backward()` (the block kernels' backward on cuda) and the optimizer
-step. Metrics accumulate on the device and the host reads them once per
+loss, `backward()` (the kernels' backward on cuda) and the optimizer step.
+A ragged batch (the host's mask has padded rows) runs under
+`bn_batch_mask`, so the BatchNorm statistics of a model that has them cover
+its valid rows only, as the reference's smaller unpadded final batch does; a
+full batch runs unmasked, and only there can the fused conv + BN-statistics
+unit run. A model without BatchNorm (ViT) never reads the mask. The
+host decides from the numpy mask it already holds: no device sync.
+Metrics accumulate on the device and the host reads them once per
 epoch: the loss total weighted by each batch's valid count, as the reference
 accumulates `loss.item() * n` (ref: train_baseline.py:68-70), and the other
 metrics (masked correct counts) summed.
@@ -21,12 +27,14 @@ masks are not the JAX package's (another generator).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
 from artgraph_tpu_torch import config
+from artgraph_tpu_torch.models.resnet import bn_batch_mask
 from artgraph_tpu_torch.ops import normalize_images
 
 Batch = Tuple[np.ndarray, ...]
@@ -70,10 +78,14 @@ class Trainer:
     def _outputs(self, batch: Tuple[torch.Tensor, ...]):
         return self.model(normalize_images(batch[0], self.transform_type))
 
-    def train_step(self, batch: Tuple[torch.Tensor, ...]):
+    def train_step(self, batch: Tuple[torch.Tensor, ...],
+                   ragged: bool = False):
         """One fwd + bwd + update on a device batch (model in train mode);
-        returns the loss and metrics as device tensors."""
-        loss, metrics = self.compute_loss(self._outputs(batch), batch)
+        returns the loss and metrics as device tensors. `ragged`: the batch's
+        mask (its last component) has padded rows."""
+        ctx = bn_batch_mask(batch[-1]) if ragged else contextlib.nullcontext()
+        with ctx:
+            loss, metrics = self.compute_loss(self._outputs(batch), batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -103,8 +115,10 @@ class Trainer:
         totals: Dict[str, torch.Tensor] = {}
         examples = 0.0
         for batch in loader:
-            n = float(np.asarray(batch[-1]).sum())
-            loss, metrics = self.train_step(self.to_device(batch))
+            mask = np.asarray(batch[-1])
+            n = float(mask.sum())
+            loss, metrics = self.train_step(self.to_device(batch),
+                                            ragged=n < mask.size)
             self._accumulate(totals, loss, metrics, n)
             examples += n
         out = self._read(totals, examples)

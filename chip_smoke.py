@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths and its
-KG-embedding stage (the hetero-GAT of train_gnn_embeddings) once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths, its
+KG-embedding stage (the hetero-GAT of train_gnn_embeddings) and its ResNet50
+serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It imports nothing of JAX or of the JAX package; PIL only in the ViT CLI
-phase (data decode), pandas there and with the KG container of the GNN
-phases. Phases, each printing its lines; any failure raises and exits
+It imports nothing of JAX or of the JAX package; PIL only in the ViT and
+ResNet CLI phases (data decode), pandas there and with the KG container of
+the GNN phases. Phases, each printing its lines; any failure raises and exits
 non-zero:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions;
@@ -73,7 +73,45 @@ non-zero:
 
 Phases 3 and 4 also hold the four CSR segment kernels (f32) against their
 plain twins in f64 at rtol = 1e-4, atol = 1e-3, bit-identical from call to
-call, at the benchmark graph's shapes, and time them (csr_kernel_phases).
+call, at the benchmark graph's shapes, and time them (csr_kernel_phases);
+and the fused 1x1-conv + BN-statistics unit, forward and backward, against
+its plain twins on the card at three of ResNet50's shapes at batch 32
+(M, K, N, prologue) = (100352, 64, 256, yes), (6272, 1024, 256, no),
+(1568, 512, 2048, yes), dy a unit normal: y and dx at rtol = atol = 3e-2,
+s1, s2, da, db, dw at relative L2 <= GRAD_REL_L2, bit-identical from call to
+call; timed beside the plain twins and torch.matmul with the column sums
+(conv_bn_kernel_phases).
+
+ 12. resnet serve  ResnetSingleTask(32) and NewMultiModalMultiTask(128, ...)
+              at full ResNet50 size with seeded weights, saved as reference
+              .pt files and loaded through load_reference_checkpoint; 3
+              batches of 32 through cli.predict.infer on cuda: the normalize
+              counter 3 per model, the other kernels 0 (eval runs no unit);
+              logits on 2 images within relative L2 5e-2 of the f32 CPU
+              path; img/s over the 3 batches, then the median img/s of
+              SERVE_WINDOWS windows of SERVE_WINDOW_BATCHES batches each.
+ 13. resnet train  ResnetSingleTask(32), dropout 0.4, adam(3e-4), batch 32 on
+              cuda with ARTGRAPH_CONVBN=1: 2 warm-up steps, then 8 timed
+              steps, 32 forward and 32 backward unit launches a step; losses
+              finite and falling; img/s, peak memory, 2 profiled steps. Then
+              the same steps from the same weights with the gate closed (no
+              unit launch), img/s and the profile beside.
+ 14. resnet grads  one step on 4 images (dropout 0) with the unit in bf16 on
+              the card, each of its 32 + 32 unit launches held against the
+              plain twin on its own inputs at the kernel tolerances (y and
+              dx with atol KERNEL_TOL x mean|ref|); against the unfused f32
+              path on the CPU, same weights: loss, logits, head and trunk
+              gradients and the BN statistics' updates, each at relative
+              L2 <= max(
+              TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR x the unfused bf16 CPU
+              path's own distance from the f32 one) (the random-init trunk's
+              gradient is chaotic: resnet_grad_phase); then one ragged step
+              (half the rows masked) on the card: no unit launch, and the BN
+              statistics' updates against the CPU path over the valid rows.
+ 15. resnet cli  cli.train_baseline --architecture resnet --device cuda with
+              ARTGRAPH_CONVBN=1, 1 epoch at --batch 10 (the last of the 24
+              training images' batches ragged): its lines, the unit's
+              launches on the full batches only, the checkpoint reloaded.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -104,8 +142,11 @@ GRAD_REL_L2 = 2e-2         # backward kernels vs plain, f32 parameter grads
 GRAD_MAX_REL = 0.1         # max|a-b| / mean|a| (JAX tests' bf16 bound: 0.2)
 E2E_REL_L2 = 5e-2
 TRAIN_GRAD_REL_L2 = 5e-2   # one step's trunk gradient, bf16 card vs f32 CPU
+BF16_FLOOR_FACTOR = 1.25   # ResNet50: at most this times plain bf16's error
 SEED = 0
 BATCHES = 3
+# ResNet50 serving's img/s: the median of windows of this many batches
+SERVE_WINDOWS, SERVE_WINDOW_BATCHES = 5, 10
 TRAIN_WARMUP, TRAIN_STEPS, PROFILED_STEPS = 2, 8, 2
 PEAK_FLOPS = 989e12        # H100 SXM bf16 dense
 PEAK_F32 = 67e12           # H100 SXM f32 outside the tensor cores
@@ -115,6 +156,11 @@ GNN_ARTWORKS, GNN_EDGES = 100_000, 1_000_000
 GNN_WARMUP, GNN_STEPS = 2, 5
 CSR_RTOL, CSR_ATOL = 1e-4, 1e-3   # hub bound of tests/test_csr_segment.py:49
 GNN_GRAD_REL_L2 = 1e-3     # one GNN step, kernels on cuda vs plain on the CPU
+# the conv + BN-statistics unit at three of ResNet50's (M, K, N, prologue)
+# shapes at batch 32; 16 bottlenecks, two units each
+CONV_BN_SHAPES = ((100352, 64, 256, True), (6272, 1024, 256, False),
+                  (1568, 512, 2048, True))
+RESNET_UNITS = 32
 
 
 def device_phase() -> None:
@@ -396,8 +442,16 @@ def _csr_counters():
             "csr_scalar_segment_sum": (csr_segment, "LAUNCHES_SCALAR")}
 
 
+def _conv_bn_counters():
+    from artgraph_tpu_torch.ops import conv_bn
+
+    return {"conv1x1_bn_stats": (conv_bn, "LAUNCHES"),
+            "conv1x1_bn_stats_bwd": (conv_bn, "LAUNCHES_BWD")}
+
+
 def _zero_counts() -> None:
-    for mod, attr in (*_counters().values(), *_csr_counters().values()):
+    for mod, attr in (*_counters().values(), *_csr_counters().values(),
+                      *_conv_bn_counters().values()):
         setattr(mod, attr, 0)
 
 
@@ -550,6 +604,152 @@ def csr_kernel_phases() -> dict:
     del rows, graphs
     torch.cuda.empty_cache()
     return results
+
+
+def _unit_inputs(M: int, K: int, N: int, rng) -> tuple:
+    """x [M, K], a, b [K] bf16 (a BatchNorm's apply coefficients), w [N, K]
+    f32, and the cotangents dy [M, N] bf16, ds1, ds2 [N] f32, on the card.
+    dy is a unit normal, so dx is of order one and the absolute part of its
+    tolerance is small beside it (a dropped factor a or a wrong ReLU mask
+    fails); ds1 and ds2 are scaled with it so that their terms in dyt stay
+    visible."""
+    dev = lambda v, dt=torch.float32: torch.from_numpy(
+        np.asarray(v, np.float32)).to("cuda", dt)
+    return (dev(rng.normal(size=(M, K)), torch.bfloat16),
+            dev(1.0 + 0.2 * rng.normal(size=K), torch.bfloat16),
+            dev(0.1 * rng.normal(size=K), torch.bfloat16),
+            dev(rng.normal(size=(N, K)) / np.sqrt(K)),
+            dev(rng.normal(size=(M, N)), torch.bfloat16),
+            dev(1e-3 * np.sqrt(M) * rng.normal(size=N)),
+            dev(1e-4 * np.sqrt(M) * rng.normal(size=N)))
+
+
+UNIT_OUTPUTS = ("y", "s1", "s2", "dx", "da", "db", "dw")
+
+
+def _unit_error(name: str, ours: torch.Tensor, ref: torch.Tensor,
+                prologue: bool, atol: float) -> tuple[float, str, float,
+                                                      float]:
+    """One output of the fused unit against its plain twin's: (max abs
+    error, what is held, its value, its limit). y and dx (bf16): the worst
+    err / (atol + KERNEL_TOL |ref|), at most 1; da and db without the
+    prologue: their max abs, exactly 0; the f32 rest: relative L2, at most
+    GRAD_REL_L2."""
+    if ours.dtype != ref.dtype or ours.shape != ref.shape:
+        raise AssertionError(f"conv1x1_bn_stats {name}: {ours.dtype} "
+                             f"{tuple(ours.shape)}, plain {ref.dtype} "
+                             f"{tuple(ref.shape)}")
+    o, r = ours.double(), ref.double()
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"conv1x1_bn_stats {name}: not finite")
+    max_abs = (o - r).abs().max().item()
+    if name in ("y", "dx"):
+        ratio = ((o - r).abs() / (atol + KERNEL_TOL * r.abs())).max().item()
+        return max_abs, "worst err/(atol+rtol|ref|)", ratio, 1.0
+    if not prologue and name in ("da", "db"):
+        zero = o.abs().max().item()
+        return zero, "max abs (zero without the prologue)", zero, 0.0
+    return max_abs, "rel L2", ((o - r).norm() / r.norm()).item(), GRAD_REL_L2
+
+
+def conv_bn_kernel_phases() -> dict:
+    """Phases 3 and 4 for the fused 1x1-conv + BN-statistics unit at
+    CONV_BN_SHAPES: both kernels against the plain twins on the card,
+    bit-identical from call to call, then timed beside the plain twins and a
+    library yardstick (the prologue as torch elementwise ops, torch.matmul
+    and the two column sums; the backward's two matmuls from dyt and z made
+    outside the timed call). A row of the kernels line sums its three
+    shapes' times and bounds."""
+    from artgraph_tpu_torch.ops import conv_bn as U
+
+    rng = np.random.default_rng(SEED + 60)
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "artgraph_tpu_torch/ops/csrc/conv_bn.cu",
+                   "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+                   "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes", "library_ms": 0.0}
+            for name, replaces in (
+                ("conv1x1_bn_stats", "artgraph_tpu/ops/conv_bn.py:161"),
+                ("conv1x1_bn_stats_bwd", "artgraph_tpu/ops/conv_bn.py:188"))}
+    for M, K, N, pro in CONV_BN_SHAPES:
+        x, a, b, w, dy, ds1, ds2 = _unit_inputs(M, K, N, rng)
+        label = f"M={M} K={K} N={N} prologue={pro}"
+        fwd = [U.conv1x1_bn_stats_cuda(x, a, b, w, pro) for _ in range(2)]
+        y = fwd[0][0]
+        bwd = [U.conv1x1_bn_stats_bwd_cuda(x, a, b, w, y, dy, ds1, ds2, pro)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = (*U.conv1x1_bn_stats_plain(x, a, b, w, pro),
+               *U.conv1x1_bn_stats_bwd_plain(x, a, b, w, y, dy, ds1, ds2,
+                                             pro))
+        torch.cuda.synchronize()
+        for i, (name, ours, again, r) in enumerate(zip(
+                UNIT_OUTPUTS, (*fwd[0], *bwd[0]), (*fwd[1], *bwd[1]), ref)):
+            row = rows["conv1x1_bn_stats" if i < 3 else
+                       "conv1x1_bn_stats_bwd"]
+            if not torch.equal(ours, again):
+                raise AssertionError(f"conv1x1_bn_stats {name} ({label}) "
+                                     f"differs from call to call")
+            max_abs, held, value, limit = _unit_error(name, ours, r, pro,
+                                                      KERNEL_TOL)
+            print(f"check: conv1x1_bn_stats {name} ({label}) "
+                  f"{str(r.dtype)[6:]} vs plain: max abs {max_abs:.4g}, "
+                  f"mean|plain| {r.double().abs().mean().item():.4g}, {held} "
+                  f"{value:.4g} (limit {limit:g}); bit-identical on repeat",
+                  flush=True)
+            if not value <= limit:
+                raise AssertionError(f"conv1x1_bn_stats {name} ({label}) "
+                                     f"disagrees with its plain version: "
+                                     f"{held} {value} > {limit}")
+            row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+
+        wb = w.to(torch.bfloat16)
+        z = (torch.relu(x * a + b) if pro else x).contiguous()
+        dyt = (dy.float() + ds1 + 2.0 * y.float() * ds2).to(torch.bfloat16)
+
+        def lib_fwd():
+            zz = torch.relu(x * a + b) if pro else x
+            yy = torch.matmul(zz, wb.t()).float()
+            return yy.sum(0), yy.square().sum(0)
+
+        cases = {
+            "conv1x1_bn_stats": (
+                lambda: U.conv1x1_bn_stats_cuda(x, a, b, w, pro),
+                lambda: U.conv1x1_bn_stats_plain(x, a, b, w, pro), lib_fwd,
+                2 * M * K * N,
+                2 * (M * K + N * K + 2 * K + M * N) + 4 * 2 * N),
+            "conv1x1_bn_stats_bwd": (
+                lambda: U.conv1x1_bn_stats_bwd_cuda(x, a, b, w, y, dy, ds1,
+                                                    ds2, pro),
+                lambda: U.conv1x1_bn_stats_bwd_plain(x, a, b, w, y, dy, ds1,
+                                                     ds2, pro),
+                lambda: (torch.matmul(dyt, wb), torch.matmul(dyt.t(), z)),
+                4 * M * K * N,
+                2 * (2 * M * K + N * K + 2 * K + 2 * M * N) + 4 * 2 * N
+                + 4 * (N * K + 2 * K)),
+        }
+        for name, (kernel, plain, library, flops, nbytes) in cases.items():
+            ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+            library_ms = _time_ms(library)
+            bound_ms, bound_by = _bound(flops, nbytes)
+            print(f"time: {name} {label} kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s (median of 10 CUDA-event "
+                  f"timings of 10 calls)", flush=True)
+            row = rows[name]
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["library_ms"] += library_ms
+            row["bound_ms"] += bound_ms
+            if bound_ms > row.get("_largest", 0.0):   # the row's bound_by:
+                row["_largest"] = bound_ms             # its largest shape's
+                row["bound_by"] = bound_by
+        del x, a, b, w, dy, fwd, bwd, ref, z, dyt
+        torch.cuda.empty_cache()
+    for row in rows.values():
+        del row["_largest"]
+    return rows
 
 
 def serve_phase() -> dict:
@@ -1044,6 +1244,434 @@ def gnn_cli_phase() -> None:
           f"{', '.join(shapes)}, finite", flush=True)
 
 
+def _seeded_resnet_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter and BatchNorm statistic of a ResNet model from a
+    torch generator (n a standard normal draw): conv and Linear weights
+    n / sqrt(fan_in), BN weights 1 + 0.1 n, biases and running means 0.1 n,
+    running variances U(0.5, 1.5). For runs without published weights."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in (*model.named_parameters(), *model.named_buffers()):
+            if name.endswith("num_batches_tracked"):
+                continue
+            n = torch.randn(t.shape, generator=g)
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif t.dim() > 1:
+                t.copy_(n / np.sqrt(t[0].numel()))
+            elif name.endswith("weight"):
+                t.copy_(1.0 + 0.1 * n)
+            else:
+                t.copy_(0.1 * n)
+    return model
+
+
+def _all_counts() -> dict:
+    return {**_read_counts(), **_read_counts(_conv_bn_counters)}
+
+
+def resnet_serve_phase() -> dict:
+    """Phase 12: both ResNet50 models through cli.predict.infer on cuda."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli.predict import infer
+    from artgraph_tpu_torch.models import (NewMultiModalMultiTask,
+                                           ResnetSingleTask)
+
+    expect = dict.fromkeys(_all_counts(), 0)
+    expect["normalize_images"] = BATCHES
+    specs = [
+        ("ResnetSingleTask", lambda: ResnetSingleTask(32), 0),
+        ("NewMultiModalMultiTask",
+         lambda: NewMultiModalMultiTask(config.EMB_SIZE, config.NUM_CLASSES),
+         2),
+    ]
+    rng = np.random.default_rng(SEED + 70)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, ctor, n_emb) in enumerate(specs):
+            path = os.path.join(tmp, f"{name}.pt")
+            torch.save(_seeded_resnet_(ctor(), SEED + 70 + i).state_dict(),
+                       path)
+            model = load_reference_checkpoint(name, path, "cuda")
+            batches = [
+                (torch.from_numpy(rng.integers(0, 256, (B, 224, 224, 3),
+                                               dtype=np.uint8)).cuda(),
+                 *[torch.from_numpy(rng.normal(size=(B, config.EMB_SIZE))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(n_emb)])
+                for _ in range(BATCHES)]
+            infer(model, *batches[0], transform_type="resnet")   # warm-up
+            torch.cuda.synchronize()
+
+            _zero_counts()
+            t0 = time.perf_counter()
+            outs = [infer(model, *batch, transform_type="resnet")
+                    for batch in batches]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _all_counts()
+            if counts != expect:
+                raise AssertionError(f"{name}: launch counts {counts}, "
+                                     f"expected {expect}")
+            launches += counts["normalize_images"]
+            outs = [o if isinstance(o, list) else [o] for o in outs]
+            for logits in (t for o in outs for t in o):
+                if logits.dtype != torch.float32 or logits.shape[0] != B \
+                        or not torch.isfinite(logits).all():
+                    raise AssertionError(
+                        f"{name}: bad logits {logits.dtype} "
+                        f"{tuple(logits.shape)}")
+            cpu = load_reference_checkpoint(name, path, "cpu",
+                                            dtype=torch.float32)
+            ref = infer(cpu, *[t[:2].cpu() for t in batches[0]],
+                        transform_type="resnet")
+            ref = ref if isinstance(ref, list) else [ref]
+            rel = max((o[:2].cpu() - r).norm().item() / r.norm().item()
+                      for o, r in zip(outs[0], ref))
+            print(f"resnet serve: {name} ResNet50 bf16 on cuda, {BATCHES} "
+                  f"batches of {B}: {BATCHES * B / seconds:.1f} img/s, "
+                  f"launches {counts}, rel L2 vs f32 CPU plain on 2 images "
+                  f"{rel:.4g}", flush=True)
+            if not rel <= E2E_REL_L2:
+                raise AssertionError(f"{name}: rel L2 {rel} > {E2E_REL_L2}")
+            # three batches are ~50 ms of host clock: the rate to quote is
+            # the median of longer windows of the same batches
+            rates = []
+            for _ in range(SERVE_WINDOWS):
+                t0 = time.perf_counter()
+                for j in range(SERVE_WINDOW_BATCHES):
+                    infer(model, *batches[j % BATCHES],
+                          transform_type="resnet")
+                torch.cuda.synchronize()
+                rates.append(SERVE_WINDOW_BATCHES * B
+                             / (time.perf_counter() - t0))
+            print(f"resnet serve: {name} ResNet50 bf16 on cuda: "
+                  f"{float(np.median(rates)):.1f} img/s (median of "
+                  f"{SERVE_WINDOWS} windows of {SERVE_WINDOW_BATCHES} batches "
+                  f"of {B}: {[round(r, 1) for r in rates]})", flush=True)
+            del model, cpu
+            torch.cuda.empty_cache()
+    return {"normalize_images": launches}
+
+
+@contextlib.contextmanager
+def _conv_bn_gate(on: bool):
+    """ARTGRAPH_CONVBN=1 (the fused unit's switch) set or unset inside."""
+    saved = os.environ.pop("ARTGRAPH_CONVBN", None)
+    if on:
+        os.environ["ARTGRAPH_CONVBN"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("ARTGRAPH_CONVBN", None)
+        if saved is not None:
+            os.environ["ARTGRAPH_CONVBN"] = saved
+
+
+def _resnet_train_steps(gate: bool) -> tuple[dict, float]:
+    """TRAIN_WARMUP + TRAIN_STEPS Adam steps of ResnetSingleTask(32) at
+    batch 32 on cuda, the fused unit's gate as given; (counts, img/s)."""
+    from artgraph_tpu_torch.cli._common import single_task_loss
+    from artgraph_tpu_torch.models import ResnetSingleTask
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    model = _seeded_resnet_(ResnetSingleTask(32, dropout=0.4), SEED + 80)
+    trainer = Trainer(model, adam(3e-4), single_task_loss(None),
+                      transform_type="resnet", device="cuda")
+    rng = np.random.default_rng(SEED + 81)
+    batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
+             rng.integers(0, 32, B).astype(np.int32), np.ones(B, np.float32))
+    trainer.model.train()
+
+    def step():
+        return trainer.train_step(trainer.to_device(batch))[0]
+
+    label = "on" if gate else "off"
+    with _conv_bn_gate(gate):
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step() for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _all_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect["normalize_images"] = TRAIN_STEPS
+        if gate:
+            expect["conv1x1_bn_stats"] = RESNET_UNITS * TRAIN_STEPS
+            expect["conv1x1_bn_stats_bwd"] = RESNET_UNITS * TRAIN_STEPS
+        if counts != expect:
+            raise AssertionError(f"resnet train (gate {label}): launch "
+                                 f"counts {counts}, expected {expect}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = torch.stack(losses).tolist()
+        img_s = TRAIN_STEPS * B / seconds
+        print(f"resnet train: ResnetSingleTask(32) ResNet50 bf16, adam(3e-4), "
+              f"dropout 0.4, batch {B} on cuda, ARTGRAPH_CONVBN gate {label}: "
+              f"{TRAIN_STEPS} steps in {seconds:.4f} s, {img_s:.1f} img/s, "
+              f"{1e3 * seconds / TRAIN_STEPS:.3f} ms/step; peak memory "
+              f"{peak_gb:.2f} GB (max_memory_allocated); launches {counts}; "
+              f"losses {[round(v, 4) for v in losses]}", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"resnet train: losses not finite and "
+                                 f"falling: {losses}")
+        # the step is host-bound: the device time by gate is the comparison
+        # that the launches do not blur
+        _profile_steps(step, PROFILED_STEPS, 1e3 * seconds / TRAIN_STEPS,
+                       label=f"resnet gate {label}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts, img_s
+
+
+def resnet_train_phase() -> dict:
+    """Phase 13: ResNet50 training with the fused unit, then without."""
+    counts, on = _resnet_train_steps(gate=True)
+    _, off = _resnet_train_steps(gate=False)
+    print(f"resnet train: gate on {on:.1f} img/s against gate off {off:.1f} "
+          f"img/s ({on / off:.4f}x)", flush=True)
+    return counts
+
+
+def _bn_updates(model, before: dict) -> torch.Tensor:
+    """The BN running statistics' change in one step, concatenated (f64)."""
+    return torch.cat([(t.detach().cpu().double() - before[n]).flatten()
+                      for n, t in model.named_buffers() if "running" in n])
+
+
+@contextlib.contextmanager
+def _units_held_to_plain(worst: dict):
+    """Inside, every launch of the fused unit's kernels is held against the
+    plain twin on the same in-situ inputs (_unit_error; y and dx with atol
+    KERNEL_TOL x mean|plain|, since a step's dx is far below one); `worst`
+    collects each output's largest measure and the calls checked."""
+    from artgraph_tpu_torch.ops import conv_bn as U
+
+    fwd, bwd = U.conv1x1_bn_stats_cuda, U.conv1x1_bn_stats_bwd_cuda
+
+    def hold(names, ours, refs, prologue):
+        for name, o, r in zip(names, ours, refs):
+            atol = KERNEL_TOL * r.double().abs().mean().item()
+            _, held, value, limit = _unit_error(name, o, r, prologue, atol)
+            if not value <= limit:
+                raise AssertionError(f"resnet grads: conv1x1_bn_stats {name} "
+                                     f"{tuple(o.shape)} in the step: {held} "
+                                     f"{value} > {limit}")
+            worst[name] = max(worst.get(name, 0.0), value)
+
+    def checked_fwd(x, a, b, w, prologue):
+        out = fwd(x, a, b, w, prologue)
+        hold(UNIT_OUTPUTS[:3], out,
+             U.conv1x1_bn_stats_plain(x, a, b, w, prologue), prologue)
+        worst["forward calls"] = worst.get("forward calls", 0) + 1
+        return out
+
+    def checked_bwd(x, a, b, w, y, dy, ds1, ds2, prologue):
+        out = bwd(x, a, b, w, y, dy, ds1, ds2, prologue)
+        hold(UNIT_OUTPUTS[3:], out, U.conv1x1_bn_stats_bwd_plain(
+            x, a, b, w, y, dy, ds1, ds2, prologue), prologue)
+        worst["backward calls"] = worst.get("backward calls", 0) + 1
+        return out
+
+    U.conv1x1_bn_stats_cuda, U.conv1x1_bn_stats_bwd_cuda = (checked_fwd,
+                                                            checked_bwd)
+    try:
+        yield worst
+    finally:
+        U.conv1x1_bn_stats_cuda, U.conv1x1_bn_stats_bwd_cuda = fwd, bwd
+
+
+def _resnet_step(src, device: str, dtype: torch.dtype, gate: bool, images,
+                 labels, held: dict | None = None) -> dict:
+    """One train-mode forward and backward of a copy of `src` (dropout 0)
+    on `device` in `dtype` with the fused unit's gate as given: the loss,
+    the logits, the trunk and head gradients and the BN statistics'
+    updates, in f64 on the CPU; and the unit's launches. With `held`, each
+    launch of the unit is held against its plain twin (_units_held_to_plain).
+    """
+    from artgraph_tpu_torch.models import ResnetSingleTask
+    from artgraph_tpu_torch.ops import normalize_images
+    from artgraph_tpu_torch.train import cross_entropy
+
+    before = {n: b.double().clone() for n, b in src.named_buffers()
+              if "running" in n}
+    model = ResnetSingleTask(32, dropout=0.0, dtype=dtype)
+    model.load_state_dict(src.state_dict())
+    model = model.to(device).train()
+    _zero_counts()
+    check = (_units_held_to_plain(held) if held is not None
+             else contextlib.nullcontext())
+    with _conv_bn_gate(gate), check:
+        logits = model(normalize_images(images.to(device), "resnet"))
+        loss = cross_entropy(logits, labels.to(device))
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    if any(g is None or not torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError(f"resnet grads: a parameter on {device} has no "
+                             f"finite gradient")
+    cat = lambda pre: torch.cat([g.to("cpu", torch.float64).flatten()
+                                 for n, g in grads.items()
+                                 if n.startswith(pre)])
+    return {"loss": loss.detach().double().cpu().reshape(1),
+            "logits": logits.detach().double().cpu(),
+            "trunk gradient": cat("resnet."),
+            "head gradient": cat("classifier."),
+            "BN statistics' updates": _bn_updates(model, before),
+            "units": _read_counts(_conv_bn_counters)}
+
+
+def resnet_grad_phase() -> None:
+    """Phase 14: one step with the unit in bf16 on the card against the
+    unfused f32 path on the CPU; then one ragged step.
+
+    Each of the step's 32 forward and 32 backward unit launches is held
+    against the plain twin on its own in-situ inputs, at the kernel
+    tolerances. The gradient of a ResNet50 at random initialization in
+    train-mode BatchNorm is chaotic (BatchNorm's gradient explosion at
+    initialization): on these inputs the CPU's own f32 trunk gradient lies
+    ~2e-2 from its f64 one, and the unfused bf16 path, no kernel involved,
+    ~1.4 from the f32 one; the JAX package's own bf16 step lies as far from
+    its f32 one (tests/test_torch_resnet.py::
+    test_bf16_trunk_gradient_distance_matches_jax). So end to end each
+    quantity q is held to
+        rel L2(card bf16 with the unit, CPU f32)
+            <= max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * rel L2(CPU bf16
+               unfused, CPU f32)):
+    the unit adds no more error than bf16 PyTorch itself on this model.
+    """
+    from artgraph_tpu_torch.models import ResnetSingleTask
+    from artgraph_tpu_torch.ops import normalize_images
+    from artgraph_tpu_torch.train import Trainer, cross_entropy, sgd_momentum
+
+    rng = np.random.default_rng(SEED + 90)
+    n_img = 4
+    images = torch.from_numpy(rng.integers(0, 256, (n_img, 224, 224, 3),
+                                           dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 32, n_img))
+    src = _seeded_resnet_(ResnetSingleTask(32), SEED + 91)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    held: dict = {}
+    card = _resnet_step(src, "cuda", torch.bfloat16, True, images, labels,
+                        held)
+    ref = _resnet_step(src, "cpu", torch.float32, False, images, labels)
+    floor = _resnet_step(src, "cpu", torch.bfloat16, False, images, labels)
+    calls = (held.get("forward calls"), held.get("backward calls"))
+    if card["units"] != dict.fromkeys(card["units"], RESNET_UNITS) or \
+            calls != (RESNET_UNITS, RESNET_UNITS):
+        raise AssertionError(f"resnet grads: unit launches {card['units']}, "
+                             f"held to the plain twin {held}, expected "
+                             f"{RESNET_UNITS} each")
+    print(f"resnet grads: the step's unit launches, each against its plain "
+          f"twin on its own inputs on the card (y, dx: worst err/(atol+rtol"
+          f"|ref|) at rtol {KERNEL_TOL}, atol {KERNEL_TOL} x mean|ref|, "
+          f"limit 1; s1, s2, dw, da, db: worst rel L2, limit {GRAD_REL_L2}; "
+          f"da, db without the prologue exactly 0): "
+          f"{ {k: round(v, 6) for k, v in held.items()} }", flush=True)
+    parts = []
+    for q in ("loss", "logits", "head gradient", "trunk gradient",
+              "BN statistics' updates"):
+        got, base = rel(card[q], ref[q]), rel(floor[q], ref[q])
+        bound = max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * base)
+        parts.append(f"{q} {got:.4g} (unfused bf16 on the CPU {base:.4g}, "
+                     f"bound {bound:.4g})")
+        if not got <= bound:
+            raise AssertionError(f"resnet grads: {q} rel L2 {got} > {bound}")
+    print(f"resnet grads: one step on {n_img} images, ResNet50, the unit in "
+          f"bf16 on cuda ({card['units']}) vs unfused f32 on the CPU, rel "
+          f"L2: {'; '.join(parts)}", flush=True)
+
+    # a ragged batch: the last half of the rows are padding
+    valid = n_img // 2
+    mask = np.zeros(n_img, np.float32)
+    mask[:valid] = 1.0
+    before = {n: b.double().clone() for n, b in src.named_buffers()
+              if "running" in n}
+    model = ResnetSingleTask(32, dropout=0.0)
+    model.load_state_dict(src.state_dict())
+    trainer = Trainer(model, sgd_momentum(1e-3),
+                      lambda out, b: (cross_entropy(out, b[1], mask=b[2]),
+                                      {}),
+                      transform_type="resnet", device="cuda")
+    _zero_counts()
+    with _conv_bn_gate(True):
+        trainer.train_step(trainer.to_device(
+            (images.numpy(), labels.numpy(), mask)), ragged=True)
+    torch.cuda.synchronize()
+    counts = _read_counts(_conv_bn_counters)
+    if any(counts.values()):
+        raise AssertionError(f"resnet ragged step: unit launches {counts}")
+    updates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = ResnetSingleTask(32, dropout=0.0, dtype=dtype)
+        cpu.load_state_dict(src.state_dict())
+        with torch.no_grad():
+            cpu.train()(normalize_images(images[:valid], "resnet"))
+        updates[dtype] = _bn_updates(cpu, before)
+    got = rel(_bn_updates(trainer.model, before), updates[torch.float32])
+    base = rel(updates[torch.bfloat16], updates[torch.float32])
+    bound = max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * base)
+    print(f"resnet grads: one ragged step ({valid} of {n_img} rows valid) on "
+          f"cuda, gate open: unit launches {counts}; BN statistics' updates "
+          f"vs the f32 CPU path over the {valid} valid rows: rel L2 "
+          f"{got:.4g} (unfused bf16 on the CPU {base:.4g}, bound "
+          f"{bound:.4g})", flush=True)
+    if not got <= bound:
+        raise AssertionError(f"resnet ragged step: rel L2 {got} > {bound}")
+
+
+def resnet_cli_phase(checkpoints_dir: Path) -> None:
+    """Phase 15: cli.train_baseline --architecture resnet on cuda with the
+    fused unit, a ragged last batch."""
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli import train_baseline
+
+    spec = importlib.util.spec_from_file_location(
+        "_make_synth", REPO / "tests" / "_make_synth.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    batch = 10
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = synth.make_image_tree(root)
+        if not counts["train"] % batch:
+            raise AssertionError("resnet cli: the last batch is not ragged")
+        out = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with _conv_bn_gate(True), contextlib.redirect_stdout(out):
+            acc = train_baseline.main([
+                "--dataset_path", str(root / "dataset"),
+                "--image_path", str(root / "images"),
+                "--architecture", "resnet", "--label", "style", "--epochs",
+                "1", "--batch", str(batch), "--num_workers", "4",
+                "--device", "cuda", "--results_dir", str(root / "results")])
+        seconds = time.perf_counter() - t0
+        units = _read_counts(_conv_bn_counters)
+        text = out.getvalue()
+        for line in text.splitlines():
+            print(f"resnet cli: {line}")
+        for want in ("Train loss: ", "Validation loss: ",
+                     f"Test accuracy: {acc}"):
+            if want not in text:
+                raise AssertionError(f"resnet cli: no line with {want!r}")
+        full = counts["train"] // batch
+        if units != dict.fromkeys(units, RESNET_UNITS * full):
+            raise AssertionError(f"resnet cli: unit launches {units}, "
+                                 f"expected {RESNET_UNITS * full} each (the "
+                                 f"{full} full batches)")
+    path = checkpoints_dir / "style_resnet_baseline_single-task_checkpoint.pt"
+    model = load_reference_checkpoint("ResnetSingleTask", str(path), "cuda")
+    print(f"resnet cli: train_baseline --architecture resnet --device cuda "
+          f"ARTGRAPH_CONVBN=1, 1 epoch on {counts} synthetic images at "
+          f"--batch {batch} in {seconds:.1f} s; unit launches {units}; "
+          f"checkpoint {path.name} reloaded strict "
+          f"({len(model.state_dict())} tensors); test accuracy {acc}",
+          flush=True)
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -1056,6 +1684,7 @@ def main() -> int:
         build_phase()
         kernels = kernel_phases()
         kernels.update(csr_kernel_phases())
+        kernels.update(conv_bn_kernel_phases())
         launches = serve_phase()
         for k, n in train_phase().items():
             launches[k] += n
@@ -1064,6 +1693,12 @@ def main() -> int:
         launches.update(gnn_train_phase())
         gnn_grad_phase()
         gnn_cli_phase()
+        launches["normalize_images"] += \
+            resnet_serve_phase()["normalize_images"]
+        for k, n in resnet_train_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        resnet_grad_phase()
+        resnet_cli_phase(checkpoints_dir)
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
     for name, n in launches.items():

@@ -14,7 +14,9 @@ GRAD_MAX_REL, well inside the JAX tests' bf16 gradient bound of 0.2
 by absolute error only; the normalize bit-exact. The f32 plain references
 run with TF32 off. The f32 CSR segment kernels against their plain twins in
 f64 at rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
-and bit-identical from call to call.
+and bit-identical from call to call. The conv + BN-statistics unit's y and dx
+at rtol = atol = 3e-2, its f32 sums and gradients (s1, s2, da, db, dw) at
+relative L2 <= GRAD_REL_L2, bit-identical from call to call.
 """
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ import torch
 
 from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
                                     block_attention_plain, block_mlp_bwd_plain,
-                                    block_mlp_plain, csr_segment,
+                                    block_mlp_plain, conv_bn, csr_segment,
                                     fused_block_attention, fused_block_mlp,
                                     mlp, normalize_images,
                                     normalize_images_plain, preprocess)
@@ -271,3 +273,59 @@ def test_cuda_csr_gradients_match_the_cpu():
         grads[device] = [t.grad.cpu() for t in (ht, at, attt)]
     for g, r in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(98, 64, 64), (1000, 96, 160),
+                                   (6272, 256, 64)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_cuda_conv_bn_unit_matches_plain(M, K, N, prologue, monkeypatch):
+    """Both kernels of the unit against the plain twins; M ragged against
+    the 128-row tile, N and K not multiples of 128; (6272, 256, 64) splits
+    the weight gradient's rows; bit-identical on repeat; one launch a
+    call."""
+    _need_cuda()
+    monkeypatch.setattr(conv_bn, "LAUNCHES", 0)
+    monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
+    rng = np.random.default_rng(M + K + N)
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    x = dev(rng.normal(size=(M, K)), torch.bfloat16)
+    a = dev(rng.normal(size=K) * 0.5 + 1.0, torch.bfloat16)
+    b = dev(rng.normal(size=K) * 0.1, torch.bfloat16)
+    w = dev(rng.normal(size=(N, K)) / np.sqrt(K))
+    dy = dev(rng.normal(size=(M, N)), torch.bfloat16)
+    ds1, ds2 = dev(rng.normal(size=N) * 0.1), dev(rng.normal(size=N) * 0.01)
+    leaves = [t.clone().requires_grad_() for t in (x, a, b, w)]
+    out = conv_bn.conv1x1_bn_stats(*leaves, prologue)
+    torch.autograd.backward(out, (dy, ds1, ds2))
+    fwd = [conv_bn.conv1x1_bn_stats_cuda(x, a, b, w, prologue)
+           for _ in range(2)]
+    bwd = [conv_bn.conv1x1_bn_stats_bwd_cuda(x, a, b, w, fwd[0][0], dy, ds1,
+                                             ds2, prologue)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (conv_bn.LAUNCHES, conv_bn.LAUNCHES_BWD) == (1, 1)
+    for t, g in zip(leaves, bwd[0]):
+        assert torch.equal(t.grad, g)
+    ref = conv_bn.conv1x1_bn_stats_plain(x, a, b, w, prologue)
+    ref_bwd = conv_bn.conv1x1_bn_stats_bwd_plain(x, a, b, w, fwd[0][0], dy,
+                                                 ds1, ds2, prologue)
+    for name, ours, again, r in zip(
+            ("y", "s1", "s2", "dx", "da", "db", "dw"), (*fwd[0], *bwd[0]),
+            (*fwd[1], *bwd[1]), (*ref, *ref_bwd)):
+        assert torch.equal(ours, again), name
+        assert ours.dtype == r.dtype and ours.shape == r.shape, name
+        if name in ("y", "dx"):
+            torch.testing.assert_close(ours.float(), r.float(), rtol=3e-2,
+                                       atol=3e-2)
+        elif not prologue and name in ("da", "db"):
+            assert not ours.any(), name
+        else:
+            rel = (ours.double() - r.double()).norm() / r.double().norm()
+            assert rel <= GRAD_REL_L2, (name, float(rel))
+    with pytest.raises(TypeError):          # x must be bf16
+        conv_bn.conv1x1_bn_stats_cuda(x.float(), a, b, w, prologue)
+    with pytest.raises(ValueError):         # K must be a multiple of 32
+        conv_bn.conv1x1_bn_stats_cuda(x[:, :K - 16].contiguous(), a[:K - 16],
+                                      b[:K - 16], w[:, :K - 16], prologue)

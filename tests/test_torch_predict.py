@@ -2,7 +2,8 @@
 reference checkpoints, `infer`, and the predict CLI.
 
   * state_dict_from_flax equals the JAX package's export_model_state, key
-    for key and value for value, for the four ViT models;
+    for key and value for value, for the eight models (four ViT, four
+    ResNet50);
   * a .pt written by the JAX package's save_reference_checkpoint loads
     strict=True into the port;
   * the port's `infer` (normalize -> model) against the JAX serving step
@@ -13,7 +14,10 @@ reference checkpoints, `infer`, and the predict CLI.
     two bf16 paths round at different points: flax's unfused Dense rounds
     before its bias add, the fused kernels after it);
   * the port CLI on `--device cpu` writes the JAX CLI's CSV columns in the
-    same row order;
+    same row order; for each of the four ResNet models its top-k agree
+    with the port's `infer` on the same padded batches, whose bf16 logits
+    lie within relative L2 3e-2 of the JAX model's (bf16, same weights and
+    images; measured 2.1e-3 to 2.5e-3 on two of them);
   * importing the port loads no jax, flax, triton, PIL or pandas.
 
 Weights are seeded numpy values on the JAX models' own parameter trees
@@ -38,8 +42,10 @@ from artgraph_tpu.checkpointing import (export_model_state,
                                         save_reference_checkpoint)
 from artgraph_tpu.ops.preprocess import normalize_images as jax_normalize
 from artgraph_tpu_torch.checkpointing import (load_reference_checkpoint,
+                                              resnet_state_from_flax,
                                               state_dict_from_flax)
 from artgraph_tpu_torch.cli import predict
+from test_torch_resnet import seeded_batch_stats
 from test_torch_vit import seeded_params
 
 torch.set_num_threads(2)
@@ -57,17 +63,40 @@ MODELS = {
     "NewMultiModalMultiTaskViT": (
         lambda dt: jax_models.NewMultiModalMultiTaskViT(EMB, NC, dtype=dt), 2),
 }
+RESNET_MODELS = {
+    "ResnetSingleTask": (
+        lambda dt: jax_models.ResnetSingleTask(NC["style"], dtype=dt), 0),
+    "ResnetMultiTask": (lambda dt: jax_models.ResnetMultiTask(NC, dtype=dt),
+                        0),
+    "NewMultiModalSingleTask": (
+        lambda dt: jax_models.NewMultiModalSingleTask(EMB, NC["genre"],
+                                                      dtype=dt), 1),
+    "NewMultiModalMultiTask": (
+        lambda dt: jax_models.NewMultiModalMultiTask(EMB, NC, dtype=dt), 2),
+}
+ALL_MODELS = {**MODELS, **RESNET_MODELS}
+
+
+def _seed(name):
+    if name in MODELS:
+        return sorted(MODELS).index(name)
+    return len(MODELS) + sorted(RESNET_MODELS).index(name)
 
 
 def _variables(name, seed):
-    """Seeded random variables on the JAX model's parameter tree."""
-    ctor, n_emb = MODELS[name]
+    """Seeded random variables on the JAX model's parameter tree (and its
+    BatchNorm statistics)."""
+    ctor, n_emb = ALL_MODELS[name]
     args = [jnp.zeros((1, 224, 224, 3), jnp.float32)]
     args += [jnp.zeros((1, EMB), jnp.float32)] * n_emb
     shapes = jax.eval_shape(
         lambda *a: ctor(jnp.bfloat16).init(jax.random.PRNGKey(0), *a,
                                            train=False), *args)
-    return {"params": seeded_params(shapes["params"], seed)}
+    out = {"params": seeded_params(shapes["params"], seed)}
+    if "batch_stats" in shapes:
+        out["batch_stats"] = seeded_batch_stats(shapes["batch_stats"],
+                                                seed + 1000)
+    return out
 
 
 def _inputs(n_emb, batch=2, seed=0):
@@ -85,7 +114,7 @@ def model_variables():
 
     def get(name):
         if name not in cache:
-            cache[name] = _variables(name, seed=sorted(MODELS).index(name))
+            cache[name] = _variables(name, seed=_seed(name))
         return cache[name]
 
     return get
@@ -103,15 +132,31 @@ def checkpoints(model_variables, tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", sorted(ALL_MODELS))
 def test_state_dict_from_flax_matches_export(model_variables, name):
     variables = model_variables(name)
     ours = state_dict_from_flax(name, variables)
     ref = export_model_state(name, variables)
     assert sorted(ours) == sorted(ref)
     for k, v in ref.items():
-        assert ours[k].dtype == np.float32 and ours[k].flags.c_contiguous
+        # f32 tensors and BatchNorm's int64 num_batches_tracked
+        assert ours[k].dtype == v.dtype and ours[k].flags.c_contiguous
         assert np.array_equal(ours[k], v), k
+
+
+@pytest.mark.parametrize("seq", [True, False])
+def test_resnet_state_from_flax_matches_resnet_to_torch(model_variables, seq):
+    """Index-prefixed (`resnet.4.0.conv1.weight`) and named
+    (`resnet.layer1.0.conv1.weight`, the MultiModal models') trunk keys."""
+    from artgraph_tpu.checkpointing.torch_interop import resnet_to_torch
+
+    variables = model_variables("ResnetSingleTask")
+    args = (variables["params"]["resnet"], variables["batch_stats"]["resnet"],
+            "resnet", seq)
+    ours, ref = resnet_state_from_flax(*args), resnet_to_torch(*args)
+    assert sorted(ours) == sorted(ref)
+    for k, v in ref.items():
+        assert ours[k].dtype == v.dtype and np.array_equal(ours[k], v), k
 
 
 @pytest.mark.parametrize("name", ["ViTSingleTask",
@@ -204,9 +249,64 @@ def test_cli_argument_errors(checkpoints, image_dir):
         predict.main(["--checkpoint", path, "--model",
                       "NewMultiModalMultiTaskViT", "--images", image_dir,
                       "--device", "cpu"])
-    with pytest.raises(SystemExit):   # a model the port does not serve yet
-        predict.main(["--checkpoint", path, "--model", "ResnetSingleTask",
+    with pytest.raises(SystemExit):   # a model the CLI does not know
+        predict.main(["--checkpoint", path, "--model", "ResNet101",
                       "--images", image_dir, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(RESNET_MODELS))
+def test_resnet_cli_matches_jax_logits(model_variables, image_dir, tmp_path,
+                                       name):
+    from artgraph_tpu.data.transforms import decode_resize_uint8
+
+    variables = model_variables(name)
+    path = str(tmp_path / f"{name}.pt")
+    save_reference_checkpoint(name, variables, path)
+    ctor, n_emb = RESNET_MODELS[name]
+    files = [os.path.join(image_dir, f) for f in sorted(os.listdir(image_dir))]
+    embs = [np.random.default_rng(9 + i).normal(size=(len(files), EMB))
+            .astype(np.float32) for i in range(n_emb)]
+    emb_args = []
+    for flag, e in zip(("--emb_style", "--emb_genre"), embs):
+        np.save(tmp_path / f"{flag[2:]}.npy", e)
+        emb_args += [flag, str(tmp_path / f"{flag[2:]}.npy")]
+    out_csv = str(tmp_path / "preds.csv")
+    rc = predict.main([
+        "--checkpoint", path, "--model", name, "--label", "style",
+        "--images", image_dir, "--batch", "4", "--top_k", "2",
+        "--output", out_csv, "--device", "cpu", *emb_args])
+    assert rc == 0
+    tasks = ["style", "genre"] if predict.MODELS[name][2] else ["style"]
+    df = pd.read_csv(out_csv)
+    assert list(df.columns) == ["image"] + [f"{t}_{c}" for t in tasks
+                                            for c in ("top2", "pred")]
+    assert list(df["image"]) == files
+
+    # the CLI's padded batches through the port's infer
+    images = np.zeros((8, 224, 224, 3), np.uint8)
+    images[:5] = np.stack([decode_resize_uint8(f) for f in files])
+    padded = [np.concatenate([e, np.zeros((3, EMB), np.float32)])
+              for e in embs]
+    model = load_reference_checkpoint(name, path, "cpu")
+    outs = [predict.infer(model, torch.from_numpy(images[s:s + 4]),
+                          *[torch.from_numpy(e[s:s + 4]) for e in padded],
+                          transform_type="resnet") for s in (0, 4)]
+    outs = [o if isinstance(o, list) else [o] for o in outs]
+    ours = [torch.cat([o[t] for o in outs])[:5].numpy()
+            for t in range(len(tasks))]
+    for task, logits in zip(tasks, ours):
+        top2 = np.argsort(-logits, axis=1)[:, :2]
+        for i in range(len(files)):
+            assert json.loads(df[f"{task}_top2"][i]) == top2[i].tolist()
+            assert df[f"{task}_pred"][i] == top2[i, 0]
+
+    ref = jax.jit(lambda v, x, *e: ctor(jnp.bfloat16).apply(
+        v, jax_normalize(x, "resnet"), *e, train=False))(
+            variables, jnp.asarray(images[:5]), *map(jnp.asarray, embs))
+    refs = ref if isinstance(ref, list) else [ref]
+    for o, r in zip(ours, refs):
+        r = np.asarray(r, np.float32)
+        assert np.linalg.norm(o - r) <= 3e-2 * np.linalg.norm(r)
 
 
 def test_cli_cuda_without_gpu_raises(checkpoints, image_dir):

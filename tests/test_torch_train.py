@@ -21,7 +21,10 @@ package, on the CPU.
     the JAX ones;
   * the dataset factory and class weights against the JAX ones;
   * cli.train_baseline end to end on --device cpu with the trunk cut to
-    TINY widths (patch 16, so 197 tokens).
+    TINY widths (patch 16, so 197 tokens), and with --architecture resnet on
+    a ResNet50 of stage sizes (1, 1, 1, 1) at full widths, ARTGRAPH_CONVBN=1
+    and a ragged last training batch: the fused unit's plain twin runs on
+    the full batches only.
 """
 import functools
 
@@ -54,8 +57,9 @@ from artgraph_tpu_torch.cli._common import single_task_loss
 from artgraph_tpu_torch.data.datasets import ArtGraphSingleTask
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
 from artgraph_tpu_torch.data.loader import DataLoader
-from artgraph_tpu_torch.models import ViT, ViTSingleTask, heads
+from artgraph_tpu_torch.models import ResNet50, ViT, ViTSingleTask, heads
 from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
+                                    conv_bn,
                                     block_mlp_bwd_plain, fused_block_attention,
                                     fused_block_mlp, mlp)
 from artgraph_tpu_torch.train import (EarlyStopping, Trainer, adam,
@@ -334,11 +338,36 @@ def test_train_baseline_cli_cpu(synthetic_dataset, tiny_trunk, capsys):
         assert (results / f"{name}.csv").exists()
 
 
+def test_train_baseline_resnet_cli_cpu(synthetic_dataset, tiny_trunk,
+                                       monkeypatch, capsys):
+    monkeypatch.setattr(heads, "ResNet50", functools.partial(
+        ResNet50, stage_sizes=(1, 1, 1, 1)))
+    monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
+    calls = []
+    plain = conv_bn.conv1x1_bn_stats_plain
+    monkeypatch.setattr(conv_bn, "conv1x1_bn_stats_plain",
+                        lambda *a: calls.append(a[-1]) or plain(*a))
+    n_train = synthetic_dataset["counts"]["train"]
+    batch = 10
+    assert n_train % batch
+    acc = train_baseline.main(_cli_args(
+        synthetic_dataset, "--architecture", "resnet", "--epochs", "1",
+        "--batch", str(batch), "--device", "cpu"))
+    out = capsys.readouterr().out
+    assert out.count("Train loss: ") == 1
+    assert out.count("Validation loss: ") == 1
+    assert f"Test accuracy: {acc}" in out
+    # two units a bottleneck, four bottlenecks, on the full batches only
+    assert len(calls) == 2 * 4 * (n_train // batch)
+    path = (tiny_trunk / "ckpt" /
+            "style_resnet_baseline_single-task_checkpoint.pt")
+    model = load_reference_checkpoint("ResnetSingleTask", str(path), "cpu")
+    assert model.classifier[1].out_features == config.NUM_CLASSES["style"]
+    assert model.resnet[1].num_batches_tracked.item() == -(-n_train // batch)
+
+
 def test_train_baseline_cli_refuses_what_is_not_ported(synthetic_dataset,
                                                        tiny_trunk):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_baseline.main(_cli_args(synthetic_dataset, "--device", "cpu",
-                                      "--architecture", "resnet"))
     with pytest.raises(SystemExit):       # a TPU extra the port lacks
         train_baseline.main(_cli_args(synthetic_dataset, "--device", "cpu",
                                       "--resident_data"))
