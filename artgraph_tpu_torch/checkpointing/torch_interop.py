@@ -65,12 +65,27 @@ def _conv(k) -> np.ndarray:      # flax HWIO -> torch OIHW
     return np.ascontiguousarray(_f32(k).transpose(3, 2, 0, 1))
 
 
+def attention_state_from_flax(params: dict, prefix: str = ""
+                              ) -> dict[str, np.ndarray]:
+    """A flax `Attention`'s params ({'qkv', 'proj'}, each a Dense kernel
+    [in, out] and bias) -> the port's `Attention` state_dict entries
+    (`qkv.weight` [out, in], ...) under prefix. A gradient tree of the same
+    structure maps the same way."""
+    pre = f"{prefix}." if prefix else ""
+    out = {}
+    for dense in ("qkv", "proj"):
+        out[f"{pre}{dense}.weight"] = _linear(params[dense]["kernel"])
+        out[f"{pre}{dense}.bias"] = _f32(params[dense]["bias"])
+    return out
+
+
 def vit_state_from_flax(params: dict, prefix: str = "vit"
                         ) -> dict[str, np.ndarray]:
     """A flax `ViT`'s params -> timm-keyed state_dict entries under prefix.
 
     Depth is read from the params (`block0`, `block1`, ...), so trunks of any
-    size convert; an empty prefix gives bare timm keys. A gradient tree of
+    size convert; an empty prefix gives bare timm keys. The tree, and so the
+    state_dict, is the same for `fuse_qkv` True and False. A gradient tree of
     the same structure (jax.grad of the params) maps the same way, to the
     layouts of the port's `.grad` tensors.
     """
@@ -90,11 +105,11 @@ def vit_state_from_flax(params: dict, prefix: str = "vit"
         for norm in ("norm1", "norm2"):
             out[f"{b}.{norm}.weight"] = _f32(blk[norm]["scale"])
             out[f"{b}.{norm}.bias"] = _f32(blk[norm]["bias"])
-        for mod, dense in (("attn", "qkv"), ("attn", "proj"),
-                           ("mlp", "fc1"), ("mlp", "fc2")):
-            out[f"{b}.{mod}.{dense}.weight"] = _linear(
-                blk[mod][dense]["kernel"])
-            out[f"{b}.{mod}.{dense}.bias"] = _f32(blk[mod][dense]["bias"])
+        out.update(attention_state_from_flax(blk["attn"], f"{b}.attn"))
+        for dense in ("fc1", "fc2"):
+            out[f"{b}.mlp.{dense}.weight"] = _linear(
+                blk["mlp"][dense]["kernel"])
+            out[f"{b}.mlp.{dense}.bias"] = _f32(blk["mlp"][dense]["bias"])
     return out
 
 

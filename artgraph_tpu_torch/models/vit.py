@@ -7,6 +7,15 @@ are added in f32 and the residual stream is then cast to `dtype`; each of the
 final LayerNorm runs in f32 and the CLS token is pooled (timm-0.4
 `forward_features`). Parameters are f32. Inputs are normalized NHWC images.
 
+`ViT(fuse_qkv=False)` takes the JAX block's unfused branch instead (as the
+JAX `ViT(fuse_qkv=False)` does): x + attn(dtype(LN_f32(x))) with the qkv
+Linear, `fused_attention` on strided q/k/v views of its output and the proj
+Linear, then x + mlp(dtype(LN_f32(x))) with fc1, exact GELU and fc2 in
+`dtype`. The Linears, LayerNorms and GELU are plain PyTorch, as the JAX
+package leaves them to XLA. The standalone `Attention` module computes
+proj(attn(x)) with no LayerNorm and no residual: `fused_qkv_attention` then
+proj with `fuse_qkv`, the unfused chain without.
+
 In train() the block ops record their own backward (autograd Functions whose
 CUDA backward is a kernel path); the bf16 patch-embed conv, the f32 CLS/pos
 add and the final LayerNorm differentiate through torch autograd, as flax
@@ -23,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from artgraph_tpu_torch.ops import fused_block_attention, fused_block_mlp
+from artgraph_tpu_torch.ops import (fused_attention, fused_block_attention,
+                                    fused_block_mlp, fused_qkv_attention)
 
 
 class PatchEmbed(nn.Module):
@@ -33,14 +43,32 @@ class PatchEmbed(nn.Module):
                               stride=patch_size)
 
 
-class Attention(nn.Module):
-    """Holds timm's fused qkv and output projections; the block runs them."""
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """An f32 nn.Linear applied in x's dtype, as a flax Dense(dtype=...)."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
-    def __init__(self, dim: int, num_heads: int):
+
+class Attention(nn.Module):
+    """timm's fused qkv and output projections. In a fused block the block
+    kernels run them; `forward` is proj(attention(x)) in x's dtype."""
+
+    def __init__(self, dim: int, num_heads: int, fuse_qkv: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.fuse_qkv = fuse_qkv
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        if self.fuse_qkv:
+            out = fused_qkv_attention(x, self.qkv.weight, self.qkv.bias,
+                                      self.num_heads)
+        else:
+            qkv = _linear(x, self.qkv).view(B, N, 3, self.num_heads,
+                                            C // self.num_heads)
+            out = fused_attention(*qkv.unbind(2)).view(B, N, C)
+        return _linear(out, self.proj)
 
 
 class Mlp(nn.Module):
@@ -49,18 +77,33 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """fc2(gelu(fc1(x))) in x's dtype, exact (erf) GELU."""
+        return _linear(F.gelu(_linear(x, self.fc1)), self.fc2)
+
 
 class Block(nn.Module):
-    """Pre-norm transformer block: two fused kernels, residuals included."""
+    """Pre-norm transformer block, residuals included: two fused kernels, or
+    (fuse_qkv=False) the unfused branch of the JAX block."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 fuse_qkv: bool = True):
         super().__init__()
+        self.fuse_qkv = fuse_qkv
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, fuse_qkv)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    @staticmethod
+    def _norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+        return F.layer_norm(x.to(torch.float32), ln.normalized_shape,
+                            ln.weight, ln.bias, ln.eps).to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fuse_qkv:
+            x = x + self.attn(self._norm(x, self.norm1))
+            return x + self.mlp(self._norm(x, self.norm2))
         a, m = self.attn, self.mlp
         x = fused_block_attention(x, self.norm1.weight, self.norm1.bias,
                                   a.qkv.weight, a.qkv.bias, a.proj.weight,
@@ -75,7 +118,8 @@ class ViT(nn.Module):
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.bfloat16):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.bfloat16,
+                 fuse_qkv: bool = True):
         super().__init__()
         self.dtype = dtype
         self.embed_dim = embed_dim
@@ -84,7 +128,8 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, fuse_qkv)
+            for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

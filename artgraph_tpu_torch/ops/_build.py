@@ -45,6 +45,8 @@ _SIGNATURES = {
     "ag_attention_smem_bytes": ((_I, _I), ctypes.c_size_t),
     "ag_attention_core_bwd_bf16": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
     "ag_attention_bwd_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "ag_attention_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
+    "ag_attention_bwd_bf16": ((_P,) * 8 + (_I,) * 12 + (_F, _P), _I),
     "ag_layernorm_bwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                _I, _P), _I),
     "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _P), _I),

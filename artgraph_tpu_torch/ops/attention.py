@@ -1,6 +1,8 @@
-"""The ViT block's attention half, x + proj(MHA(LayerNorm(x))), both directions.
+"""Multi-head attention ops, both directions: the ViT block's attention half
+x + proj(MHA(LayerNorm(x))), and the two attention ops of the unfused paths.
 
-Port of artgraph_tpu/ops/attention.py:fused_block_attention, a
+`fused_block_attention` is the port of artgraph_tpu/ops/attention.py:
+fused_block_attention, a
 `jax.custom_vjp` over two Pallas kernels (`_block_fwd_kernel`,
 `_block_bwd_kernel`), here a `torch.autograd.Function` over hand-written
 launches from csrc/ on PyTorch's current stream. Forward:
@@ -31,6 +33,20 @@ accumulation order.
 
 Weights keep nn.Linear's [out, in] layout. As `_block_operands` does, the
 wrappers cast the f32 weights and biases to bf16 and keep gamma/beta f32.
+
+`fused_attention` (port of the JAX `fused_attention`, Pallas `_fwd_kernel`
+and `_bwd_kernel`) takes q, k, v as [B, N, H, D] tensors, in the model
+strided views of one [B, N, 3, H, D] qkv tensor, which the kernels read in
+place through their row strides (block_attention.cu, block_attention_bwd.cu,
+strided instantiations). `fused_qkv_attention` (port of the JAX
+`fused_qkv_attention`, `_qkv_fwd_kernel` and `_qkv_bwd_kernel`) runs the qkv
+product first (block_gemm.cu, NT with bias) and the same attention core on
+the packed qkv tensor; its backward recomputes qkv, runs the backward core
+into a packed dqkv and then dx = dqkv . W_qkv (NN), dW_qkv = dqkv^T . x (TN,
+f32) and the column sums of dqkv (block_norm_bwd.cu), as the JAX VJP
+computes those three outside its kernel. Both save the forward's bf16 output
+as the Pallas VJPs do, and both backwards read it for d_row = sum(do * o)
+instead of recomputing o.
 """
 from __future__ import annotations
 
@@ -42,6 +58,11 @@ from artgraph_tpu_torch.ops import _build
 # last reset (one per call of the block, however many kernels it runs).
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+# The same for `fused_attention` and `fused_qkv_attention` (one per call).
+LAUNCHES_ATTENTION = 0
+LAUNCHES_ATTENTION_BWD = 0
+LAUNCHES_QKV = 0
+LAUNCHES_QKV_BWD = 0
 
 # GEMM operand layouts and epilogues of csrc/block_gemm.cu (enums Layout,
 # Epilogue)
@@ -120,6 +141,15 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.view(B, N, num_heads, C // num_heads).transpose(1, 2)
 
 
+def _exp_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(e, l) of q, k [..., N, D]: s = f32(q . k^T) * scale, e = exp(s -
+    rowmax(s)) and its row sums l, all f32."""
+    s = (q.to(_F32) @ k.to(_F32).transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e, e.sum(-1, keepdim=True)
+
+
 def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
                      eps: float):
     """Forward up to the attention output: (y, q, k, v, p, o f32, attn)."""
@@ -128,9 +158,8 @@ def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
     y = ln_rows_plain(x, gamma, beta, eps)
     qkv = linear_plain(y, w_qkv, b_qkv)                  # [B, N, 3C]
     q, k, v = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    s = (q.to(_F32) @ k.to(_F32).transpose(-1, -2)) * (D ** -0.5)
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = (e / e.sum(-1, keepdim=True)).to(x.dtype)
+    e, l = _exp_scores(q, k, D ** -0.5)
+    p = (e / l).to(x.dtype)
     o = p.to(_F32) @ v.to(_F32)
     attn = o.to(x.dtype).transpose(1, 2).reshape(B, N, C)
     return y, q, k, v, p, o, attn
@@ -416,3 +445,274 @@ def fused_block_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
     """
     return _FusedBlockAttention.apply(x, gamma, beta, w_qkv, b_qkv, w_proj,
                                       b_proj, num_heads, eps)
+
+
+# --- fused_attention and fused_qkv_attention ---------------------------------
+
+def _scale(D: int, scale: float | None) -> float:
+    return D ** -0.5 if scale is None else scale
+
+
+def fused_attention_plain(q, k, v, scale: float | None = None
+                          ) -> torch.Tensor:
+    """The plain PyTorch version of `fused_attention`'s forward, the Pallas
+    `_fwd_kernel` line by line: q, k, v [B, N, H, D] in any float dtype,
+    o = dtype(f32(dtype(e) . v) / l), divided after the product. Returns
+    [B, N, H, D] in q.dtype."""
+    dt = q.dtype
+    heads = lambda t: t.to(_F32).transpose(1, 2)        # [B, H, N, D]
+    e, l = _exp_scores(heads(q), heads(k), _scale(q.shape[-1], scale))
+    o = (e.to(dt).to(_F32) @ heads(v)) / l
+    return o.to(dt).transpose(1, 2).contiguous()
+
+
+def fused_attention_bwd_plain(q, k, v, o, do, scale: float | None = None):
+    """The plain PyTorch version of the backward, the Pallas `_bwd_kernel`
+    line by line: (dq, dk, dv) [B, N, H, D] in q.dtype, d_row from the saved
+    output o (not recomputed)."""
+    dt = q.dtype
+    scale = _scale(q.shape[-1], scale)
+    heads = lambda t: t.to(dt).to(_F32).transpose(1, 2)  # [B, H, N, D]
+    qf, kf, vf, of, dof = map(heads, (q, k, v, o, do))
+    e, l = _exp_scores(qf, kf, scale)
+    p = (e / l).to(dt).to(_F32)
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    d_row = (dof * of).sum(-1, keepdim=True)
+    ds = (p * (dp - d_row) * scale).to(dt).to(_F32)
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ qf
+    return tuple(g.to(dt).transpose(1, 2).contiguous() for g in (dq, dk, dv))
+
+
+def _row_stride(name: str, t: torch.Tensor, shape: tuple) -> int:
+    """The row stride of a bf16 CUDA [B, N, H, D] tensor read as [B*N, ld]
+    rows with head h at column h*D: the layouts the strided kernels take
+    (a contiguous tensor, or a q/k/v view of a [B, N, 3, H, D] one)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape}")
+    B, N, H, D = shape
+    sb, sn, sh, sd = t.stride()
+    if not ((sd == 1 or D == 1) and (sh == D or H == 1)
+            and (sb == N * sn or B == 1) and sn % 8 == 0
+            and t.data_ptr() % 16 == 0):
+        raise ValueError(f"{name}: strides {t.stride()} are not [B*N, ld] "
+                         f"rows (ld a multiple of 8) of [H, D] heads, or the "
+                         f"data is not 16-byte aligned")
+    return sn
+
+
+def _row_strides(name: str, tensors: dict[str, torch.Tensor]) -> list[int]:
+    """Each tensor's row stride (all of q's [B, N, H, D] shape); raises
+    unless the head dim is 64, the one the kernels are built for."""
+    shape = tuple(tensors["q"].shape)
+    lds = [_row_stride(f"{name}: {n}", t, shape) for n, t in tensors.items()]
+    if shape[3] != 64:
+        raise ValueError(f"{name}: head dim {shape[3]} is not 64, the one "
+                         f"the kernel is built for")
+    return lds
+
+
+def _attention_bwd_launch(q, k, v, o, do, dq, dk, dv, scale: float) -> None:
+    """dq, dk, dv of `fused_attention_cuda` through the strided backward
+    core, which reads the saved output o."""
+    lds = _row_strides("fused_attention_bwd",
+                       {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq,
+                        "dk": dk, "dv": dv})
+    B, N, H, D = q.shape
+    lib = _build.lib()
+    _check_smem("fused_attention_bwd", lib.ag_attention_bwd_smem_bytes(N, D),
+                q.device, N)
+    rc = lib.ag_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)), B, N, H, D,
+        *lds, scale, _build.stream_ptr(q))
+    _build.check(rc, "ag_attention_bwd_bf16")
+
+
+def fused_attention_cuda(q, k, v, scale: float | None = None
+                         ) -> torch.Tensor:
+    """The forward kernel on CUDA tensors: a new contiguous [B, N, H, D]
+    output; q, k and v are read in place, strided views included (see
+    _row_stride)."""
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    lds = _row_strides("fused_attention",
+                       {"q": q, "k": k, "v": v, "out": out})
+    B, N, H, D = q.shape
+    lib = _build.lib()
+    _check_smem("fused_attention", lib.ag_attention_smem_bytes(N, D),
+                q.device, N)
+    rc = lib.ag_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), B, N, H, D, *lds,
+                               _scale(D, scale), _build.stream_ptr(q))
+    _build.check(rc, "ag_attention_bf16")
+    return out
+
+
+def fused_attention_bwd_cuda(q, k, v, o, do, scale: float | None = None):
+    """The backward kernel on CUDA tensors: (dq, dk, dv), each a new
+    contiguous bf16 [B, N, H, D] tensor."""
+    grads = [torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+             for _ in range(3)]
+    _attention_bwd_launch(q, k, v, o, do, *grads, _scale(q.shape[-1], scale))
+    return tuple(grads)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Saves q, k, v and the output, as the Pallas VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        global LAUNCHES_ATTENTION
+        if q.device.type == "cpu":
+            out = fused_attention_plain(q, k, v, scale)
+        else:
+            out = fused_attention_cuda(q, k, v, scale)
+            LAUNCHES_ATTENTION += 1
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global LAUNCHES_ATTENTION_BWD
+        q, k, v, out = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = fused_attention_bwd_plain(q, k, v, out, dout, ctx.scale)
+        else:
+            grads = fused_attention_bwd_cuda(
+                q, k, v, out, dout.to(q.dtype).contiguous(), ctx.scale)
+            LAUNCHES_ATTENTION_BWD += 1
+        return (*grads, None)
+
+
+def fused_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v per (batch, head), differentiable.
+
+    q, k, v: [B, N, H, D] (on CUDA: bf16, D = 64, each a view of [B*N, ld]
+    rows with the heads side by side, e.g. a slot of a [B, N, 3, H, D] qkv
+    tensor; no copy is made). scale defaults to D^-1/2. Returns [B, N, H, D]
+    in q's dtype. A CPU tensor takes the plain versions (any float dtype); a
+    CUDA tensor launches the kernels or raises.
+    """
+    return _FusedAttention.apply(q, k, v, scale)
+
+
+def fused_qkv_attention_plain(x, w_qkv, b_qkv, num_heads: int,
+                              scale: float | None = None) -> torch.Tensor:
+    """The plain PyTorch version of `fused_qkv_attention`'s forward, the
+    Pallas `_qkv_fwd_kernel` line by line: qkv = dtype(f32(x . W^T) +
+    f32(dtype(b))), then the attention of `fused_attention_plain`. Returns
+    the head-merged [B, N, C] in x.dtype."""
+    B, N, C = x.shape
+    qkv = linear_plain(x, w_qkv, b_qkv).view(B, N, 3, num_heads,
+                                             C // num_heads)
+    return fused_attention_plain(*qkv.unbind(2), scale).view(B, N, C)
+
+
+def fused_qkv_attention_bwd_plain(x, w_qkv, b_qkv, out, dout,
+                                  num_heads: int,
+                                  scale: float | None = None):
+    """The plain PyTorch version of the backward (`_qkv_bwd_kernel` and the
+    three contractions of `_fused_qkv_bwd`): (dx in x.dtype, dw_qkv [3C, C]
+    f32, db_qkv [3C] f32), d_row from the saved output."""
+    B, N, C = x.shape
+    dt = x.dtype
+    heads = (B, N, num_heads, C // num_heads)
+    qkv = linear_plain(x, w_qkv, b_qkv).view(B, N, 3, *heads[2:])
+    grads = fused_attention_bwd_plain(*qkv.unbind(2), out.reshape(heads),
+                                      dout.reshape(heads), scale)
+    dqkv = torch.stack(grads, 2).reshape(B, N, 3 * C)   # qkv column order
+    dx = (dqkv.to(_F32) @ weight_f32(w_qkv, dt)).to(dt)
+    return dx, rows_t_dot(dqkv, x), dqkv.to(_F32).sum((0, 1))
+
+
+def _check_qkv(x, w_qkv, b_qkv, num_heads: int) -> None:
+    C = x.shape[-1]
+    check_block_operands("fused_qkv_attention", x, {
+        "w_qkv": (w_qkv, (3 * C, C)), "b_qkv": (b_qkv, (3 * C,))})
+    if C != 64 * num_heads:
+        raise ValueError(f"fused_qkv_attention: head dim {C}/{num_heads} "
+                         f"must be 64, the one the kernel is built for")
+
+
+def _qkv_heads(x, w_qkv, b_qkv, num_heads: int):
+    """The qkv GEMM (NT, bias) and its q, k, v views [B, N, H, D]."""
+    B, N, C = x.shape
+    qkv = gemm_nt_cuda(x.view(B * N, C), w_qkv, b_qkv, EPI_BIAS)
+    return qkv, qkv.view(B, N, 3, num_heads, C // num_heads).unbind(2)
+
+
+def fused_qkv_attention_cuda(x, w_qkv, b_qkv, num_heads: int,
+                             scale: float | None = None) -> torch.Tensor:
+    """The forward kernels on CUDA tensors (checks, then launches)."""
+    _check_qkv(x, w_qkv, b_qkv, num_heads)
+    B, N, C = x.shape
+    _, (q, k, v) = _qkv_heads(x, w_qkv, b_qkv, num_heads)
+    return fused_attention_cuda(q, k, v, scale).view(B, N, C)
+
+
+def fused_qkv_attention_bwd_cuda(x, w_qkv, b_qkv, out, dout, num_heads: int,
+                                 scale: float | None = None):
+    """The backward kernels on CUDA tensors: the gradients in the order and
+    dtypes of `fused_qkv_attention_bwd_plain`."""
+    _check_qkv(x, w_qkv, b_qkv, num_heads)
+    B, N, C = x.shape
+    qkv, (q, k, v) = _qkv_heads(x, w_qkv, b_qkv, num_heads)
+    dqkv = torch.empty_like(qkv)
+    heads = (B, N, num_heads, C // num_heads)
+    _attention_bwd_launch(q, k, v, out.view(heads), dout.view(heads),
+                          *dqkv.view(B, N, 3, *heads[2:]).unbind(2),
+                          _scale(heads[3], scale))
+    dx = gemm_cuda(dqkv, bf16_contiguous(w_qkv), LAYOUT_NN, EPI_NONE)
+    return (dx.view(B, N, C), gemm_cuda(dqkv, x.view(B * N, C), LAYOUT_TN,
+                                        EPI_F32), colsum_cuda(dqkv))
+
+
+class _FusedQKVAttention(torch.autograd.Function):
+    """Saves x, the parameters and the output, as the Pallas VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, num_heads, scale):
+        global LAUNCHES_QKV
+        if x.device.type == "cpu":
+            out = fused_qkv_attention_plain(x, w_qkv, b_qkv, num_heads, scale)
+        else:
+            out = fused_qkv_attention_cuda(x, w_qkv, b_qkv, num_heads, scale)
+            LAUNCHES_QKV += 1
+        ctx.save_for_backward(x, w_qkv, b_qkv, out)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global LAUNCHES_QKV_BWD
+        x, w_qkv, b_qkv, out = ctx.saved_tensors
+        dout = dout.to(x.dtype)
+        if x.device.type == "cpu":
+            grads = fused_qkv_attention_bwd_plain(x, w_qkv, b_qkv, out, dout,
+                                                  ctx.num_heads, ctx.scale)
+        else:
+            grads = fused_qkv_attention_bwd_cuda(
+                x, w_qkv, b_qkv, out, dout.contiguous(), ctx.num_heads,
+                ctx.scale)
+            LAUNCHES_QKV_BWD += 1
+        return (*grads, None, None)
+
+
+def fused_qkv_attention(x, w_qkv, b_qkv, num_heads: int,
+                        scale: float | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v with (q, k, v) = x . W_qkv^T + b_qkv, heads
+    merged, differentiable.
+
+    x: [B, N, C]; w_qkv: [3C, C], b_qkv: [3C] (timm fused-qkv layout, rows
+    ordered qkv-slot, head, dim). Returns [B, N, C] in x's dtype, ready for
+    the output projection; the backward gives dx in x's dtype and f32 dw, db.
+    A CPU tensor takes the plain versions (any float dtype); a CUDA tensor
+    launches the kernels (bf16 x, f32 params, head dim 64) or raises.
+    """
+    return _FusedQKVAttention.apply(x, w_qkv, b_qkv, num_heads, scale)

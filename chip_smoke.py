@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths, its
-KG-embedding stage (the hetero-GAT of train_gnn_embeddings) and its ResNet50
-serving and training paths once on one NVIDIA GPU.
+KG-embedding stage (the hetero-GAT of train_gnn_embeddings), its ResNet50
+serving and training paths, and the unfused ViT-B/16 trunk
+(ViT(fuse_qkv=False)) and the standalone Attention module once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -80,7 +82,14 @@ its plain twins on the card at three of ResNet50's shapes at batch 32
 (1568, 512, 2048, yes), dy a unit normal: y and dx at rtol = atol = 3e-2,
 s1, s2, da, db, dw at relative L2 <= GRAD_REL_L2, bit-identical from call to
 call; timed beside the plain twins and torch.matmul with the column sums
-(conv_bn_kernel_phases).
+(conv_bn_kernel_phases); and the kernels of fused_attention and
+fused_qkv_attention, forward and backward, at B=32, N=197, H=12, D=64 (q, k,
+v strided views of one [B, N, 3, H, D] bf16 tensor, never copied; x
+[B, N, 768]) against their plain twins on the card: outputs, dq/dk/dv and
+dx at rtol = atol = 3e-2, the f32 dw and db as in phase 3 (the K third of
+db by absolute error), bit-identical on repeat; timed beside the twins and
+F.scaled_dot_product_attention (after F.linear for the qkv op; autograd of
+the same for the backwards) (attention_kernel_phases).
 
  12. resnet serve  ResnetSingleTask(32) and NewMultiModalMultiTask(128, ...)
               at full ResNet50 size with seeded weights, saved as reference
@@ -112,6 +121,26 @@ call; timed beside the plain twins and torch.matmul with the column sums
               ARTGRAPH_CONVBN=1, 1 epoch at --batch 10 (the last of the 24
               training images' batches ragged): its lines, the unit's
               launches on the full batches only, the checkpoint reloaded.
+ 16. vit unfused serve  the ViTSingleTask trunk of phase 5's weights loaded
+              strict into ViT(fuse_qkv=False) at full ViT-B/16 width and
+              depth (qkv Linear, fused_attention on strided q/k/v views,
+              proj; LayerNorm, MLP and GELU in PyTorch); 3 batches of 32
+              normalized images, eval: fused_attention 12 per batch, every
+              other kernel 0; pooled features on 2 images within relative L2
+              5e-2 of the f32 plain path on the CPU and of the fused-block
+              trunk with the same weights; img/s.
+ 17. vit unfused train  phase 6 with the ViTSingleTask trunk replaced by
+              ViT(fuse_qkv=False) (same weights): 2 warm-up and 8 timed
+              steps, 12 forward and 12 backward fused_attention launches a
+              step and no block-kernel launch; losses finite and falling;
+              img/s and 2 profiled steps; then phase 7 on that trunk.
+ 18. attention module  the standalone Attention(768, 12, fuse_qkv=True)
+              (the JAX package's attention_module_x12 profile): 12 forward +
+              backward calls on x [32, 197, 768] bf16, 12 fused_qkv_attention
+              launches each way; one call's dx and its four parameter
+              gradients against the f32 plain path on the CPU at relative L2
+              <= TRAIN_GRAD_REL_L2 (the K third of db_qkv by absolute error);
+              ms per call.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -214,35 +243,55 @@ def _check_output(name: str, ours: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs
 
 
+def _k_third(name: str, a: torch.Tensor, r: torch.Tensor) -> tuple:
+    """A qkv bias gradient's K third, zero in exact arithmetic, held by
+    absolute error against GRAD_MAX_REL * mean|r|; returns (its max abs
+    error, a and r without it)."""
+    scale = r.abs().mean().item()
+    k_err = (a[C:2 * C] - r[C:2 * C]).abs().max().item()
+    if not k_err <= GRAD_MAX_REL * scale:
+        raise AssertionError(f"{name} db_qkv K third: {k_err} > "
+                             f"{GRAD_MAX_REL} * {scale}")
+    return (k_err, torch.cat((a[:C], a[2 * C:])),
+            torch.cat((r[:C], r[2 * C:])))
+
+
+def _check_param_grad(name: str, gname: str, a: torch.Tensor,
+                      r: torch.Tensor, qkv_bias: bool = False) -> float:
+    """An f32 parameter gradient at relative L2 <= GRAD_REL_L2 and
+    max|a-b| / mean|a| <= GRAD_MAX_REL; for a qkv bias (qkv_bias) the K
+    third, zero in exact arithmetic, by absolute error only. Returns the max
+    abs error."""
+    if a.dtype != torch.float32 or a.shape != r.shape:
+        raise AssertionError(f"{name} {gname}: {a.dtype} {a.shape}")
+    a, r = a.double(), r.double()
+    max_abs = (a - r).abs().max().item()
+    note = ""
+    if qkv_bias:
+        bound = GRAD_MAX_REL * r.abs().mean().item()
+        k_err, a, r = _k_third(name, a, r)
+        note = (f"; K third max abs {k_err:.4g} (<= "
+                f"{GRAD_MAX_REL} * mean|db_qkv| = {bound:.4g})")
+    rel_l2 = ((a - r).norm() / r.norm()).item()
+    max_rel = ((a - r).abs().max() / r.abs().mean()).item()
+    print(f"check: {name} {gname} {list(r.shape)} f32: rel L2 "
+          f"{rel_l2:.4g}, max|a-b|/mean|a| {max_rel:.4g}{note}", flush=True)
+    if not (rel_l2 <= GRAD_REL_L2 and max_rel <= GRAD_MAX_REL
+            and torch.isfinite(a).all()):
+        raise AssertionError(f"{name} {gname} disagrees with the plain "
+                             f"backward (rel L2 {rel_l2}, max {max_rel})")
+    return max_abs
+
+
 def _check_grads(name: str, ours, ref) -> float:
     """dx, then each f32 parameter gradient (see phase 3); returns the max
     abs error over all of them."""
     max_abs = _check_output(f"{name} dx", ours[0], ref[0])
     names = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
     for gname, a, r in zip(names, ours[1:], ref[1:]):
-        if a.dtype != torch.float32 or a.shape != r.shape:
-            raise AssertionError(f"{name} {gname}: {a.dtype} {a.shape}")
-        a, r = a.double(), r.double()
-        max_abs = max(max_abs, (a - r).abs().max().item())
-        note = ""
-        if name == "fused_block_attention_bwd" and gname == "db1":
-            # the K third is zero in exact arithmetic: absolute error only
-            scale = r.abs().mean().item()
-            k_err = (a[C:2 * C] - r[C:2 * C]).abs().max().item()
-            note = (f"; K third max abs {k_err:.4g} (<= "
-                    f"{GRAD_MAX_REL} * mean|db_qkv| = {GRAD_MAX_REL * scale:.4g})")
-            if not k_err <= GRAD_MAX_REL * scale:
-                raise AssertionError(f"{name} db_qkv K third: {k_err}")
-            a, r = torch.cat((a[:C], a[2 * C:])), torch.cat((r[:C], r[2 * C:]))
-        rel_l2 = ((a - r).norm() / r.norm()).item()
-        max_rel = ((a - r).abs().max() / r.abs().mean()).item()
-        print(f"check: {name} {gname} {list(r.shape)} f32: rel L2 "
-              f"{rel_l2:.4g}, max|a-b|/mean|a| {max_rel:.4g}{note}",
-              flush=True)
-        if not (rel_l2 <= GRAD_REL_L2 and max_rel <= GRAD_MAX_REL
-                and torch.isfinite(a).all()):
-            raise AssertionError(f"{name} {gname} disagrees with the plain "
-                                 f"backward (rel L2 {rel_l2}, max {max_rel})")
+        max_abs = max(max_abs, _check_param_grad(
+            name, gname, a, r,
+            qkv_bias=name == "fused_block_attention_bwd" and gname == "db1"))
     return max_abs
 
 
@@ -449,9 +498,19 @@ def _conv_bn_counters():
             "conv1x1_bn_stats_bwd": (conv_bn, "LAUNCHES_BWD")}
 
 
+def _mha_counters():
+    from artgraph_tpu_torch.ops import attention
+
+    return {"fused_attention": (attention, "LAUNCHES_ATTENTION"),
+            "fused_attention_bwd": (attention, "LAUNCHES_ATTENTION_BWD"),
+            "fused_qkv_attention": (attention, "LAUNCHES_QKV"),
+            "fused_qkv_attention_bwd": (attention, "LAUNCHES_QKV_BWD")}
+
+
 def _zero_counts() -> None:
     for mod, attr in (*_counters().values(), *_csr_counters().values(),
-                      *_conv_bn_counters().values()):
+                      *_conv_bn_counters().values(),
+                      *_mha_counters().values()):
         setattr(mod, attr, 0)
 
 
@@ -752,6 +811,125 @@ def conv_bn_kernel_phases() -> dict:
     return rows
 
 
+def attention_kernel_phases() -> dict:
+    """Phases 3 and 4 for the kernels of fused_attention and
+    fused_qkv_attention (forward and backward) at the ViT-B/16 shapes: q, k,
+    v strided views of one [B, N, 3, H, D] bf16 tensor, x [B, N, C], a
+    seeded output gradient. Each against its plain twin on the card (bf16
+    outputs, dq/dk/dv and dx at rtol = atol = KERNEL_TOL; the f32 dw, db as
+    in phase 3), bit-identical on repeat; timed beside the twin and a
+    library yardstick: F.scaled_dot_product_attention on [B, H, N, D] views
+    (after F.linear for the qkv op), and autograd of the same (forward and
+    backward, as the block rows' yardsticks) for the backwards."""
+    import torch.nn.functional as F
+
+    from artgraph_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(SEED + 80)
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    qkv = dev(rng.normal(size=(B, N, 3, H, D)), torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = dev(rng.normal(size=(B, N, H, D)), torch.bfloat16)
+    x = dev(rng.normal(size=(B, N, C)), torch.bfloat16)
+    w = dev(rng.normal(size=(3 * C, C)) / np.sqrt(C))
+    b = dev(0.02 * rng.normal(size=3 * C))
+    dout = do.view(B, N, C)
+    if q.stride(1) != 3 * C or q.data_ptr() != qkv.data_ptr():
+        raise AssertionError("q is not a strided view of the qkv tensor")
+    out = A.fused_attention_cuda(q, k, v)
+    xout = A.fused_qkv_attention_cuda(x, w, b, H)
+    cases = {
+        "fused_attention": (
+            lambda: A.fused_attention_cuda(q, k, v),
+            lambda: A.fused_attention_plain(q, k, v),
+            "block_attention.cu", "artgraph_tpu/ops/attention.py:41"),
+        "fused_attention_bwd": (
+            lambda: A.fused_attention_bwd_cuda(q, k, v, out, do),
+            lambda: A.fused_attention_bwd_plain(q, k, v, out, do),
+            "block_attention_bwd.cu", "artgraph_tpu/ops/attention.py:61"),
+        "fused_qkv_attention": (
+            lambda: A.fused_qkv_attention_cuda(x, w, b, H),
+            lambda: A.fused_qkv_attention_plain(x, w, b, H),
+            "block_attention.cu", "artgraph_tpu/ops/attention.py:183"),
+        "fused_qkv_attention_bwd": (
+            lambda: A.fused_qkv_attention_bwd_cuda(x, w, b, xout, dout, H),
+            lambda: A.fused_qkv_attention_bwd_plain(x, w, b, xout, dout, H),
+            "block_attention_bwd.cu", "artgraph_tpu/ops/attention.py:209"),
+    }
+    results = {}
+    for name, (kernel, plain, source, replaces) in cases.items():
+        ours, again = _as_tuple(kernel()), _as_tuple(kernel())
+        torch.cuda.synchronize()
+        ref = _as_tuple(plain())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(ours, again)):
+            raise AssertionError(f"{name} differs from call to call")
+        if name == "fused_qkv_attention_bwd":
+            max_abs = _check_output(f"{name} dx", ours[0], ref[0])
+            max_abs = max(max_abs, _check_param_grad(name, "dw", ours[1],
+                                                     ref[1]))
+            max_abs = max(max_abs, _check_param_grad(name, "db", ours[2],
+                                                     ref[2], qkv_bias=True))
+        else:
+            grads = ("dq", "dk", "dv") if name.endswith("_bwd") else ("",)
+            max_abs = max(_check_output(f"{name} {g}".strip(), a, r)
+                          for g, a, r in zip(grads, ours, ref))
+        print(f"check: {name} bit-identical on repeat", flush=True)
+        results[name] = {"name": name, "route": "cuda",
+                         "source": "artgraph_tpu_torch/ops/csrc/" + source,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": max_abs}
+
+    heads = lambda t: t.transpose(1, 2)                  # [B, H, N, D] view
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+    def qkv_lib(x, wb, bb):
+        t = F.linear(x, wb, bb).view(B, N, 3, H, D)
+        o = F.scaled_dot_product_attention(*(heads(u) for u in t.unbind(2)))
+        return heads(o).reshape(B, N, C)
+
+    def grad(fn, leaves, cotangent):
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, cotangent)
+
+    library = {
+        "fused_attention": lambda: F.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v)),
+        "fused_attention_bwd": grad(
+            lambda *t: F.scaled_dot_product_attention(*t),
+            [heads(q), heads(k), heads(v)], heads(do)),
+        "fused_qkv_attention": lambda: qkv_lib(x, wb, bb),
+        "fused_qkv_attention_bwd": grad(qkv_lib, [x, wb, bb], dout),
+    }
+    act = B * N * C * 2                          # one bf16 [B, N, C] tensor
+    core = 2 * B * H * N * N * D                 # one [N, N] x [N, D] product
+    gemm = 2 * B * N * C * 3 * C                 # the qkv product, or dx, dW
+    params = (3 * C * C + 3 * C) * 4
+    bounds = {
+        "fused_attention": _bound(2 * core, 4 * act),
+        # S recomputed, dV, dP, dQ, dK; q, k, v, o, do in, dq, dk, dv out
+        "fused_attention_bwd": _bound(5 * core, 8 * act),
+        "fused_qkv_attention": _bound(gemm + 2 * core, 2 * act + params),
+        # qkv recomputed, the core backward, dx, dW
+        "fused_qkv_attention_bwd": _bound(3 * gemm + 5 * core,
+                                          4 * act + 2 * params),
+    }
+    for name, (kernel, plain, _, _) in cases.items():
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+        library_ms = _time_ms(library[name])
+        bound_ms, bound_by = bounds[name]
+        results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
+        print(f"time: {name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) (median of 10 CUDA-event timings of 10 calls)",
+              flush=True)
+    del qkv, q, k, v, do, x, w, b, out, xout, library
+    torch.cuda.empty_cache()
+    return results
+
+
 def serve_phase() -> dict:
     """Phase 5: both ViT-B/16 models through cli.predict.infer on cuda."""
     from artgraph_tpu_torch import config
@@ -903,8 +1081,9 @@ def train_phase() -> dict:
     return counts
 
 
-def grad_phase() -> None:
-    """Phase 7: one step's trunk gradients, bf16 kernels vs f32 CPU plain."""
+def grad_phase(unfused: bool = False) -> None:
+    """Phase 7: one step's trunk gradients, bf16 kernels vs f32 CPU plain;
+    with `unfused`, of the ViT(fuse_qkv=False) trunk (phase 17)."""
     from artgraph_tpu_torch.models import ViTSingleTask, init_random_
     from artgraph_tpu_torch.ops import normalize_images
     from artgraph_tpu_torch.train import cross_entropy
@@ -919,6 +1098,8 @@ def grad_phase() -> None:
     for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
         model = ViTSingleTask(32, dropout=0.0, dtype=dtype)
         model.load_state_dict(src.state_dict())
+        if unfused:
+            model = _unfused_vit(model)
         model = model.to(device).train()
         logits = model(normalize_images(images.to(device), "vit"))
         cross_entropy(logits, labels.to(device)).backward()
@@ -941,11 +1122,12 @@ def grad_phase() -> None:
         for g, ns in groups.items())
     rel = ((cat(grads["cuda"], names) - cat(grads["cpu"], names)).norm()
            / cat(grads["cpu"], names).norm()).item()
-    print(f"grads: one step on 2 images, {len(names)} trunk tensors, bf16 "
+    label = "vit unfused grads" if unfused else "grads"
+    print(f"{label}: one step on 2 images, {len(names)} trunk tensors, bf16 "
           f"kernels on cuda vs f32 plain on the CPU: rel L2 {rel:.4g} "
           f"(bound {TRAIN_GRAD_REL_L2}); by group: {parts}", flush=True)
     if not rel <= TRAIN_GRAD_REL_L2:
-        raise AssertionError(f"grads: rel L2 {rel} > {TRAIN_GRAD_REL_L2}")
+        raise AssertionError(f"{label}: rel L2 {rel} > {TRAIN_GRAD_REL_L2}")
 
 
 def cli_phase(checkpoints_dir: Path) -> None:
@@ -1267,7 +1449,8 @@ def _seeded_resnet_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 
 def _all_counts() -> dict:
-    return {**_read_counts(), **_read_counts(_conv_bn_counters)}
+    return {**_read_counts(), **_read_counts(_conv_bn_counters),
+            **_read_counts(_mha_counters)}
 
 
 def resnet_serve_phase() -> dict:
@@ -1672,6 +1855,208 @@ def resnet_cli_phase(checkpoints_dir: Path) -> None:
           flush=True)
 
 
+def _unfused_vit(model: torch.nn.Module) -> torch.nn.Module:
+    """The model with its `.vit` trunk replaced by ViT(fuse_qkv=False) in
+    the same dtype (the head kept), loaded strict from its own state_dict."""
+    from artgraph_tpu_torch.models import ViT
+
+    state = model.state_dict()
+    vit = ViT(dtype=model.vit.dtype, fuse_qkv=False)
+    vit.head = model.vit.head
+    model.vit = vit
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def vit_unfused_serve_phase() -> dict:
+    """Phase 16: the ViTSingleTask trunk of phase 5's weights, loaded strict
+    into ViT(fuse_qkv=False) at full ViT-B/16 width and depth, on cuda."""
+    from artgraph_tpu_torch.models import ViT, ViTSingleTask, init_random_
+    from artgraph_tpu_torch.ops import normalize_images
+
+    src = init_random_(ViTSingleTask(32), torch.Generator().manual_seed(SEED))
+    trunk = {k[4:]: v for k, v in src.state_dict().items()
+             if k.startswith("vit.") and not k.startswith("vit.head.")}
+    del src
+    models = {}
+    for label, fuse_qkv, device, dtype in (
+            ("unfused", False, "cuda", torch.bfloat16),
+            ("fused", True, "cuda", torch.bfloat16),
+            ("cpu f32", False, "cpu", torch.float32)):
+        vit = ViT(dtype=dtype, fuse_qkv=fuse_qkv)
+        vit.load_state_dict(trunk, strict=True)
+        models[label] = vit.to(device).eval()
+    rng = np.random.default_rng(SEED + 90)
+    batches = [normalize_images(torch.from_numpy(rng.integers(
+        0, 256, (B, 224, 224, 3), dtype=np.uint8)).cuda(), "vit")
+        for _ in range(BATCHES)]
+    model = models["unfused"]
+    with torch.inference_mode():
+        model(batches[0])                    # warm-up, before the count
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs = [model(x) for x in batches]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _all_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect["fused_attention"] = 12 * BATCHES
+        if counts != expect:
+            raise AssertionError(f"vit unfused serve: launch counts {counts}, "
+                                 f"expected {expect}")
+        if any(o.shape != (B, C) or not torch.isfinite(o).all()
+               for o in outs):
+            raise AssertionError("vit unfused serve: pooled features not "
+                                 "finite [B, 768]")
+        two = batches[0][:2]
+        fused = models["fused"](two).cpu()
+        ref = models["cpu f32"](two.cpu())
+    ours = outs[0][:2].cpu()
+    rel = {"f32 CPU plain": (ours - ref).norm().item() / ref.norm().item(),
+           "fused-block trunk": ((ours - fused).norm().item()
+                                 / fused.norm().item())}
+    print(f"vit unfused serve: ViT(fuse_qkv=False) ViT-B/16 bf16 on cuda, "
+          f"{BATCHES} batches of {B} normalized images: "
+          f"{BATCHES * B / seconds:.1f} img/s; launches "
+          f"{ {k: n for k, n in counts.items() if n} } (every other kernel "
+          f"0); pooled features on 2 images, rel L2 vs "
+          f"{ {k: float(f'{v:.4g}') for k, v in rel.items()} } (bound "
+          f"{E2E_REL_L2})", flush=True)
+    if not all(v <= E2E_REL_L2 for v in rel.values()):
+        raise AssertionError(f"vit unfused serve: rel L2 {rel} > "
+                             f"{E2E_REL_L2}")
+    del models, model, batches, outs
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in _mha_counters()}
+
+
+def vit_unfused_train_phase() -> dict:
+    """Phase 17: phase 6's training steps with the ViT(fuse_qkv=False) trunk,
+    then phase 7's gradient check on that trunk."""
+    from artgraph_tpu_torch.cli._common import single_task_loss
+    from artgraph_tpu_torch.models import ViTSingleTask, init_random_
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    model = _unfused_vit(init_random_(ViTSingleTask(32, dropout=0.4),
+                                      torch.Generator().manual_seed(
+                                          SEED + 10)))
+    trainer = Trainer(model, adam(3e-4), single_task_loss(None),
+                      transform_type="vit", device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
+             rng.integers(0, 32, B).astype(np.int32),
+             np.ones(B, np.float32))
+    trainer.model.train()
+
+    def step():
+        return trainer.train_step(trainer.to_device(batch))[0]
+
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _all_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(fused_attention=12 * TRAIN_STEPS,
+                  fused_attention_bwd=12 * TRAIN_STEPS,
+                  normalize_images=TRAIN_STEPS)
+    if counts != expect:
+        raise AssertionError(f"vit unfused train: launch counts {counts}, "
+                             f"expected {expect}")
+    losses = torch.stack(losses).tolist()
+    print(f"vit unfused train: ViTSingleTask(32) with ViT(fuse_qkv=False), "
+          f"bf16, adam(3e-4), dropout 0.4, batch {B} on cuda: {TRAIN_STEPS} "
+          f"steps in {seconds:.3f} s, {TRAIN_STEPS * B / seconds:.1f} img/s, "
+          f"{1e3 * seconds / TRAIN_STEPS:.2f} ms/step; launches "
+          f"{ {k: n for k, n in counts.items() if n} } (every other kernel "
+          f"0); losses {[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"vit unfused train: losses not finite and "
+                             f"falling: {losses}")
+    _profile_steps(step, PROFILED_STEPS, 1e3 * seconds / TRAIN_STEPS,
+                   label="vit unfused train")
+    del trainer, model
+    torch.cuda.empty_cache()
+    grad_phase(unfused=True)
+    return {k: counts[k] for k in (*_mha_counters(), "normalize_images")}
+
+
+def attention_module_phase() -> dict:
+    """Phase 18: the standalone Attention(768, 12, fuse_qkv=True), the
+    counterpart of the JAX package's attention_module_x12 profile
+    (bench.py:525): 12 forward + backward calls on x [32, 197, 768] bf16,
+    then one call's dx and parameter gradients against the f32 plain path
+    on the CPU."""
+    import copy
+
+    from artgraph_tpu_torch.models import init_random_
+    from artgraph_tpu_torch.models.vit import Attention
+
+    calls = 12
+    src = init_random_(Attention(C, H, fuse_qkv=True),
+                       torch.Generator().manual_seed(SEED + 100))
+    rng = np.random.default_rng(SEED + 100)
+    x = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32))
+    mod = copy.deepcopy(src).cuda()
+    xc = x.cuda().requires_grad_()
+    gc = g.cuda().to(torch.bfloat16)
+
+    def call():
+        mod(xc).backward(gc)
+
+    call()                                   # warm-up, before the count
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _all_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(fused_qkv_attention=calls, fused_qkv_attention_bwd=calls)
+    if counts != expect:
+        raise AssertionError(f"attention module: launch counts {counts}, "
+                             f"expected {expect}")
+
+    grads = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        m = copy.deepcopy(src).to(device)
+        xs = x.to(device, dtype, copy=True).requires_grad_()
+        m(xs).backward(g.to(device, dtype))
+        grads[device] = {"dx": xs.grad, **{
+            f"d{n}": p.grad for n, p in m.named_parameters()}}
+    parts = []
+    for name, r in grads["cpu"].items():
+        a = grads["cuda"][name].to("cpu", torch.float64)
+        r = r.double()
+        note = ""
+        if name == "dqkv.bias":
+            k_err, a, r = _k_third("attention module", a, r)
+            note = f" (K third max abs {k_err:.4g})"
+        rel = ((a - r).norm() / r.norm()).item()
+        parts.append(f"{name} {rel:.4g}{note}")
+        if not (rel <= TRAIN_GRAD_REL_L2 and torch.isfinite(a).all()):
+            raise AssertionError(f"attention module {name}: rel L2 {rel} > "
+                                 f"{TRAIN_GRAD_REL_L2}")
+    print(f"attention module: Attention({C}, {H}, fuse_qkv=True) on x "
+          f"[{B}, {N}, {C}] bf16 on cuda: {calls} forward + backward calls "
+          f"in {seconds:.4f} s, {1e3 * seconds / calls:.3f} ms per call; "
+          f"launches {counts['fused_qkv_attention']} + "
+          f"{counts['fused_qkv_attention_bwd']}, every other kernel 0; one "
+          f"call vs f32 plain on the CPU, rel L2: {', '.join(parts)} (bound "
+          f"{TRAIN_GRAD_REL_L2})", flush=True)
+    del mod, xc, gc
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in _mha_counters()}
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -1685,6 +2070,7 @@ def main() -> int:
         kernels = kernel_phases()
         kernels.update(csr_kernel_phases())
         kernels.update(conv_bn_kernel_phases())
+        kernels.update(attention_kernel_phases())
         launches = serve_phase()
         for k, n in train_phase().items():
             launches[k] += n
@@ -1699,6 +2085,10 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         resnet_grad_phase()
         resnet_cli_phase(checkpoints_dir)
+        for phase in (vit_unfused_serve_phase, vit_unfused_train_phase,
+                      attention_module_phase):
+            for k, n in phase().items():
+                launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
     for name, n in launches.items():

@@ -16,7 +16,11 @@ run with TF32 off. The f32 CSR segment kernels against their plain twins in
 f64 at rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
 and bit-identical from call to call. The conv + BN-statistics unit's y and dx
 at rtol = atol = 3e-2, its f32 sums and gradients (s1, s2, da, db, dw) at
-relative L2 <= GRAD_REL_L2, bit-identical from call to call.
+relative L2 <= GRAD_REL_L2, bit-identical from call to call. The two
+attention ops of the unfused paths (fused_attention on strided q/k/v views,
+fused_qkv_attention), forward and backward: bf16 outputs, dq/dk/dv and dx
+at rtol = atol = 3e-2, the f32 dw and db at relative L2 <= GRAD_REL_L2 (the
+K third of db by absolute error, as above), bit-identical from call to call.
 """
 import numpy as np
 import pytest
@@ -329,3 +333,137 @@ def test_cuda_conv_bn_unit_matches_plain(M, K, N, prologue, monkeypatch):
     with pytest.raises(ValueError):         # K must be a multiple of 32
         conv_bn.conv1x1_bn_stats_cuda(x[:, :K - 16].contiguous(), a[:K - 16],
                                       b[:K - 16], w[:, :K - 16], prologue)
+
+
+def attention_case(B, N, H, seed):
+    """A [B, N, 3, H, 64] bf16 qkv tensor, the output gradient [B, N, H, 64],
+    and for the qkv op x [B, N, C], f32 w [3C, C] and b [3C], on the card."""
+    rng = np.random.default_rng(seed)
+    C = 64 * H
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    return (dev(rng.normal(size=(B, N, 3, H, 64)), torch.bfloat16),
+            dev(rng.normal(size=(B, N, H, 64)), torch.bfloat16),
+            dev(rng.normal(size=(B, N, C)), torch.bfloat16),
+            dev(rng.normal(size=(3 * C, C)) / np.sqrt(C)),
+            dev(0.1 * rng.normal(size=3 * C)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,scale", [(197, None), (64, 0.5)])
+def test_cuda_attention_kernels_match_plain(N, scale, monkeypatch):
+    """The four kernels of fused_attention and fused_qkv_attention against
+    their plain twins, q/k/v strided views of one qkv tensor (never copied),
+    bit-identical on repeat; the autograd ops count one launch a call."""
+    _need_cuda()
+    for name in ("LAUNCHES_ATTENTION", "LAUNCHES_ATTENTION_BWD",
+                 "LAUNCHES_QKV", "LAUNCHES_QKV_BWD"):
+        monkeypatch.setattr(attention, name, 0)
+    B, H = 3, 2
+    C = 64 * H
+    qkv, do, x, w, b = attention_case(B, N, H, seed=N)
+    q, k, v = qkv.unbind(2)
+    assert q.stride(1) == 3 * C
+    fwd = [attention.fused_attention_cuda(q, k, v, scale) for _ in range(2)]
+    bwd = [attention.fused_attention_bwd_cuda(q, k, v, fwd[0], do, scale)
+           for _ in range(2)]
+    qfwd = [attention.fused_qkv_attention_cuda(x, w, b, H, scale)
+            for _ in range(2)]
+    dout = do.view(B, N, C)
+    qbwd = [attention.fused_qkv_attention_bwd_cuda(x, w, b, qfwd[0], dout, H,
+                                                   scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    for ours, again in ((fwd[0], fwd[1]), *zip(bwd[0], bwd[1]),
+                        (qfwd[0], qfwd[1]), *zip(qbwd[0], qbwd[1])):
+        assert torch.equal(ours, again)
+    checks = [(fwd[0], attention.fused_attention_plain(q, k, v, scale))]
+    checks += zip(bwd[0], attention.fused_attention_bwd_plain(
+        q, k, v, fwd[0], do, scale))
+    checks.append((qfwd[0], attention.fused_qkv_attention_plain(
+        x, w, b, H, scale)))
+    ref = attention.fused_qkv_attention_bwd_plain(x, w, b, qfwd[0], dout, H,
+                                                  scale)
+    checks.append((qbwd[0][0], ref[0]))
+    for ours, r in checks:
+        assert ours.dtype == torch.bfloat16 and ours.shape == r.shape
+        torch.testing.assert_close(ours.float(), r.float(), rtol=3e-2,
+                                   atol=3e-2)
+    dw, db = (t.double() for t in qbwd[0][1:])
+    rdw, rdb = (t.double() for t in ref[1:])
+    assert qbwd[0][1].dtype == qbwd[0][2].dtype == torch.float32
+    assert (dw - rdw).norm() / rdw.norm() <= GRAD_REL_L2
+    k_err = (db[C:2 * C] - rdb[C:2 * C]).abs().max()
+    assert k_err <= GRAD_MAX_REL * rdb.abs().mean(), float(k_err)
+    qv = lambda t: torch.cat((t[:C], t[2 * C:]))
+    assert (qv(db) - qv(rdb)).norm() / qv(rdb).norm() <= GRAD_REL_L2
+
+    leaf = qkv.clone().requires_grad_()
+    attention.fused_attention(*leaf.unbind(2), scale).backward(do)
+    xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+    attention.fused_qkv_attention(xl, wl, bl, H, scale).backward(dout)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf.grad, torch.stack(bwd[0], 2))
+    for t, g in zip((xl, wl, bl), qbwd[0]):
+        assert torch.equal(t.grad, g)
+    assert (attention.LAUNCHES_ATTENTION, attention.LAUNCHES_ATTENTION_BWD,
+            attention.LAUNCHES_QKV, attention.LAUNCHES_QKV_BWD) == (1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_ops_raise_rather_than_fall_back():
+    """f32 inputs, a head dim other than 64, an N beyond shared memory and a
+    misaligned view raise on the card; nothing falls back."""
+    _need_cuda()
+    qkv, do, x, w, b = attention_case(2, 17, 2, seed=0)
+    q, k, v = qkv.unbind(2)
+    with pytest.raises(TypeError):                       # f32 q, k, v
+        attention.fused_attention_cuda(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):                       # f32 x
+        attention.fused_qkv_attention_cuda(x.float(), w, b, 2)
+    with pytest.raises(ValueError):                      # D = 32
+        attention.fused_attention_cuda(*(t.reshape(2, 17, 4, 32)
+                                         for t in (q.contiguous(),) * 3))
+    with pytest.raises(ValueError):                      # C / H = 32
+        attention.fused_qkv_attention_cuda(x, w, b, 4)
+    with pytest.raises(ValueError):                      # 8-byte aligned
+        attention.fused_attention_cuda(*(qkv.view(2, 17, -1)[:, :, 4:132]
+                                         .reshape(2, 17, 2, 64),) * 3)
+    big, bdo, *_ = attention_case(1, 600, 1, seed=1)
+    bq = big.unbind(2)
+    with pytest.raises(ValueError):                      # shared memory
+        attention.fused_attention_cuda(*bq)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bwd_cuda(*bq, bdo, bdo)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_modules_reach_every_parameter(monkeypatch):
+    """backward() through the standalone Attention (both fuse_qkv) and a
+    small ViT(fuse_qkv=False) on the card: every parameter gets a finite
+    f32 gradient, through the attention kernels only."""
+    _need_cuda()
+    from artgraph_tpu_torch.models import ViT, init_random_
+    from artgraph_tpu_torch.models.vit import Attention
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 17, 128, generator=gen)
+    for fuse_qkv in (True, False):
+        mod = init_random_(Attention(128, 2, fuse_qkv=fuse_qkv), gen).cuda()
+        mod(x.cuda().to(torch.bfloat16)).float().square().sum().backward()
+        torch.cuda.synchronize()
+        for name, p in mod.named_parameters():
+            assert p.grad is not None and p.grad.dtype == torch.float32, name
+            assert torch.isfinite(p.grad).all(), name
+    for mod in (attention, mlp):
+        for name in ("LAUNCHES", "LAUNCHES_BWD"):
+            monkeypatch.setattr(mod, name, 0)
+    vit = init_random_(ViT(img_size=32, patch_size=16, embed_dim=128,
+                           depth=2, num_heads=2, fuse_qkv=False), gen).cuda()
+    vit(torch.randn(2, 32, 32, 3, generator=gen).cuda()).square().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    for name, p in vit.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert torch.isfinite(p.grad).all(), name
+    assert (attention.LAUNCHES, attention.LAUNCHES_BWD, mlp.LAUNCHES,
+            mlp.LAUNCHES_BWD) == (0, 0, 0, 0)
