@@ -42,11 +42,10 @@ _SIGNATURES = {
     "ag_layernorm_bf16": ((_P, _P, _P, _P, _I, _I, _F, _P), _I),
     "ag_gemm_bf16": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "ag_attention_core_bf16": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
-    "ag_attention_smem_bytes": ((_I, _I), ctypes.c_size_t),
-    "ag_attention_core_bwd_bf16": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
-    "ag_attention_bwd_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "ag_attention_core_bwd_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+                                   _I),
     "ag_attention_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
-    "ag_attention_bwd_bf16": ((_P,) * 8 + (_I,) * 12 + (_F, _P), _I),
+    "ag_attention_bwd_bf16": ((_P,) * 9 + (_I,) * 12 + (_F, _P), _I),
     "ag_layernorm_bwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                _I, _P), _I),
     "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _P), _I),
@@ -85,7 +84,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources() + list(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libartgraph_kernels-{h.hexdigest()[:16]}.so"

@@ -18,7 +18,8 @@ As the Pallas VJP does, the Function saves only x and the parameters, and the
 backward recomputes (a)-(c) with the same launches, then:
 
   (e) do_attn = bf16(do . W_proj)                  (block_gemm.cu, NN)
-  (f) dqkv per (image, head), bf16                 (block_attention_bwd.cu)
+  (f) dqkv in three phases (row statistics; dK, dV per key tile; dQ per
+      query tile), bf16                            (block_attention_bwd.cu)
   (g) dy = dqkv . W_qkv, f32                       (block_gemm.cu, NN, f32)
   (h) dx = bf16(do + LN'(dy)), dgamma, dbeta       (block_norm_bwd.cu)
   (i) dW_qkv = dqkv^T . y, dW_proj = do^T . attn   (block_gemm.cu, TN, f32)
@@ -150,6 +151,28 @@ def _exp_scores(q: torch.Tensor, k: torch.Tensor, scale: float
     return e, e.sum(-1, keepdim=True)
 
 
+def core_plain(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block path's attention core on [..., N, D] heads in any float
+    dtype: (p, o) with p = dtype(e / l) and o = f32(p . v), unrounded."""
+    e, l = _exp_scores(q, k, scale)
+    p = (e / l).to(q.dtype)
+    return p, p.to(_F32) @ v.to(_F32)
+
+
+def core_bwd_plain(q, k, v, p, o, do, scale: float):
+    """The core's backward, the Pallas backward kernels line by line: (dq,
+    dk, dv) in f32 from the rounded probabilities p and the output o that
+    d_row reads (the f32 o of `core_plain` on the block path, the saved
+    output on the fused_attention path); inputs [..., N, D], rounded at
+    q.dtype."""
+    qf, kf, vf, pf, dof = (t.to(_F32) for t in (q, k, v, p, do))
+    dv = pf.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    d_row = (dof * o.to(_F32)).sum(-1, keepdim=True)
+    ds = (pf * (dp - d_row) * scale).to(q.dtype).to(_F32)
+    return ds @ kf, ds.transpose(-1, -2) @ qf, dv
+
+
 def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
                      eps: float):
     """Forward up to the attention output: (y, q, k, v, p, o f32, attn)."""
@@ -158,9 +181,7 @@ def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
     y = ln_rows_plain(x, gamma, beta, eps)
     qkv = linear_plain(y, w_qkv, b_qkv)                  # [B, N, 3C]
     q, k, v = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    e, l = _exp_scores(q, k, D ** -0.5)
-    p = (e / l).to(x.dtype)
-    o = p.to(_F32) @ v.to(_F32)
+    p, o = core_plain(q, k, v, D ** -0.5)
     attn = o.to(x.dtype).transpose(1, 2).reshape(B, N, C)
     return y, q, k, v, p, o, attn
 
@@ -180,22 +201,15 @@ def block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, dout,
     B, N, C = x.shape
     D = C // num_heads
     dt = x.dtype
-    scale = D ** -0.5
     y, q, k, v, p, o, attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv,
                                               num_heads, eps)
     do = dout.to(dt)
     # proj backward: dp == do
     do_attn = (do.to(_F32) @ weight_f32(w_proj, dt)).to(dt)
-    doh = _heads(do_attn, num_heads).to(_F32)            # [B, H, N, D]
-    pf = p.to(_F32)
-    dv = pf.transpose(-1, -2) @ doh
-    dp = doh @ v.to(_F32).transpose(-1, -2)
-    d_row = (doh * o).sum(-1, keepdim=True)
-    ds = (pf * (dp - d_row) * scale).to(dt).to(_F32)
-    dq = ds @ k.to(_F32)
-    dk = ds.transpose(-1, -2) @ q.to(_F32)
+    grads = core_bwd_plain(q, k, v, p, o, _heads(do_attn, num_heads),
+                           D ** -0.5)
     # [3, B, H, N, D] -> [B, N, 3, H, D]: the qkv column order
-    dqkv = torch.stack((dq, dk, dv)).to(dt).permute(1, 3, 0, 2, 4) \
+    dqkv = torch.stack(grads).to(dt).permute(1, 3, 0, 2, 4) \
         .reshape(B, N, 3 * C)
     dy = dqkv.to(_F32) @ weight_f32(w_qkv, dt)          # [B, N, C] f32
     dx, dgamma, dbeta = ln_bwd_plain(x, gamma, dy, do, eps)
@@ -313,40 +327,33 @@ def colsum_cuda(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_smem(what: str, smem: int, device: torch.device, N: int) -> None:
-    limit = torch.cuda.get_device_properties(device) \
-        .shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"{what}: N={N} needs {smem} bytes of shared "
-                         f"memory, the card allows {limit}")
-
-
 def attention_core_cuda(qkv: torch.Tensor, B: int, N: int,
                         num_heads: int) -> torch.Tensor:
     C = qkv.shape[1] // 3
     D = C // num_heads
-    lib = _build.lib()
-    _check_smem("attention_core_cuda", lib.ag_attention_smem_bytes(N, D),
-                qkv.device, N)
     out = torch.empty((B * N, C), dtype=torch.bfloat16, device=qkv.device)
-    rc = lib.ag_attention_core_bf16(qkv.data_ptr(), out.data_ptr(), B, N,
-                                    num_heads, D, D ** -0.5,
-                                    _build.stream_ptr(qkv))
+    rc = _build.lib().ag_attention_core_bf16(
+        qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D, D ** -0.5,
+        _build.stream_ptr(qkv))
     _build.check(rc, "ag_attention_core_bf16")
     return out
+
+
+def _row_stats(B: int, N: int, H: int, device) -> torch.Tensor:
+    """The backward cores' f32 scratch: each query row's max m, sum l and
+    d_row, written by their first phase and read by the dK/dV phase."""
+    return torch.empty((3, B, H, N), dtype=_F32, device=device)
 
 
 def attention_core_bwd_cuda(qkv: torch.Tensor, do_attn: torch.Tensor, B: int,
                             N: int, num_heads: int) -> torch.Tensor:
     C = qkv.shape[1] // 3
     D = C // num_heads
-    lib = _build.lib()
-    _check_smem("attention_core_bwd_cuda",
-                lib.ag_attention_bwd_smem_bytes(N, D), qkv.device, N)
     dqkv = torch.empty_like(qkv)
-    rc = lib.ag_attention_core_bwd_bf16(
-        qkv.data_ptr(), do_attn.data_ptr(), dqkv.data_ptr(), B, N, num_heads,
-        D, D ** -0.5, _build.stream_ptr(qkv))
+    stats = _row_stats(B, N, num_heads, qkv.device)
+    rc = _build.lib().ag_attention_core_bwd_bf16(
+        qkv.data_ptr(), do_attn.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        B, N, num_heads, D, D ** -0.5, _build.stream_ptr(qkv))
     _build.check(rc, "ag_attention_core_bwd_bf16")
     return dqkv
 
@@ -472,17 +479,11 @@ def fused_attention_bwd_plain(q, k, v, o, do, scale: float | None = None):
     output o (not recomputed)."""
     dt = q.dtype
     scale = _scale(q.shape[-1], scale)
-    heads = lambda t: t.to(dt).to(_F32).transpose(1, 2)  # [B, H, N, D]
-    qf, kf, vf, of, dof = map(heads, (q, k, v, o, do))
-    e, l = _exp_scores(qf, kf, scale)
-    p = (e / l).to(dt).to(_F32)
-    dv = p.transpose(-1, -2) @ dof
-    dp = dof @ vf.transpose(-1, -2)
-    d_row = (dof * of).sum(-1, keepdim=True)
-    ds = (p * (dp - d_row) * scale).to(dt).to(_F32)
-    dq = ds @ kf
-    dk = ds.transpose(-1, -2) @ qf
-    return tuple(g.to(dt).transpose(1, 2).contiguous() for g in (dq, dk, dv))
+    heads = lambda t: t.to(dt).transpose(1, 2)          # [B, H, N, D]
+    q, k, v, o, do = map(heads, (q, k, v, o, do))
+    e, l = _exp_scores(q, k, scale)
+    grads = core_bwd_plain(q, k, v, (e / l).to(dt), o, do, scale)
+    return tuple(g.to(dt).transpose(1, 2).contiguous() for g in grads)
 
 
 def _row_stride(name: str, t: torch.Tensor, shape: tuple) -> int:
@@ -525,12 +526,10 @@ def _attention_bwd_launch(q, k, v, o, do, dq, dk, dv, scale: float) -> None:
                        {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq,
                         "dk": dk, "dv": dv})
     B, N, H, D = q.shape
-    lib = _build.lib()
-    _check_smem("fused_attention_bwd", lib.ag_attention_bwd_smem_bytes(N, D),
-                q.device, N)
-    rc = lib.ag_attention_bwd_bf16(
-        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)), B, N, H, D,
-        *lds, scale, _build.stream_ptr(q))
+    stats = _row_stats(B, N, H, q.device)
+    rc = _build.lib().ag_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv)),
+        stats.data_ptr(), B, N, H, D, *lds, scale, _build.stream_ptr(q))
     _build.check(rc, "ag_attention_bwd_bf16")
 
 
@@ -543,12 +542,9 @@ def fused_attention_cuda(q, k, v, scale: float | None = None
     lds = _row_strides("fused_attention",
                        {"q": q, "k": k, "v": v, "out": out})
     B, N, H, D = q.shape
-    lib = _build.lib()
-    _check_smem("fused_attention", lib.ag_attention_smem_bytes(N, D),
-                q.device, N)
-    rc = lib.ag_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), B, N, H, D, *lds,
-                               _scale(D, scale), _build.stream_ptr(q))
+    rc = _build.lib().ag_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
+        *lds, _scale(D, scale), _build.stream_ptr(q))
     _build.check(rc, "ag_attention_bf16")
     return out
 

@@ -1,417 +1,367 @@
-// Backward of the multi-head attention core, one block per (head, image), in
-// two instantiations of one kernel.
+// Backward of the multi-head attention core, in two instantiations of one
+// pair of kernels.
 //
-// Recomputed o (block path): d(qkv) from the fused qkv tensor and the
-// gradient of the attention output. Replaces the per-head backward inside
-// the Pallas kernel artgraph_tpu/ops/attention.py:_block_bwd_kernel
-// (:409-426). ops/attention.py wraps it between the recomputed forward, the
-// do . W_proj GEMM and the dqkv . W_qkv GEMM (csrc/block_gemm.cu). Its d_row
-// reads o = f32(p . v), recomputed here in f32, not the bf16 output.
+// Recomputed o (block path, ag_attention_core_bwd_bf16): d(qkv) from the
+// fused qkv tensor and the gradient of the attention output. Replaces the
+// per-head backward inside the Pallas kernel
+// artgraph_tpu/ops/attention.py:_block_bwd_kernel (:409-426).
+// ops/attention.py wraps it between the recomputed forward, the do . W_proj
+// GEMM and the dqkv . W_qkv GEMM (csrc/block_gemm.cu). Its reference reads
+// d_row from o = f32(p . v), recomputed in f32.
 //
-// Saved o (ag_attention_bwd_bf16): q, k, v, the forward's bf16 output o, do
-// and dq, dk, dv as [B*N, ld] row-major views, head h at column h*D of each
-// row (the fused qkv and dqkv tensors are the case ld = 3C, offsets 0, C,
-// 2C). Replaces the Pallas kernels artgraph_tpu/ops/attention.py:_bwd_kernel
-// (fused_attention, :61) and _qkv_bwd_kernel (fused_qkv_attention, :209),
-// whose d_row reads the saved bf16 o (:82-83, :237-238); the p . v product
-// is skipped.
+// Saved o (SAVED_O, ag_attention_bwd_bf16): q, k, v, the forward's bf16
+// output o, do and dq, dk, dv as [B*N, ld] row-major views, head h at column
+// h*D of each row (the fused qkv and dqkv tensors are the case ld = 3C,
+// offsets 0, C, 2C). Replaces the Pallas kernels
+// artgraph_tpu/ops/attention.py:_bwd_kernel (fused_attention, :61) and
+// _qkv_bwd_kernel (fused_qkv_attention, :209), whose d_row reads the saved
+// bf16 o (:82-83, :237-238).
 //
 // Rounding points are the Pallas kernels'. For each query row: s = f32(q.k)
 // * scale, exact max m and sum l over the N keys, p = bf16(exp(s - m) / l),
-// d_row = sum_d f32(do) * f32(o), dp = f32(do . v), ds = bf16(p * (dp -
-// d_row) * scale); then dq = ds . k, dk = ds^T . q, dv = p^T . do, each
-// summed in f32 over all N rows and rounded to bf16 once.
+// dp = f32(do . v), ds = bf16(p * (dp - d_row) * scale); then dq = ds . k,
+// dk = ds^T . q, dv = p^T . do, each summed in f32 over all N rows and
+// rounded to bf16 once.
 //
-// Design. dk and dv sum over every query row, which the TPU kernel gets from
-// its whole-sequence VMEM tiles. Here one block owns one (image, head) and
-// walks the queries in tiles of 32 rows, so the f32 dK and dV accumulators
-// stay in shared memory for the whole sum and are rounded once at the end
-// (no atomics, no partial rounding). Shared memory at N = 197 (padded to 208
-// rows in shared memory only), D = 64: K and V 60 KB, f32 dK and dV 113 KB,
-// the Q and dO tiles 9 KB, the f32 score tile (reused for O, dP and the dQ
-// staging) 27 KB and the bf16 probabilities (overwritten by dS) 14 KB: 218
-// KB, one block of 8 warps per SM. Each warp takes 16x16 output tiles in
-// turn (nvcuda::wmma, bf16 in, f32 accumulation).
+// Design: three phases in two launches. A block of 4 warps owns one 64-row
+// tile (16 rows a warp), which stays in shared memory; the other operand
+// streams through a two-stage cp.async ring in 32-row stages; every
+// product is an mma.sync with register accumulators (attention_tiles.cuh).
+// Shared memory is 36-37 KB whatever N is. No atomics: every gradient row
+// is summed in f32 inside one block in a fixed order and rounded once, so
+// results are bit-identical from run to run.
+//  1. Row statistics (attention_bwd_dq_kernel, blocks over image, head and
+//     64-query tile, Q and dO resident). One walk of the key stages gives m
+//     and l, merged across stages as in the forward's pass 1. d_row: saved
+//     o, sum_d f32(do) f32(o); block path, a second walk: sum_j p_j dp_j
+//     with dp = f32(do . v), the same sum as sum_d do_d (sum_j p_j v_jd)
+//     taken in another order. m, l and d_row go to an f32 [3, B, H, N]
+//     scratch for phase 2.
+//  3. dQ (the same blocks, a last walk of the key stages): S, P, dP = dO V^T
+//     and dS again, dQ += dS K.
+//  2. dK and dV (attention_bwd_dkv_kernel, blocks over image, head and
+//     64-key tile, K and V resident) walk the query stages with their
+//     statistics. S^T = K Q^T puts P^T in accumulator layout: P^T =
+//     bf16(exp(s - m) / l), dV += P^T dO, dP^T = V dO^T, dS^T = bf16(P^T
+//     (dP^T - d_row) scale), dK += dS^T Q.
 //
-// What bounds it on an H100: per (image, head) it does 6 products of
-// 2*N*N*D FLOP (S, O, dV, dP, dQ, dK; 4 of them are the backward proper),
-// 3 MFLOP each at N = 197 (the saved-o instantiation skips O: 5), on ~100
-// KB of q/k/v/do: neither the tensor cores nor device memory but
-// shared-memory traffic and the one-block-per-SM occupancy, as for the
-// forward core.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+// What bounds it on an H100: at ViT-B/16 (B = 32, N = 197, H = 12, D = 64)
+// the four backward products are 7.6 GFLOP (0.008 ms at 989 TFLOP/s) on
+// 77.5 MB of q, k, v, o, do, dq, dk, dv (0.023 ms at 3.35 TB/s): bytes. The
+// recomputed Q K^T (twice in phases 1 and 3, once in phase 2) and dO V^T
+// (twice, plus once more on the block path) roughly double the products,
+// which the tensor cores absorb; by estimate the exp / divide work per
+// score, done in both launches, and occupancy (registers) set the pace.
+// 1536 blocks a launch, 5 (phases 1, 3) and 4 (phase 2) resident per SM.
+#include "attention_tiles.cuh"
 
-using namespace nvcuda;
+#include <math.h>
 
 namespace {
 
-constexpr int BQT = 32;  // query rows per tile
-constexpr int BWD_WARPS = 8;
-constexpr int BWD_THREADS = BWD_WARPS * 32;
+using namespace attn;
 
-__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
-// Row strides in elements; all keep 16-row fragment starts 32-byte aligned.
-__host__ __device__ inline int ld_qkv(int d) { return d + 8; }   // bf16
-__host__ __device__ inline int ld_acc(int d) { return d + 4; }   // f32
-__host__ __device__ inline int ld_s(int np, int d) {             // f32
-  return (np > d ? np : d) + 4;
-}
-__host__ __device__ inline int ld_p(int np) { return np + 8; }   // bf16
-
-__host__ __device__ inline size_t attention_bwd_smem_bytes(int n, int d) {
-  const int np = pad16(n);
-  return (size_t)2 * np * ld_qkv(d) * 2      // K, V (bf16)
-         + (size_t)2 * np * ld_acc(d) * 4    // dK, dV accumulators (f32)
-         + (size_t)2 * BQT * ld_qkv(d) * 2   // Q, dO tiles (bf16)
-         + (size_t)BQT * ld_s(np, d) * 4     // S / O / dP / dQ staging (f32)
-         + (size_t)BQT * ld_p(np) * 2        // P, then dS (bf16)
-         + (size_t)BQT * 4;                  // d_row (f32)
-}
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-
-// Row-major [B*N, ld] operands of the saved-o instantiation (elements).
-struct StridedGrad {
-  const __nv_bfloat16 *q, *k, *v, *o, *dout;
-  __nv_bfloat16 *dq, *dk, *dv;
-  int ld_q, ld_k, ld_v, ld_o, ld_do, ld_dq, ld_dk, ld_dv;
+struct BwdArgs {
+  Rows q, k, v, o, dout;  // o: the saved output (SAVED_O only)
+  bf16 *dq, *dk, *dv;
+  int ld_dq, ld_dk, ld_dv;
 };
 
-// SAVED_O = false: the block path (packed qkv, dout and dqkv; o recomputed
-// in f32). SAVED_O = true: every operand from `sg`, d_row from the saved o.
-template <int D, bool SAVED_O>
-__global__ void __launch_bounds__(BWD_THREADS)
-attention_core_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                          const __nv_bfloat16* __restrict__ dout,
-                          __nv_bfloat16* __restrict__ dqkv, int N, int H,
-                          float scale, StridedGrad sg) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int NP = pad16(N), NT = NP / 16;
-  constexpr int LDQ = D + 8, LDA = D + 4, DT = D / 16, QTT = BQT / 16;
-  const int LDS_ = ld_s(NP, D), LDP = ld_p(NP);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + NP * LDQ;
-  float* sdK = reinterpret_cast<float*>(sV + NP * LDQ);
-  float* sdV = sdK + NP * LDA;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(sdV + NP * LDA);
-  __nv_bfloat16* sdO = sQ + BQT * LDQ;
-  float* sS = reinterpret_cast<float*>(sdO + BQT * LDQ);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(sS + BQT * LDS_);
-  float* sRow = reinterpret_cast<float*>(sP + BQT * LDP);
+// Phases 1 and 3 for one (image, head, 64-query tile). The Q and dO tile
+// stays in shared memory and the key tiles come through the ring 32 rows at
+// a time, so the f32 dQ accumulator, one 16 x 32 score tile and its
+// operands fit in 96 registers with no spill: 5 blocks an SM.
+template <bool SAVED_O>
+__global__ void __launch_bounds__(THREADS, 5)
+attention_bwd_dq_kernel(BwdArgs a, float* __restrict__ stats, int N, int H,
+                        float scale) {
+  __shared__ __align__(128) bf16 qdo[2][TILE_ELEMS];  // [Q, dO]
+  __shared__ __align__(128) bf16 ring[2][2][STAGE * LDT];  // [slot][K, V]
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const bf16* kb = head_rows(a.k, b, h, N);
+  const bf16* vb = head_rows(a.v, b, h, N);
+  const int T = (N + STAGE - 1) / STAGE;
+  // walks of the key tiles: (m, l), [d_row,] dQ
+  constexpr int PASSES = SAVED_O ? 2 : 3;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int C = H * D;
-  const size_t qkv_stride = (size_t)3 * C;
-  const __nv_bfloat16* base = qkv + (size_t)b * N * qkv_stride + h * D;
-  const __nv_bfloat16* dbase = dout + (size_t)b * N * C + h * D;
-  __nv_bfloat16* gbase = dqkv + (size_t)b * N * qkv_stride + h * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int VEC = D / 8;  // 16-byte vectors per head row
+  auto issue = [&](int s) {
+    const int pass = s / T, j = s - pass * T;
+    load_tile<STAGE>(ring[s & 1][0], kb, a.k.ld, j * STAGE, N);
+    if (pass > 0) load_tile<STAGE>(ring[s & 1][1], vb, a.v.ld, j * STAGE, N);
+    cp_async_commit();
+  };
 
-  for (int v = tid; v < NP * VEC; v += BWD_THREADS) {
-    const int r = v / VEC, c = (v % VEC) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-    if (r < N) {
-      if constexpr (SAVED_O) {
-        const size_t row = (size_t)b * N + r;
-        kv = *reinterpret_cast<const uint4*>(sg.k + row * sg.ld_k + h * D + c);
-        vv = *reinterpret_cast<const uint4*>(sg.v + row * sg.ld_v + h * D + c);
-      } else {
-        kv = *reinterpret_cast<const uint4*>(base + r * qkv_stride + C + c);
-        vv = *reinterpret_cast<const uint4*>(base + r * qkv_stride + 2 * C +
-                                             c);
-      }
-    }
-    *reinterpret_cast<uint4*>(sK + r * LDQ + c) = kv;
-    *reinterpret_cast<uint4*>(sV + r * LDQ + c) = vv;
-  }
-  for (int i = tid; i < NP * LDA; i += BWD_THREADS) {
-    sdK[i] = 0.f;
-    sdV[i] = 0.f;
-  }
+  load_tile(qdo[0], head_rows(a.q, b, h, N), a.q.ld, q0, N);
+  load_tile(qdo[1], head_rows(a.dout, b, h, N), a.dout.ld, q0, N);
+  issue(0);
 
-  for (int q0 = 0; q0 < N; q0 += BQT) {
-    for (int v = tid; v < BQT * VEC; v += BWD_THREADS) {
-      const int r = v / VEC, c = (v % VEC) * 8;
-      uint4 qv = make_uint4(0u, 0u, 0u, 0u), dv = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < N) {
-        if constexpr (SAVED_O) {
-          const size_t row = (size_t)b * N + q0 + r;
-          qv = *reinterpret_cast<const uint4*>(sg.q + row * sg.ld_q + h * D +
-                                               c);
-          dv = *reinterpret_cast<const uint4*>(sg.dout + row * sg.ld_do +
-                                               h * D + c);
-        } else {
-          qv = *reinterpret_cast<const uint4*>(base + (q0 + r) * qkv_stride +
-                                               c);
-          dv = *reinterpret_cast<const uint4*>(dbase + (size_t)(q0 + r) * C +
-                                               c);
-        }
-      }
-      *reinterpret_cast<uint4*>(sQ + r * LDQ + c) = qv;
-      *reinterpret_cast<uint4*>(sdO + r * LDQ + c) = dv;
-    }
-    __syncthreads();
-
-    // S = (Q K^T) * scale
-    for (int t = warp; t < QTT * NT; t += BWD_WARPS) {
-      const int i = t / NT, j = t % NT;
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DT; ++kk) {
-        FragARow fq;
-        FragBCol fk;  // K[j][d] read as a D x N column-major matrix is K^T
-        wmma::load_matrix_sync(fq, sQ + i * 16 * LDQ + kk * 16, LDQ);
-        wmma::load_matrix_sync(fk, sK + j * 16 * LDQ + kk * 16, LDQ);
-        wmma::mma_sync(acc, fq, fk, acc);
-      }
-#pragma unroll
-      for (int e = 0; e < acc.num_elements; ++e) acc.x[e] *= scale;
-      wmma::store_matrix_sync(sS + i * 16 * LDS_ + j * 16, acc, LDS_,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // exact softmax over the N keys; p = bf16(e / l), 0 on pad rows/columns
-    for (int r = warp; r < BQT; r += BWD_WARPS) {
-      float* srow = sS + r * LDS_;
-      __nv_bfloat16* prow = sP + r * LDP;
-      if (q0 + r >= N) {
-        for (int j = lane; j < NP; j += 32) prow[j] = __float2bfloat16(0.f);
-        continue;
-      }
-      float m = -INFINITY;
-      for (int j = lane; j < N; j += 32) m = fmaxf(m, srow[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float l = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        l += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-      for (int j = lane; j < NP; j += 32)
-        prow[j] = __float2bfloat16(j < N ? __fdiv_rn(srow[j], l) : 0.f);
-    }
-    __syncthreads();
-
-    // O = P V in f32, staged in the score tile (the block path only)
-    if constexpr (!SAVED_O) {
-      for (int t = warp; t < QTT * DT; t += BWD_WARPS) {
-        const int i = t / DT, dj = t % DT;
-        FragAcc acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kt = 0; kt < NT; ++kt) {
-          FragARow fp;
-          FragBRow fv;
-          wmma::load_matrix_sync(fp, sP + i * 16 * LDP + kt * 16, LDP);
-          wmma::load_matrix_sync(fv, sV + kt * 16 * LDQ + dj * 16, LDQ);
-          wmma::mma_sync(acc, fp, fv, acc);
-        }
-        wmma::store_matrix_sync(sS + i * 16 * LDS_ + dj * 16, acc, LDS_,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-    }
-
-    // d_row = sum_d f32(dO) * O, with the f32 O recomputed above or the
-    // saved bf16 o (0 on pad rows, whose dO is 0)
-    for (int r = warp; r < BQT; r += BWD_WARPS) {
-      float s = 0.f;
-      if constexpr (SAVED_O) {
-        if (q0 + r < N) {
-          const __nv_bfloat16* orow =
-              sg.o + ((size_t)b * N + q0 + r) * sg.ld_o + h * D;
-          for (int c = lane; c < D; c += 32)
-            s += __bfloat162float(sdO[r * LDQ + c]) *
-                 __bfloat162float(orow[c]);
-        }
-      } else {
-        for (int c = lane; c < D; c += 32)
-          s += __bfloat162float(sdO[r * LDQ + c]) * sS[r * LDS_ + c];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) sRow[r] = s;
-    }
-    __syncthreads();
-
-    // dV += P^T dO (accumulated in shared memory)
-    for (int t = warp; t < NT * DT; t += BWD_WARPS) {
-      const int j = t / DT, dj = t % DT;
-      FragAcc acc;
-      wmma::load_matrix_sync(acc, sdV + j * 16 * LDA + dj * 16, LDA,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int ks = 0; ks < QTT; ++ks) {
-        FragACol fpt;  // P[q][j] read column-major is P^T
-        FragBRow fdo;
-        wmma::load_matrix_sync(fpt, sP + ks * 16 * LDP + j * 16, LDP);
-        wmma::load_matrix_sync(fdo, sdO + ks * 16 * LDQ + dj * 16, LDQ);
-        wmma::mma_sync(acc, fpt, fdo, acc);
-      }
-      wmma::store_matrix_sync(sdV + j * 16 * LDA + dj * 16, acc, LDA,
-                              wmma::mem_row_major);
-    }
-    // dP = dO V^T into the score tile (O and d_row are read already)
-    for (int t = warp; t < QTT * NT; t += BWD_WARPS) {
-      const int i = t / NT, j = t % NT;
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DT; ++kk) {
-        FragARow fdo;
-        FragBCol fvt;
-        wmma::load_matrix_sync(fdo, sdO + i * 16 * LDQ + kk * 16, LDQ);
-        wmma::load_matrix_sync(fvt, sV + j * 16 * LDQ + kk * 16, LDQ);
-        wmma::mma_sync(acc, fdo, fvt, acc);
-      }
-      wmma::store_matrix_sync(sS + i * 16 * LDS_ + j * 16, acc, LDS_,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // dS = bf16(P * (dP - d_row) * scale), over P in place
-    for (int e = tid; e < BQT * NP; e += BWD_THREADS) {
-      const int r = e / NP, j = e % NP;
-      const float p = __bfloat162float(sP[r * LDP + j]);
-      sP[r * LDP + j] =
-          __float2bfloat16(p * (sS[r * LDS_ + j] - sRow[r]) * scale);
-    }
-    __syncthreads();
-
-    // dK += dS^T Q (accumulated in shared memory)
-    for (int t = warp; t < NT * DT; t += BWD_WARPS) {
-      const int j = t / DT, dj = t % DT;
-      FragAcc acc;
-      wmma::load_matrix_sync(acc, sdK + j * 16 * LDA + dj * 16, LDA,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int ks = 0; ks < QTT; ++ks) {
-        FragACol fdst;
-        FragBRow fq;
-        wmma::load_matrix_sync(fdst, sP + ks * 16 * LDP + j * 16, LDP);
-        wmma::load_matrix_sync(fq, sQ + ks * 16 * LDQ + dj * 16, LDQ);
-        wmma::mma_sync(acc, fdst, fq, acc);
-      }
-      wmma::store_matrix_sync(sdK + j * 16 * LDA + dj * 16, acc, LDA,
-                              wmma::mem_row_major);
-    }
-    // dQ = dS K, staged in the score tile (dP is consumed)
-    for (int t = warp; t < QTT * DT; t += BWD_WARPS) {
-      const int i = t / DT, dj = t % DT;
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kt = 0; kt < NT; ++kt) {
-        FragARow fds;
-        FragBRow fk;
-        wmma::load_matrix_sync(fds, sP + i * 16 * LDP + kt * 16, LDP);
-        wmma::load_matrix_sync(fk, sK + kt * 16 * LDQ + dj * 16, LDQ);
-        wmma::mma_sync(acc, fds, fk, acc);
-      }
-      wmma::store_matrix_sync(sS + i * 16 * LDS_ + dj * 16, acc, LDS_,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int e = tid; e < BQT * D; e += BWD_THREADS) {
-      const int r = e / D, c = e % D;
-      if (q0 + r >= N) continue;
-      const __nv_bfloat16 val = __float2bfloat16(sS[r * LDS_ + c]);
-      if constexpr (SAVED_O)
-        sg.dq[((size_t)b * N + q0 + r) * sg.ld_dq + h * D + c] = val;
-      else
-        gbase[(size_t)(q0 + r) * qkv_stride + c] = val;
-    }
-    __syncthreads();  // the next tile overwrites Q, dO and the score tile
-  }
-
-  for (int e = tid; e < N * D; e += BWD_THREADS) {
-    const int j = e / D, c = e % D;
-    if constexpr (SAVED_O) {
-      const size_t row = (size_t)b * N + j;
-      sg.dk[row * sg.ld_dk + h * D + c] = __float2bfloat16(sdK[j * LDA + c]);
-      sg.dv[row * sg.ld_dv + h * D + c] = __float2bfloat16(sdV[j * LDA + c]);
+  float m[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 of the warp
+  float l[2] = {0.f, 0.f};
+  float drow[2] = {0.f, 0.f};
+  float dq[8][4];
+  zero(dq);
+  for (int s = 0; s < PASSES * T; ++s) {
+    if (s + 1 < PASSES * T) {
+      issue(s + 1);
+      cp_async_wait<1>();
     } else {
-      __nv_bfloat16* row = gbase + (size_t)j * qkv_stride;
-      row[C + c] = __float2bfloat16(sdK[j * LDA + c]);
-      row[2 * C + c] = __float2bfloat16(sdV[j * LDA + c]);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (SAVED_O && s == 0) {
+      // d_row = sum_d f32(do) f32(o): two lanes a row, 32 columns each
+      const int r = lane >> 1, c0 = (lane & 1) * 32, n = q0 + row0 + r;
+      float sum = 0.f;
+      if (n < N) {
+        const bf16* orow = head_rows(a.o, b, h, N) + (size_t)n * a.o.ld + c0;
+        const bf16* dorow = qdo[1] + (row0 + r) * LDT + c0;
+#pragma unroll
+        for (int c = 0; c < 32; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dorow + c);
+          const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+          const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            sum += bf16_lo(dw[i]) * bf16_lo(ow[i]) +
+                   bf16_hi(dw[i]) * bf16_hi(ow[i]);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      const int g = lane >> 2;
+      drow[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+      drow[1] = __shfl_sync(0xffffffffu, sum, 2 * (g + 8));
+    }
+    const int pass = s / T, k0 = (s - pass * T) * STAGE;
+    const bf16* sK = ring[s & 1][0];
+    uint32_t qf[4][4];
+    load_a(qf, qdo[0], row0);
+    float sc[4][4];  // this warp's 16 queries x the stage's 32 keys
+    zero(sc);
+    mma_abt(sc, qf, sK);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = __fmul_rn(sc[nt][e], scale);
+    mask_tail(sc, k0, N, -INFINITY);
+
+    if (pass == 0) {  // (m, l), merged across tiles
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mt = fmaxf(mt, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+        const float mn = fmaxf(m[r], quad_max(mt));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          sum += expf(sc[nt][2 * r] - mn) + expf(sc[nt][2 * r + 1] - mn);
+        l[r] = l[r] * expf(m[r] - mn) + sum;
+        m[r] = mn;
+      }
+      if (s == T - 1) {
+        l[0] = quad_sum(l[0]);
+        l[1] = quad_sum(l[1]);
+      }
+    } else {
+      // p = bf16(exp(s - m) / l), 0 on keys >= N; dP = dO V^T
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = round_bf16(
+              __fdiv_rn(expf(sc[nt][e] - m[e >> 1]), l[e >> 1]));
+      uint32_t dof[4][4];
+      load_a(dof, qdo[1], row0);
+      float dp[4][4];
+      zero(dp);
+      mma_abt(dp, dof, ring[s & 1][1]);
+      if (!SAVED_O && pass == 1) {  // d_row = sum_j p_j dp_j
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) drow[e >> 1] += sc[nt][e] * dp[nt][e];
+        if (s == 2 * T - 1) {
+          drow[0] = quad_sum(drow[0]);
+          drow[1] = quad_sum(drow[1]);
+        }
+      } else {  // dS = bf16(p (dp - d_row) scale), dQ += dS K
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[nt][e] = sc[nt][e] * (dp[nt][e] - drow[e >> 1]) * scale;
+        uint32_t dsf[2][4];
+        pack_a(dsf, dp);
+        mma_ab(dq, dsf, sK);
+      }
+    }
+    __syncthreads();
+  }
+
+  if ((lane & 3) == 0) {
+    const size_t plane = (size_t)gridDim.z * H * N;
+    float* row_stats = stats + ((size_t)b * H + h) * N;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = q0 + row0 + acc_row(2 * r);
+      if (n < N) {
+        row_stats[n] = m[r];
+        row_stats[plane + n] = l[r];
+        row_stats[2 * plane + n] = drow[r];
+      }
     }
   }
+  store_rows(dq, qdo[0], row0,
+             a.dq + (size_t)b * N * a.ld_dq + (size_t)h * D, a.ld_dq, q0, N);
+}
+
+// Phase 2 for one (image, head, 64-key tile). The K and V tile stays in
+// shared memory and the query tiles come through the ring 32 rows at a time,
+// so the f32 dK and dV accumulators, one 16 x 32 score tile and its
+// operands fit in 128 registers with no spill: 4 blocks an SM (at 96
+// registers it spills and timed slower on the H100).
+__global__ void __launch_bounds__(THREADS, 4)
+attention_bwd_dkv_kernel(BwdArgs a, const float* __restrict__ stats, int N,
+                         int H, float scale) {
+  __shared__ __align__(128) bf16 kv[2][TILE_ELEMS];  // [K, V]
+  __shared__ __align__(128) bf16 ring[2][2][STAGE * LDT];  // [slot][Q, dO]
+  __shared__ float st[2][3][STAGE];  // [slot][m, l, d_row] of the rows
+  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, row0 = warp * 16;
+  const bf16* qb = head_rows(a.q, b, h, N);
+  const bf16* dob = head_rows(a.dout, b, h, N);
+  const size_t plane = (size_t)gridDim.z * H * N;
+  const float* row_stats = stats + ((size_t)b * H + h) * N;
+  const int T = (N + STAGE - 1) / STAGE;
+
+  auto issue = [&](int i) {
+    load_tile<STAGE>(ring[i & 1][0], qb, a.q.ld, i * STAGE, N);
+    load_tile<STAGE>(ring[i & 1][1], dob, a.dout.ld, i * STAGE, N);
+    if (threadIdx.x < 3 * STAGE) {
+      const int w = threadIdx.x / STAGE, r = threadIdx.x - w * STAGE;
+      const int n = i * STAGE + r;
+      cp_async4(&st[i & 1][w][r], row_stats + w * plane + (n < N ? n : 0),
+                n < N);
+    }
+    cp_async_commit();
+  };
+
+  load_tile(kv[0], head_rows(a.k, b, h, N), a.k.ld, k0, N);
+  load_tile(kv[1], head_rows(a.v, b, h, N), a.v.ld, k0, N);
+  issue(0);
+
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+  for (int i = 0; i < T; ++i) {
+    if (i + 1 < T) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sQ = ring[i & 1][0];
+    const bf16* sdO = ring[i & 1][1];
+    const float* sm = st[i & 1][0];
+    const float* sl = st[i & 1][1];
+    const float* sd = st[i & 1][2];
+    uint32_t kf[4][4];
+    load_a(kf, kv[0], row0);
+    float sc[4][4];  // S^T: this warp's 16 keys x the stage's 32 queries
+    zero(sc);
+    mma_abt(sc, kf, sQ);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = acc_col(nt, e);
+        sc[nt][e] = round_bf16(
+            __fdiv_rn(expf(__fmul_rn(sc[nt][e], scale) - sm[c]), sl[c]));
+      }
+    // queries >= N (their m, l are zero-filled)
+    mask_tail(sc, i * STAGE, N, 0.f);
+    uint32_t pf[2][4];
+    pack_a(pf, sc);
+    mma_ab(dv, pf, sdO);
+    uint32_t vf[4][4];
+    load_a(vf, kv[1], row0);
+    float dp[4][4];  // dP^T = V dO^T
+    zero(dp);
+    mma_abt(dp, vf, sdO);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[nt][e] = sc[nt][e] * (dp[nt][e] - sd[acc_col(nt, e)]) * scale;
+    uint32_t dsf[2][4];
+    pack_a(dsf, dp);
+    mma_ab(dk, dsf, sQ);
+    __syncthreads();
+  }
+
+  store_rows(dk, kv[0], row0,
+             a.dk + (size_t)b * N * a.ld_dk + (size_t)h * D, a.ld_dk, k0, N);
+  store_rows(dv, kv[1], row0,
+             a.dv + (size_t)b * N * a.ld_dv + (size_t)h * D, a.ld_dv, k0, N);
+}
+
+template <bool SAVED_O>
+int launch(const BwdArgs& a, float* stats, int B, int N, int H, float scale,
+           void* stream) {
+  const dim3 grid((N + TILE - 1) / TILE, H, B);
+  attention_bwd_dq_kernel<SAVED_O>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(a, stats, N, H, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dkv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      a, stats, N, H, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t ag_attention_bwd_smem_bytes(int n, int d) {
-  return attention_bwd_smem_bytes(n, d);
-}
-
 // qkv: [B*N, 3*H*D] bf16 (the forward's, columns ordered qkv-slot, head,
 // dim); dout: [B*N, H*D] bf16, the gradient of the attention output;
-// dqkv: [B*N, 3*H*D] bf16, every element written. Only D = 64 is built.
+// dqkv: [B*N, 3*H*D] bf16, every element written; stats: f32 scratch of
+// 3*B*H*N. Only D = 64 is built.
 int ag_attention_core_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                               int B, int N, int H, int D, float scale,
-                               void* stream) {
-  if (D != 64 || N < 1 || B < 1 || H < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = attention_bwd_smem_bytes(N, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_core_bwd_kernel<64, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, B);
-  attention_core_bwd_kernel<64, false><<<grid, BWD_THREADS, smem,
-                                         (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dout,
-      (__nv_bfloat16*)dqkv, N, H, scale, StridedGrad{});
-  return (int)cudaGetLastError();
+                               void* stats, int B, int N, int H, int Dh,
+                               float scale, void* stream) {
+  if (bad_shape(B, N, H, Dh)) return (int)cudaErrorInvalidValue;
+  const int C = H * D;
+  const bf16* p = (const bf16*)qkv;
+  bf16* g = (bf16*)dqkv;
+  const BwdArgs a{{p, 3 * C},     {p + C, 3 * C}, {p + 2 * C, 3 * C},
+                  {nullptr, 0},   {(const bf16*)dout, C},
+                  g,              g + C,          g + 2 * C,
+                  3 * C,          3 * C,          3 * C};
+  return launch<false>(a, (float*)stats, B, N, H, scale, stream);
 }
 
 // q, k, v, o (the forward's bf16 output), dout, dq, dk, dv: [B*N, ld_*] bf16
 // row-major, head h at columns [h*D, h*D+D) of a row; each pointer 16-byte
 // aligned and each ld_* a multiple of 8 (checked by the caller); every
-// element of dq, dk and dv at a head column of a valid row is written. Only
-// D = 64 is built.
+// element of dq, dk and dv at a head column of a valid row is written.
+// stats: f32 scratch of 3*B*H*N. Only D = 64 is built.
 int ag_attention_bwd_bf16(const void* q, const void* k, const void* v,
                           const void* o, const void* dout, void* dq, void* dk,
-                          void* dv, int B, int N, int H, int D, int ld_q,
-                          int ld_k, int ld_v, int ld_o, int ld_do, int ld_dq,
-                          int ld_dk, int ld_dv, float scale, void* stream) {
-  if (D != 64 || N < 1 || B < 1 || H < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = attention_bwd_smem_bytes(N, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_core_bwd_kernel<64, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const StridedGrad sg{
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)o,
-      (const __nv_bfloat16*)dout, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, ld_q, ld_k, ld_v, ld_o, ld_do, ld_dq, ld_dk, ld_dv};
-  const dim3 grid(H, B);
-  attention_core_bwd_kernel<64, true><<<grid, BWD_THREADS, smem,
-                                        (cudaStream_t)stream>>>(
-      nullptr, nullptr, nullptr, N, H, scale, sg);
-  return (int)cudaGetLastError();
+                          void* dv, void* stats, int B, int N, int H, int Dh,
+                          int ld_q, int ld_k, int ld_v, int ld_o, int ld_do,
+                          int ld_dq, int ld_dk, int ld_dv, float scale,
+                          void* stream) {
+  if (bad_shape(B, N, H, Dh)) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{{(const bf16*)q, ld_q}, {(const bf16*)k, ld_k},
+                  {(const bf16*)v, ld_v}, {(const bf16*)o, ld_o},
+                  {(const bf16*)dout, ld_do}, (bf16*)dq, (bf16*)dk,
+                  (bf16*)dv, ld_dq, ld_dk, ld_dv};
+  return launch<true>(a, (float*)stats, B, N, H, scale, stream);
 }
 
 }  // extern "C"

@@ -23,8 +23,9 @@ non-zero:
               rtol = atol = 3e-2 and each f32 parameter gradient at relative
               L2 <= GRAD_REL_L2 and max|a-b| / mean|a| <= GRAD_MAX_REL (the
               JAX tests' bf16 gradient bound is 0.2), the K third of db_qkv
-              (zero in exact arithmetic) by absolute error only; the uint8
-              normalize bit-exact for both statistics
+              (zero in exact arithmetic) by absolute error only, each
+              bit-identical on repeat; the uint8 normalize bit-exact for
+              both statistics
   4. time     each kernel, its plain version and one PyTorch library call for
               the same function (a yardstick the port never calls): median
               of 10 CUDA-event timings, each over 10 back-to-back calls;
@@ -44,7 +45,8 @@ non-zero:
               just before (12*8 forward and 12*8 backward launches per block
               kernel, 8 normalize launches); every loss finite, the last below
               the first; img/s, then 2 profiled steps for the device time by
-              kernel and the idle share.
+              kernel and the idle share (busy time: kernels, memcpys and
+              memsets; user-annotation spans left out and printed beside).
   7. grads    one step's gradients on 2 images (dropout 0): the kernels in
               bf16 on the card against the f32 plain path on the CPU with the
               same weights; relative L2 of the concatenated trunk gradient
@@ -87,9 +89,11 @@ fused_qkv_attention, forward and backward, at B=32, N=197, H=12, D=64 (q, k,
 v strided views of one [B, N, 3, H, D] bf16 tensor, never copied; x
 [B, N, 768]) against their plain twins on the card: outputs, dq/dk/dv and
 dx at rtol = atol = 3e-2, the f32 dw and db as in phase 3 (the K third of
-db by absolute error), bit-identical on repeat; timed beside the twins and
-F.scaled_dot_product_attention (after F.linear for the qkv op; autograd of
-the same for the backwards) (attention_kernel_phases).
+db by absolute error), bit-identical on repeat; fused_attention forward and
+backward also at N = 600 on 2 images x 2 heads against the twins, the same
+way; timed beside the twins and F.scaled_dot_product_attention (after
+F.linear for the qkv op; autograd of the same for the backwards)
+(attention_kernel_phases).
 
  12. resnet serve  ResnetSingleTask(32) and NewMultiModalMultiTask(128, ...)
               at full ResNet50 size with seeded weights, saved as reference
@@ -190,6 +194,8 @@ GNN_GRAD_REL_L2 = 1e-3     # one GNN step, kernels on cuda vs plain on the CPU
 CONV_BN_SHAPES = ((100352, 64, 256, True), (6272, 1024, 256, False),
                   (1568, 512, 2048, True))
 RESNET_UNITS = 32
+# a sequence length past what a [64, N] score tile in shared memory allows
+LONG_N = 600
 
 
 def device_phase() -> None:
@@ -448,12 +454,16 @@ def kernel_phases() -> dict:
             print(f"check: normalize_images [{B},224,224,3] uint8 bit-exact "
                   f"vs plain for resnet and vit stats", flush=True)
         else:
-            ours = kernel()
+            ours, again = kernel(), kernel()
             torch.cuda.synchronize()
             ref = plain()
             torch.cuda.synchronize()
             max_abs = (_check_grads(name, ours, ref) if name.endswith("_bwd")
                        else _check_output(name, ours, ref))
+            if not all(torch.equal(a, g) for a, g in
+                       zip(_as_tuple(ours), _as_tuple(again))):
+                raise AssertionError(f"{name} differs from call to call")
+            print(f"check: {name} bit-identical on repeat", flush=True)
         results[name] = {"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "launches": 0,
                          "max_abs_err": max_abs}
@@ -811,6 +821,32 @@ def conv_bn_kernel_phases() -> dict:
     return rows
 
 
+def _long_sequence_check(rng, dev, n: int = LONG_N, heads: int = 2) -> None:
+    """fused_attention forward and backward at N = LONG_N on a few heads,
+    against the twins at rtol = atol = KERNEL_TOL and bit-identical on
+    repeat: a sequence whose [64, N] score tile would not fit in shared
+    memory, which the tiled cores take in the same 27-37 KB."""
+    from artgraph_tpu_torch.ops import attention as A
+
+    qkv = dev(rng.normal(size=(2, n, 3, heads, D)), torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = dev(rng.normal(size=(2, n, heads, D)), torch.bfloat16)
+    out = A.fused_attention_cuda(q, k, v)
+    ours = (out, *A.fused_attention_bwd_cuda(q, k, v, out, do))
+    again = (A.fused_attention_cuda(q, k, v),
+             *A.fused_attention_bwd_cuda(q, k, v, out, do))
+    torch.cuda.synchronize()
+    ref = (A.fused_attention_plain(q, k, v),
+           *A.fused_attention_bwd_plain(q, k, v, out, do))
+    for name, a, r, g in zip(("out", "dq", "dk", "dv"), ours, ref, again):
+        _check_output(f"fused_attention N={n} {name}", a, r)
+        if not torch.equal(a, g):
+            raise AssertionError(f"fused_attention N={n} {name} differs from "
+                                 f"call to call")
+    print(f"check: fused_attention N={n} forward and backward bit-identical "
+          f"on repeat", flush=True)
+
+
 def attention_kernel_phases() -> dict:
     """Phases 3 and 4 for the kernels of fused_attention and
     fused_qkv_attention (forward and backward) at the ViT-B/16 shapes: q, k,
@@ -880,6 +916,7 @@ def attention_kernel_phases() -> dict:
                          "source": "artgraph_tpu_torch/ops/csrc/" + source,
                          "replaces": replaces, "launches": 0,
                          "max_abs_err": max_abs}
+    _long_sequence_check(rng, dev)
 
     heads = lambda t: t.transpose(1, 2)                  # [B, H, N, D] view
     wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
@@ -1001,11 +1038,19 @@ def serve_phase() -> dict:
     return launches
 
 
+# chrome-trace categories of device work; "gpu_user_annotation" spans (such
+# as the optimizer's Optimizer.step#Adam.step) cover kernels counted on
+# their own and are left out
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def _profile_steps(step, steps: int, step_ms: float,
                    label: str = "train") -> None:
     """Device time by kernel over `steps` profiled steps, and the device idle
-    share against the unprofiled step time."""
-    from torch.autograd import DeviceType
+    share against the unprofiled step time. Busy time sums the device's
+    kernels, memcpys and memsets, read by category from the profiler's
+    chrome trace; the user-annotation spans on the device timeline are left
+    out and their time printed beside."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1013,22 +1058,32 @@ def _profile_steps(step, steps: int, step_ms: float,
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kernels.append((us / steps / 1e3, e.count // steps, e.key))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    work, spans = {}, {}
+    for ev in events:
+        cat = ev.get("cat")
+        if cat in DEVICE_WORK or cat == "gpu_user_annotation":
+            total = (work if cat in DEVICE_WORK else spans).setdefault(
+                ev["name"], [0.0, 0])
+            total[0] += ev.get("dur", 0.0) / steps / 1e3
+            total[1] += 1
+    kernels = sorted(((ms, n // steps, name)
+                      for name, (ms, n) in work.items()), reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
     if busy <= 0:
         print(f"{label} profile: the profiler saw no device time; idle share "
               "not measured", flush=True)
         return
-    kernels.sort(reverse=True)
-    print(f"{label} profile: device busy {busy:.3f} ms per step against "
-          f"{step_ms:.3f} ms per unprofiled step: idle share "
-          f"{max(0.0, 1 - busy / step_ms):.4f}", flush=True)
+    dropped = ", ".join(f"{name} {ms:.3f} ms"
+                        for name, (ms, _) in spans.items())
+    print(f"{label} profile: device busy {busy:.3f} ms per step (kernels, "
+          f"memcpys, memsets) against {step_ms:.3f} ms per unprofiled step: "
+          f"idle share {max(0.0, 1 - busy / step_ms):.4f}; user-annotation "
+          f"spans left out: {dropped or 'none'}", flush=True)
     for ms, calls, name in kernels[:14]:
         print(f"{label} profile:   {ms:8.3f} ms/step {100 * ms / busy:5.1f}% "
               f"{calls:4d} calls  {name[:110]}", flush=True)

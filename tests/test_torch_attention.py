@@ -18,9 +18,20 @@ gradient; SGD, not Adam: the qkv K-bias gradient is zero in exact
 arithmetic and Adam would amplify its noise). Weights move through the
 port's converters.
 
+The CUDA attention cores run only on the card, so their decomposition is
+rehearsed here in PyTorch (`tiled_forward`, `tiled_backward`): 64-row
+resident tiles and 32-row streamed stages, rows padded with zeros, keys >= N
+masked to -inf in the ragged last stage, the forward's two passes over the
+key stages, the backward's three phases. That emulation is held against the
+Pallas `fused_attention` and its VJP (interpret mode), and against the block
+path's plain twins of the core (`core_plain`, `core_bwd_plain`), at the
+tolerances above, for N = 65, 197 and 600.
+
 tests/test_torch_cuda.py holds the CUDA kernels against the twins on the
 card.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +51,7 @@ from artgraph_tpu_torch.ops import (fused_attention,
                                     fused_qkv_attention,
                                     fused_qkv_attention_bwd_plain,
                                     fused_qkv_attention_plain)
+from artgraph_tpu_torch.ops.attention import core_bwd_plain, core_plain
 from test_torch_vit import TINY, seeded_params
 
 torch.set_num_threads(2)
@@ -204,6 +216,178 @@ def test_backward_twins_read_the_saved_output(dtype):
     _close(odx, dx, dtype, "dx")
     _close(odw.t(), dw, dtype, "dw")
     _close(odb, db, dtype, "db")
+
+
+# --- the CUDA cores' tiled decomposition ------------------------------------
+
+# csrc/block_attention{,_bwd}.cu: a block keeps a 64-row tile of one operand
+# and streams the other in 32-row stages
+TILE, STAGE = 64, 32
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero rows up to `rows`: the zero-filled shared-memory rows past N."""
+    return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[-2]))
+
+
+def _stage(t: torch.Tensor, j: int) -> torch.Tensor:
+    return t[..., j * STAGE:(j + 1) * STAGE, :]
+
+
+def _stages(N: int) -> int:
+    return -(-N // STAGE)
+
+
+def _stage_scores(q, k, j: int, N: int, scale: float) -> torch.Tensor:
+    """f32 scores of every (padded) query row against key stage j, the keys
+    >= N of the ragged last stage at -inf."""
+    s = (q.float() @ _stage(k, j).float().transpose(-1, -2)) * scale
+    return s.masked_fill(torch.arange(j * STAGE, (j + 1) * STAGE) >= N,
+                         -math.inf)
+
+
+def _tiled_row_stats(q, k, N: int, scale: float):
+    """The block path's pass 1 and the backward's phase 1: each row's max m
+    and sum l, key stage by key stage, merged with the rescale."""
+    m = torch.full((*q.shape[:-1], 1), -math.inf)
+    l = torch.zeros_like(m)
+    for j in range(_stages(N)):
+        s = _stage_scores(q, k, j, N, scale)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
+        m = mn
+    return m, l
+
+
+def tiled_forward(q, k, v, scale: float, divide_before: bool):
+    """Kernel A on [B, H, N, D] heads in their dtype. The block path: pass 1
+    gives (m, l), pass 2 rounds p = dtype(e / l) against them and
+    accumulates p . v stage by stage. The strided path: pass 1 gives m
+    alone, pass 2 rounds dtype(e), sums l from the same e and divides the
+    f32 product by it. Returns o in dtype."""
+    dt, N = q.dtype, q.shape[-2]
+    rows = -(-N // TILE) * TILE
+    q, k, v = (_pad_rows(t, rows) for t in (q, k, v))
+    if divide_before:
+        m, l = _tiled_row_stats(q, k, N, scale)
+    else:
+        m = torch.stack([_stage_scores(q, k, j, N, scale).amax(-1)
+                         for j in range(_stages(N))]).amax(0)[..., None]
+        l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for j in range(_stages(N)):
+        e = torch.exp(_stage_scores(q, k, j, N, scale) - m)
+        if not divide_before:
+            l = l + e.sum(-1, keepdim=True)
+        p = (e / l if divide_before else e).to(dt)
+        o = o + p.float() @ _stage(v, j).float()
+    if not divide_before:
+        o = o / l
+    return o[..., :N, :].to(dt)
+
+
+def tiled_backward(q, k, v, do, scale: float, o=None):
+    """Kernel B's three phases on [B, H, N, D] heads in their dtype; o is
+    the saved output (the strided path), or None for the block path, whose
+    d_row is sum_j p_j dp_j. Returns (dq, dk, dv) in dtype."""
+    dt, N = q.dtype, q.shape[-2]
+    rows = -(-N // TILE) * TILE
+    T = _stages(N)
+    q, k, v, do = (_pad_rows(t, rows) for t in (q, k, v, do))
+
+    # 1. row statistics: m, l, d_row
+    m, l = _tiled_row_stats(q, k, N, scale)
+
+    def probs(j):     # p = dtype(exp(s - m) / l) of key stage j, 0 past N
+        e = torch.exp(_stage_scores(q, k, j, N, scale) - m)
+        return (e / l).to(dt).float()
+
+    def dprobs(j):    # dp = f32(do . v)
+        return do.float() @ _stage(v, j).float().transpose(-1, -2)
+
+    if o is None:
+        d_row = sum((probs(j) * dprobs(j)).sum(-1, keepdim=True)
+                    for j in range(T))
+    else:
+        d_row = (do.float() * _pad_rows(o, rows).float()).sum(-1,
+                                                              keepdim=True)
+    # 2. dK and dV of each 64-key tile, walking the query stages with the
+    # statistics as the scratch gives them (zeros past N, whose queries must
+    # contribute nothing)
+    past = (torch.arange(rows) >= N)[:, None]
+    sm, sl, sd = (torch.where(past, 0.0, t) for t in (m, l, d_row))
+    dk = torch.zeros(q.shape)
+    dv = torch.zeros(q.shape)
+    for kt in range(rows // TILE):
+        keys = slice(kt * TILE, (kt + 1) * TILE)
+        for i in range(T):
+            qi = slice(i * STAGE, (i + 1) * STAGE)
+            live = torch.arange(i * STAGE, (i + 1) * STAGE) < N
+            st = (k[..., keys, :].float() @ q[..., qi, :].float()
+                  .transpose(-1, -2)) * scale
+            pt = (torch.exp(st - sm[..., qi, 0].unsqueeze(-2))
+                  / sl[..., qi, 0].unsqueeze(-2)).to(dt).float()
+            pt = torch.where(live, pt, 0.0)
+            dpt = v[..., keys, :].float() @ do[..., qi, :].float() \
+                .transpose(-1, -2)
+            dst = (pt * (dpt - sd[..., qi, 0].unsqueeze(-2))
+                   * scale).to(dt).float()
+            dv[..., keys, :] += pt @ do[..., qi, :].float()
+            dk[..., keys, :] += dst @ q[..., qi, :].float()
+    # 3. dQ of each query row, walking the key stages
+    dq = torch.zeros(q.shape)
+    for j in range(T):
+        ds = (probs(j) * (dprobs(j) - d_row) * scale).to(dt).float()
+        dq = dq + ds @ _stage(k, j).float()
+    return tuple(g[..., :N, :].to(dt) for g in (dq, dk, dv))
+
+
+def _heads_view(t: torch.Tensor) -> torch.Tensor:
+    return t.transpose(1, 2)                   # [B, N, H, D] <-> [B, H, N, D]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [65, 197, 600])
+def test_tiled_cores_match_pallas(N, dtype):
+    """The strided instantiations (divide after p . v; d_row from the saved
+    output), emulated in tiles, against the Pallas fused_attention and the
+    three gradients of its VJP, which takes N = 600 as it is."""
+    B, H, D = 1, 2, 64
+    rng = np.random.default_rng(N + 1)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _both(_normal(rng, (B, N, H, D)), dtype) for _ in range(4))
+    out, vjp = jax.vjp(J.fused_attention, jq, jk, jv)
+    grads = vjp(jdo)
+    scale = D ** -0.5
+    heads = [_heads_view(t) for t in (tq, tk, tv)]
+    ours = tiled_forward(*heads, scale, divide_before=False)
+    _close(_heads_view(ours), out, dtype, "out", max_rel=True)
+    _, tout = _both(_np(out), dtype)
+    for name, a, r in zip(("dq", "dk", "dv"), tiled_backward(
+            *heads, _heads_view(tdo), scale, o=_heads_view(tout)), grads):
+        _close(_heads_view(a), r, dtype, name, max_rel=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [65, 197, 600])
+def test_tiled_block_core_matches_plain_twins(N, dtype):
+    """The block instantiations (p = dtype(e / l) before p . v; d_row = sum_j
+    p_j dp_j in the backward's phase 1), emulated in tiles, against the core
+    of block_attention_plain / block_attention_bwd_plain (core_plain, whose
+    o is the f32 p . v, and core_bwd_plain, whose d_row reads that o)."""
+    B, H, D = 1, 2, 64
+    tdt = DTYPES[dtype][1]
+    rng = np.random.default_rng(N + 2)
+    q, k, v, do = (torch.from_numpy(_normal(rng, (B, H, N, D))).to(tdt)
+                   for _ in range(4))
+    scale = D ** -0.5
+    p, o = core_plain(q, k, v, scale)
+    _close(tiled_forward(q, k, v, scale, divide_before=True), o.to(tdt),
+           dtype, "o", max_rel=True)
+    ref = core_bwd_plain(q, k, v, p, o, do, scale)
+    for name, a, r in zip(("dq", "dk", "dv"),
+                          tiled_backward(q, k, v, do, scale), ref):
+        _close(a, r.to(tdt), dtype, name, max_rel=True)
 
 
 # --- the modules ------------------------------------------------------------

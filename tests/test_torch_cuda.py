@@ -20,7 +20,8 @@ relative L2 <= GRAD_REL_L2, bit-identical from call to call. The two
 attention ops of the unfused paths (fused_attention on strided q/k/v views,
 fused_qkv_attention), forward and backward: bf16 outputs, dq/dk/dv and dx
 at rtol = atol = 3e-2, the f32 dw and db at relative L2 <= GRAD_REL_L2 (the
-K third of db by absolute error, as above), bit-identical from call to call.
+K third of db by absolute error, as above), bit-identical from call to call,
+at N up to 600 (the attention cores' shared memory does not grow with N).
 """
 import numpy as np
 import pytest
@@ -70,7 +71,7 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,H,Hd", [(128, 2, 512), (192, 3, 320)])
-@pytest.mark.parametrize("N", [17, 197])
+@pytest.mark.parametrize("N", [17, 197, 600])
 def test_cuda_block_kernels_match_plain(N, C, H, Hd):
     """(192, 3, 320) leaves partial GEMM tiles along N (576, 320, 192)."""
     _need_cuda()
@@ -112,10 +113,11 @@ def check_grads(ours, ref, kind: str, C: int) -> None:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,H,Hd", [(128, 2, 512), (192, 3, 320)])
-@pytest.mark.parametrize("N", [17, 197])
+@pytest.mark.parametrize("N", [17, 197, 600])
 def test_cuda_block_bwd_kernels_match_plain(N, C, H, Hd):
     """The backward kernels against the plain backward, B = 3 (K = 3N rows
-    in the weight-gradient GEMMs: a ragged tail of the 32-row K step)."""
+    in the weight-gradient GEMMs: a ragged tail of the 32-row K step),
+    bit-identical on repeat."""
     _need_cuda()
     B = 3
     do = torch.from_numpy(np.random.default_rng(N + C).normal(
@@ -129,7 +131,9 @@ def test_cuda_block_bwd_kernels_match_plain(N, C, H, Hd):
         tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
         tx, params = tx.cuda(), [p.cuda() for p in params]
         ours = bwd(tx, *params, do, *extra, 1e-6)
+        again = bwd(tx, *params, do, *extra, 1e-6)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(ours, again)), kind
         ref = plain(tx, *params[:5], do, *extra)
         check_grads(ours, ref, kind, C)
 
@@ -350,7 +354,8 @@ def attention_case(B, N, H, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,scale", [(197, None), (64, 0.5)])
+@pytest.mark.parametrize("N,scale", [(197, None), (64, 0.5), (65, None),
+                                     (600, None)])
 def test_cuda_attention_kernels_match_plain(N, scale, monkeypatch):
     """The four kernels of fused_attention and fused_qkv_attention against
     their plain twins, q/k/v strided views of one qkv tensor (never copied),
@@ -411,8 +416,9 @@ def test_cuda_attention_kernels_match_plain(N, scale, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_attention_ops_raise_rather_than_fall_back():
-    """f32 inputs, a head dim other than 64, an N beyond shared memory and a
-    misaligned view raise on the card; nothing falls back."""
+    """f32 inputs, a head dim other than 64 and a misaligned view raise on
+    the card; nothing falls back. N = 600, which a [64, N] score tile in
+    shared memory could not hold, runs and matches the twins."""
     _need_cuda()
     qkv, do, x, w, b = attention_case(2, 17, 2, seed=0)
     q, k, v = qkv.unbind(2)
@@ -430,10 +436,14 @@ def test_cuda_attention_ops_raise_rather_than_fall_back():
                                          .reshape(2, 17, 2, 64),) * 3)
     big, bdo, *_ = attention_case(1, 600, 1, seed=1)
     bq = big.unbind(2)
-    with pytest.raises(ValueError):                      # shared memory
-        attention.fused_attention_cuda(*bq)
-    with pytest.raises(ValueError):
-        attention.fused_attention_bwd_cuda(*bq, bdo, bdo)
+    out = attention.fused_attention_cuda(*bq)
+    grads = attention.fused_attention_bwd_cuda(*bq, out, bdo)
+    torch.cuda.synchronize()
+    refs = (attention.fused_attention_plain(*bq),
+            *attention.fused_attention_bwd_plain(*bq, out, bdo))
+    for ours, ref in zip((out, *grads), refs):
+        torch.testing.assert_close(ours.float(), ref.float(), rtol=3e-2,
+                                   atol=3e-2)
 
 
 @pytest.mark.cuda
