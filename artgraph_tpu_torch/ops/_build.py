@@ -41,6 +41,7 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "ag_layernorm_bf16": ((_P, _P, _P, _P, _I, _I, _F, _P), _I),
     "ag_gemm_bf16": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "ag_gemm_splits": ((_I, _I, _I, _I), _I),
     "ag_attention_core_bf16": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "ag_attention_core_bwd_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
                                    _I),
@@ -57,7 +58,7 @@ _SIGNATURES = {
                             _P), _I),
     "ag_csr_scalar_sum_f32": ((_P, _P, _P, _I, _P), _I),
     "ag_conv_bn_fwd_bf16": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
-    "ag_conv_bn_bwd_bf16": ((_P,) * 15 + (_I,) * 6 + (_P,), _I),
+    "ag_conv_bn_bwd_bf16": ((_P,) * 16 + (_I,) * 8 + (_P,), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -125,6 +125,31 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor,
     return (acc + b.to(dt).to(_F32)).to(dt)
 
 
+def gemm_plain(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
+               bias: torch.Tensor | None = None,
+               aux: torch.Tensor | None = None) -> torch.Tensor | tuple:
+    """The plain PyTorch version of `gemm_cuda`: the same operand layouts,
+    epilogues and rounding points, the product in f32."""
+    from artgraph_tpu_torch.ops.mlp import gelu_grad_plain, gelu_plain
+
+    bf = torch.bfloat16
+    acc = ((a.to(_F32).t() if layout == LAYOUT_TN else a.to(_F32))
+           @ (b.to(_F32).t() if layout == LAYOUT_NT else b.to(_F32)))
+    if epilogue == EPI_F32:
+        return acc
+    if epilogue == EPI_NONE:
+        return acc.to(bf)
+    if epilogue == EPI_DGELU:
+        return (acc * gelu_grad_plain(aux)).to(bf)
+    v = (acc + bias.to(bf).to(_F32)).to(bf)
+    if epilogue == EPI_BIAS:
+        return v
+    if epilogue == EPI_BIAS_RESIDUAL:
+        return (aux.to(_F32) + v.to(_F32)).to(bf)
+    act = gelu_plain(v).to(bf)
+    return act if epilogue == EPI_BIAS_GELU else (v, act)
+
+
 def weight_f32(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """The weight as the kernels read it (rounded to dt), in f32."""
     return w.to(dt).to(_F32)
@@ -266,6 +291,9 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
     bias [N] for the EPI_BIAS* epilogues; aux [M, N] bf16 is the residual
     (EPI_BIAS_RESIDUAL) or the fc1 output h (EPI_DGELU). Returns the f32
     (EPI_F32) or bf16 output, and for EPI_BIAS_GELU_AUX the pair (h, gelu(h)).
+    Raises ValueError on a shape the kernel does not take: N, and the rows
+    of the operands it reads by TMA (K for NT and NN, M for TN), multiples
+    of 8 elements.
     """
     for name, t in (("a", a), ("b", b), ("aux", aux)):
         if t is not None and (t.dtype != torch.bfloat16
@@ -280,16 +308,24 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
     if (b.shape[1] if layout == LAYOUT_NT else b.shape[0]) != K:
         raise ValueError(f"gemm_cuda: inner dimensions {tuple(a.shape)} and "
                          f"{tuple(b.shape)} differ (layout {layout})")
+    lib = _build.lib()
+    splits = lib.ag_gemm_splits(M, N, K, layout)
+    if splits == 0:
+        raise ValueError(f"gemm_cuda: M={M}, N={N}, K={K} (layout {layout}) "
+                         f"is not a shape the kernel takes: N, and K for NT "
+                         f"and NN or M for TN, must be multiples of 8")
     out = torch.empty((M, N), device=a.device,
                       dtype=_F32 if epilogue == EPI_F32 else torch.bfloat16)
     out2 = torch.empty_like(out) if epilogue == EPI_BIAS_GELU_AUX else None
+    if splits > 1:          # TN: the f32 partials of its chunks of K
+        out2 = torch.empty((splits, M, N), device=a.device, dtype=_F32)
     bias = None if bias is None else bf16_contiguous(bias)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _build.lib().ag_gemm_bf16(
+    rc = lib.ag_gemm_bf16(
         a.data_ptr(), b.data_ptr(), ptr(bias), ptr(aux), out.data_ptr(),
         ptr(out2), M, N, K, layout, epilogue, _build.stream_ptr(a))
     _build.check(rc, "ag_gemm_bf16")
-    return out if out2 is None else (out, out2)
+    return out if epilogue != EPI_BIAS_GELU_AUX else (out, out2)
 
 
 def gemm_nt_cuda(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

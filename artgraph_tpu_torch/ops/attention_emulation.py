@@ -1,21 +1,31 @@
-"""The attention cores' CUDA source run on the host, against the plain twins.
+"""The mma.sync kernels' CUDA source run on the host, against the plain twins:
+the attention cores and the conv + BN-statistics unit.
 
     python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
 
-(default: 1,197,2 1,600,1). No GPU and no nvcc: g++ (C++20) compiles
-csrc/block_attention.cu, csrc/block_attention_bwd.cu and
-csrc/attention_tiles.cuh as host code into build/emulate_attention/, with
-the header's PTX helpers (cp.async, ldmatrix, mma.sync) replaced by the
-warp-cooperative host versions of csrc/emulation/ptx_emulation.h and CUDA's
-built-ins by csrc/emulation/cuda_shim/. Each block runs as 128 host
-threads, one block after another, so small shapes take seconds. For each
-shape the kernels of the four entry points (strided and packed forward,
-saved-o and recomputed-o backward) run on seeded bf16 inputs, and it prints
-their max abs error against the plain twins and the worst error over the
-card's tolerance (atol + rtol |ref|, both 3e-2), and exits non-zero past
-it. It checks the kernels' indexing, fragment layouts, masks and phases;
-not their speed, and not what only nvcc or the card can reject. The port
-never calls it; tests/test_torch_emulated_attention.py does.
+(default: 1,197,2 1,600,1; then the unit at two shapes each way). No GPU
+and no nvcc: g++ (C++20) compiles csrc/block_attention.cu,
+csrc/block_attention_bwd.cu, csrc/conv_bn.cu and the headers they include
+as host code into build/emulate_attention/, with the PTX helpers of
+csrc/ptx_helpers.cuh (cp.async, ldmatrix, mma.sync, dynamic shared memory)
+replaced by the warp-cooperative host versions of
+csrc/emulation/ptx_emulation.h and CUDA's built-ins by
+csrc/emulation/cuda_shim/. Each block runs as one host thread per CUDA
+thread, one block after another, so small shapes take seconds. For each
+attention shape the kernels of the four entry points (strided and packed
+forward, saved-o and recomputed-o backward) run on seeded bf16 inputs; for
+each unit shape the forward and backward launches of conv_bn.cu (the three
+products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16` runs
+them. It prints their max abs error against the plain twins and the worst
+error over the card's tolerance (bf16 outputs: atol + rtol |ref|, both
+3e-2; the unit's f32 sums and dw: relative L2 over 2e-2), and exits
+non-zero past it. It checks the kernels' indexing, fragment layouts, masks
+and phases; not their speed, and not what only nvcc or the card can reject.
+The block GEMM (csrc/block_gemm.cu: wgmma fed by TMA and mbarriers) has no
+host version: those instructions act on shared memory and barriers behind
+the threads' backs, so only the card checks it (tests/test_torch_cuda.py,
+chip_smoke.py). The port never calls this module;
+tests/test_torch_emulated_{attention,conv_bn}.py do.
 """
 import ctypes
 import subprocess
@@ -31,24 +41,36 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 HERE = CSRC / "emulation"
 OUT = Path(__file__).resolve().parents[2] / "build" / "emulate_attention"
 TOL = 3e-2
+GRAD_REL_L2 = 2e-2
+
+
+def _kernels_only(src: str, marker: str) -> str:
+    """A source up to its host-side launches, its anonymous namespace
+    closed."""
+    return src[:src.index(marker)] + "}  // namespace\n"
 
 
 def build(out: Path = OUT) -> ctypes.CDLL:
     """Patch the sources into `out`, compile them and load the library."""
     out.mkdir(parents=True, exist_ok=True)
-    header = (CSRC / "attention_tiles.cuh").read_text()
-    start = header.index("__device__ __forceinline__ uint32_t smem_addr")
+    header = (CSRC / "ptx_helpers.cuh").read_text()
+    start = header.index("// A kernel's dynamic shared memory")
     stop = header.index("// bf16(lo) in the low half")
-    (out / "attention_tiles.cuh").write_text(
+    (out / "ptx_helpers.cuh").write_text(
         header[:start] + (HERE / "ptx_emulation.h").read_text()
         + header[stop:])
+    (out / "attention_tiles.cuh").write_text(
+        (CSRC / "attention_tiles.cuh").read_text())
     for name, launcher in (("block_attention.cu", "template <bool STRIDED>"),
                            ("block_attention_bwd.cu",
                             "template <bool SAVED_O>")):
-        src = (CSRC / name).read_text()
-        # the kernels only: cut the launchers and the C entry points
-        (out / name).write_text(
-            src[:src.index(launcher + "\nint launch(")] + "}  // namespace\n")
+        (out / name).write_text(_kernels_only(
+            (CSRC / name).read_text(), launcher + "\nint launch("))
+    (out / "conv_bn.cu").write_text(_kernels_only(
+        (CSRC / "conv_bn.cu").read_text(), "// Host side: launches."))
+    (out / "sum_groups.cuh").write_text(_kernels_only(
+        (CSRC / "sum_groups.cuh").read_text(),
+        "// Launches the pass on stream s"))
     lib = out / "libemulate.so"
     subprocess.run(["g++", "-std=c++20", "-O2", "-fno-strict-aliasing",
                     "-shared", "-fPIC", "-pthread", "-I",
@@ -59,6 +81,8 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.emu_attention.argtypes = (I, P, P, P, P) + (I,) * 7 + (F,)
     handle.emu_attention_bwd.argtypes = (I,) + (P,) * 9 + (I,) * 11 + (F,)
+    handle.emu_conv_bn_fwd.argtypes = (P,) * 8 + (I,) * 4
+    handle.emu_conv_bn_bwd.argtypes = (P,) * 16 + (I,) * 8
     return handle
 
 
@@ -124,9 +148,77 @@ def check(lib: ctypes.CDLL, B: int, N: int, H: int) -> float:
     return worst
 
 
+def check_conv_bn(lib: ctypes.CDLL, M: int, K: int, N: int,
+                  prologue: bool, chunk: int | None = None,
+                  dz_chunk: int | None = None) -> float:
+    """The unit's forward and backward launches at one shape against the
+    plain twins; the weight gradient's M split into chunks of `chunk` rows
+    and the input gradient's N into chunks of `dz_chunk` columns (the
+    wrapper's `dw_split` and `dz_split` by default). Returns the worst error
+    over tolerance."""
+    from artgraph_tpu_torch.ops import conv_bn as U
+
+    rng = np.random.default_rng(M + K + N + prologue)
+    f32 = lambda *shape, s=1.0: torch.from_numpy(
+        (s * rng.normal(size=shape)).astype(np.float32))
+    x = f32(M, K).to(torch.bfloat16)
+    a = (1.0 + f32(K, s=0.5)).to(torch.bfloat16)
+    b = f32(K, s=0.1).to(torch.bfloat16)
+    w = f32(N, K, s=K ** -0.5).to(torch.bfloat16)
+    dy = f32(M, N).to(torch.bfloat16)
+    ds1, ds2 = f32(N, s=0.1), f32(N, s=0.01)
+    chunk, splits = ((chunk, -(-M // chunk)) if chunk
+                     else U.dw_split(M, N, K))
+    dz_chunk, dz_splits = ((dz_chunk, -(-N // dz_chunk)) if dz_chunk
+                           else U.dz_split(M, N, K))
+    nan = lambda *shape, dt=torch.float32: torch.full(shape, float("nan"),
+                                                      dtype=dt)
+    y, s1, s2 = nan(M, N, dt=torch.bfloat16), nan(N), nan(N)
+    part = nan(-(-M // U.ROW_TILE), 2 * max(N, K))
+    lib.emu_conv_bn_fwd(x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                        w.data_ptr(), y.data_ptr(), part.data_ptr(),
+                        s1.data_ptr(), s2.data_ptr(), M, K, N, int(prologue))
+    dyt, dx = nan(M, N, dt=torch.bfloat16), nan(M, K, dt=torch.bfloat16)
+    da, db, dw = nan(K), nan(K), nan(N, K)
+    dz_part, dw_part = nan(dz_splits, M, K), nan(splits, N, K)
+    lib.emu_conv_bn_bwd(*(t.data_ptr() for t in (
+        x, a, b, w, y, dy, ds1, ds2, dyt, dx, part, da, db, dz_part, dw_part,
+        dw)), M, K, N, int(prologue), chunk, splits, dz_chunk, dz_splits)
+    # the twins return da, db, dw in the dtypes of a, b, w: f32 copies
+    fa, fb, fw = a.float(), b.float(), w.float()
+    ref = (*U.conv1x1_bn_stats_plain(x, fa, fb, fw, prologue),
+           *U.conv1x1_bn_stats_bwd_plain(x, fa, fb, fw, y, dy, ds1, ds2,
+                                         prologue))
+    worst = 0.0
+    for name, ours, r in zip(("y", "s1", "s2", "dx", "da", "db", "dw"),
+                             (y, s1, s2, dx, da, db, dw), ref):
+        max_abs = (ours.double() - r.double()).abs().max().item()
+        if name in ("y", "dx"):
+            ratio = errors(ours, r)[1]
+            held = "worst err/(atol+rtol|ref|)"
+        elif not prologue and name in ("da", "db"):
+            ratio = float("inf") if ours.abs().max() > 0 else 0.0
+            held = "zero without the prologue"
+        else:
+            ratio = ((ours.double() - r.double()).norm()
+                     / r.double().norm()).item() / GRAD_REL_L2
+            held = f"rel L2 / {GRAD_REL_L2}"
+        if not torch.isfinite(ours.float()).all():
+            ratio = float("inf")
+        worst = max(worst, ratio)
+        print(f"M={M} K={K} N={N} prologue={prologue} chunks dw={splits} "
+              f"dz={dz_splits} {name}: max abs {max_abs:.4g}, {held} "
+              f"{ratio:.4g}", flush=True)
+    return worst
+
+
 def main(shapes: list[str]) -> int:
     lib = build()
     worst = max(check(lib, *map(int, s.split(","))) for s in shapes)
+    for M, K, N, prologue, chunk, dz_chunk in (
+            (300, 96, 96, True, 96, 32), (130, 32, 160, False, None, None)):
+        worst = max(worst, check_conv_bn(lib, M, K, N, prologue, chunk,
+                                         dz_chunk))
     return 0 if worst <= 1.0 else 1
 
 

@@ -48,11 +48,13 @@ LAUNCHES_BWD = 0
 # rows of one GEMM block tile (csrc/conv_bn.cu BM): one f32 row of partial
 # column sums per tile of rows
 ROW_TILE = 128
-# the weight gradient splits its M rows into chunks of a multiple of this
-# (the GEMM's k step) so that about two blocks run on each of the 132 SMs
-DW_CHUNK_STEP = 32
-DW_TARGET_BLOCKS = 264
+# the card's block slots for the unit's products (132 SMs, two blocks each):
+# the weight gradient splits its M rows, and the input gradient (where its
+# grid is smaller) its N columns, into chunks of a multiple of the k step
+SPLIT_STEP = 32
+TARGET_BLOCKS = 264
 DW_MIN_CHUNK = 256
+DZ_MIN_CHUNK = 512
 
 _F32 = torch.float32
 
@@ -129,15 +131,26 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return M, K, N
 
 
+def _split(inner: int, tiles: int, min_chunk: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of a product's inner dimension: enough chunks
+    that `tiles` output tiles fill the card, each a multiple of the k step
+    and at least `min_chunk` rows."""
+    want = max(1, min(-(-TARGET_BLOCKS // tiles), inner // min_chunk))
+    chunk = -(-inner // want)
+    chunk = -(-chunk // SPLIT_STEP) * SPLIT_STEP
+    return chunk, -(-inner // chunk)
+
+
 def dw_split(M: int, N: int, K: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of the weight gradient's split over M: enough
-    chunks that the [N, K] output's 128x128 tiles fill the card, each a
-    multiple of the k step and at least DW_MIN_CHUNK rows."""
-    tiles = -(-N // ROW_TILE) * -(-K // ROW_TILE)
-    want = max(1, min(-(-DW_TARGET_BLOCKS // tiles), M // DW_MIN_CHUNK))
-    chunk = -(-M // want)
-    chunk = -(-chunk // DW_CHUNK_STEP) * DW_CHUNK_STEP
-    return chunk, -(-M // chunk)
+    """(rows per chunk, chunks) of the weight gradient's split over M: its
+    [N, K] output's 128x128 tiles."""
+    return _split(M, -(-N // ROW_TILE) * -(-K // ROW_TILE), DW_MIN_CHUNK)
+
+
+def dz_split(M: int, N: int, K: int) -> tuple[int, int]:
+    """(columns per chunk, chunks) of the input gradient's split over N: its
+    [M, K] output's 128x128 tiles (one chunk wherever they fill the card)."""
+    return _split(N, -(-M // ROW_TILE) * -(-K // ROW_TILE), DZ_MIN_CHUNK)
 
 
 def conv1x1_bn_stats_cuda(x, a, b, w, prologue: bool):
@@ -172,15 +185,18 @@ def conv1x1_bn_stats_bwd_cuda(x, a, b, w, y, dy, ds1, ds2, prologue: bool):
     da = torch.empty(K, dtype=_F32, device=dev)
     db = torch.empty_like(da)
     chunk, splits = dw_split(M, N, K)
-    dw_part = (torch.empty((splits, N, K), dtype=_F32, device=dev)
-               if splits > 1 else None)
+    dz_chunk, dz_splits = dz_split(M, N, K)
+    scratch = lambda n, *shape: (torch.empty((n, *shape), dtype=_F32,
+                                             device=dev) if n > 1 else None)
+    dz_part, dw_part = scratch(dz_splits, M, K), scratch(splits, N, K)
     dw = torch.empty((N, K), dtype=_F32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = _build.lib().ag_conv_bn_bwd_bf16(
         x.data_ptr(), ac.data_ptr(), bc.data_ptr(), wc.data_ptr(),
         yc.data_ptr(), dyc.data_ptr(), ds1c.data_ptr(), ds2c.data_ptr(),
         dyt.data_ptr(), dx.data_ptr(), part.data_ptr(), da.data_ptr(),
-        db.data_ptr(), None if dw_part is None else dw_part.data_ptr(),
-        dw.data_ptr(), M, K, N, int(prologue), chunk, splits,
+        db.data_ptr(), ptr(dz_part), ptr(dw_part), dw.data_ptr(), M, K, N,
+        int(prologue), chunk, splits, dz_chunk, dz_splits,
         _build.stream_ptr(x))
     _build.check(rc, "ag_conv_bn_bwd_bf16")
     return dx, da.to(a.dtype), db.to(b.dtype), dw.to(w.dtype)

@@ -1,13 +1,9 @@
 // Tile machinery shared by the attention cores (block_attention.cu,
 // block_attention_bwd.cu): 64-row bf16 tiles of one head (D = 64) staged in
 // shared memory by cp.async, and warp-level products on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// with mma.sync m16n8k16 (bf16 in, f32 accumulate), over the PTX helpers of
+// ptx_helpers.cuh (whose note gives the fragment layouts).
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16; g = lane / 4, t = lane % 4):
-//   A 16x16, 4 registers of 2 bf16: {row g, cols 2t..2t+1}, {row g+8, cols
-//     2t..}, {row g, cols 8+2t..}, {row g+8, cols 8+2t..};
-//   B 16x8, 2 registers: {k 2t..2t+1, col g}, {k 8+2t.., col g};
-//   C 16x8 f32: {row g, cols 2t, 2t+1}, {row g+8, cols 2t, 2t+1}.
 // A warp's 16 x 8NT f32 accumulator is float[NT][4], n-tile nt holding
 // columns 8nt..8nt+7 (NT = 8: 64 columns). Its columns 16kc..16kc+15 are, as
 // bf16 pairs, exactly the A fragment of k-chunk kc of the next product
@@ -19,7 +15,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx_helpers.cuh"
+
 namespace attn {
+
+using namespace ptx;
 
 constexpr int D = 64;          // head dim, the only one built
 constexpr int TILE = 64;       // rows of a query or key tile
@@ -39,77 +39,8 @@ inline bool bad_shape(int B, int N, int H, int Dh) {
   return Dh != D || N < 1 || B < 1 || H < 1 || B > 65535 || H > 65535;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; !valid writes 16 zero bytes instead (the
-// source address must still be a mapped one).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4-byte global -> shared copy (row statistics); !valid writes zeros.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16(lo) in the low half, bf16(hi) in the high half (round to nearest).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// The two bf16 of a packed pair as f32 (exact).
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
 }
 
 // One head's rows of a [B*N, ld] row-major bf16 operand: row n of image b

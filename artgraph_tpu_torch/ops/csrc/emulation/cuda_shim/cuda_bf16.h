@@ -1,5 +1,5 @@
 // Host stand-in for <cuda_bf16.h>: the bf16 type and the conversions and
-// correctly rounded arithmetic the attention cores use.
+// correctly rounded arithmetic the emulated kernels use.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -30,3 +30,4 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }

@@ -1,5 +1,5 @@
 // Host stand-in for <cuda_runtime.h>: each thread of a block is a host
-// thread; __syncthreads and __syncwarp are barriers, and the warp-wide
+// thread (blocks of up to 32 warps); __syncthreads and __syncwarp are barriers, and the warp-wide
 // operations exchange values through the block's EmuBlock.
 #pragma once
 #include <math.h>
@@ -19,12 +19,23 @@
 #define __shared__ static  // blocks run one after another
 
 struct dim3 {
-  unsigned x = 1, y = 1, z = 1;
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+inline int min(int a, int b) { return a < b ? a : b; }
 extern thread_local dim3 threadIdx, blockIdx;
+extern thread_local int emu_tid;  // the thread's linear index in its block
 extern dim3 gridDim, blockDim;
 
 struct EmuBlock {
@@ -33,11 +44,12 @@ struct EmuBlock {
   float fx[32][32];
   const void* px[32][32];
   uint32_t ux[32][32][6];
+  uint32_t sx[32][32];
 };
 extern EmuBlock* emu;
 
-inline int emu_warp() { return threadIdx.x >> 5; }
-inline int emu_lane() { return threadIdx.x & 31; }
+inline int emu_warp() { return emu_tid >> 5; }
+inline int emu_lane() { return emu_tid & 31; }
 inline void __syncthreads() { emu->block->arrive_and_wait(); }
 inline void __syncwarp() { emu->warp[emu_warp()]->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
@@ -53,6 +65,14 @@ inline float __shfl_sync(unsigned, float v, int src) {
   emu->fx[w][l] = v;
   __syncwarp();
   const float r = emu->fx[w][src];
+  __syncwarp();
+  return r;
+}
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  const int w = emu_warp(), l = emu_lane();
+  emu->sx[w][l] = v;
+  __syncwarp();
+  const uint32_t r = emu->sx[w][src];
   __syncwarp();
   return r;
 }

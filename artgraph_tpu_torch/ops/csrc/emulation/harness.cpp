@@ -1,6 +1,8 @@
-// Runs the attention cores' kernels on the host: the patched sources are
-// included here, and every block of a grid runs as 128 host threads, one
-// block after another. Built and driven by ops/attention_emulation.py.
+// Runs the mma.sync kernels on the host: the attention cores and the
+// conv + BN-statistics unit (conv_bn.cu, in its own namespace, with the
+// second pass of sum_groups.cuh). The patched sources are included here, and
+// every block of a grid runs as one host thread per CUDA thread, one block
+// after another. Built and driven by ops/attention_emulation.py.
 #include <stdio.h>
 #include <stdlib.h>
 
@@ -9,43 +11,62 @@
 #include "cuda_runtime.h"
 
 thread_local dim3 threadIdx, blockIdx;
+thread_local int emu_tid;
 dim3 gridDim, blockDim;
 EmuBlock* emu;
 
 #include "block_attention.cu"
 #include "block_attention_bwd.cu"
 
-thread_local std::vector<attn::EmuCopy> attn::emu_copies;
-thread_local int attn::emu_group;
+namespace convbn {
+#include "conv_bn.cu"
+}
 
+thread_local std::vector<ptx::EmuCopy> ptx::emu_copies;
+thread_local int ptx::emu_group;
+unsigned char* ptx::emu_dyn_smem;
+
+// Every block of `grid` in turn, `block` threads each, with `smem` bytes of
+// dynamic shared memory (filled with 0xff, NaN as bf16, so a read before a
+// write shows).
 template <class F>
-static void run_grid(dim3 grid, F kernel) {
+static void run_grid(dim3 grid, dim3 block, F kernel, size_t smem = 0) {
+  const int threads = (int)(block.x * block.y * block.z);
+  if (threads > 32 * 32 || threads % 32) {
+    fprintf(stderr, "emulation: blocks of whole warps, at most 32\n");
+    abort();
+  }
   gridDim = grid;
-  blockDim = {(unsigned)attn::THREADS, 1, 1};
+  blockDim = block;
+  std::vector<unsigned char> dyn(smem + 128, 0xff);
+  ptx::emu_dyn_smem = (unsigned char*)(((uintptr_t)dyn.data() + 127) &
+                                       ~(uintptr_t)127);
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         EmuBlock blk;
-        std::barrier<> block(attn::THREADS);
+        std::barrier<> sync(threads);
         std::vector<std::barrier<>*> warps;
-        for (int w = 0; w < attn::WARPS; ++w)
+        for (int w = 0; w < threads / 32; ++w)
           warps.push_back(blk.warp[w] = new std::barrier<>(32));
-        blk.block = &block;
+        blk.block = &sync;
         emu = &blk;
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < (unsigned)attn::THREADS; ++t)
-          threads.emplace_back([&, t] {
-            threadIdx = {t, 0, 0};
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t)
+          pool.emplace_back([&, t] {
+            emu_tid = t;
+            threadIdx = {t % block.x, (t / block.x) % block.y,
+                         t / (block.x * block.y)};
             blockIdx = {x, y, z};
-            attn::emu_copies.clear();
-            attn::emu_group = 0;
+            ptx::emu_copies.clear();
+            ptx::emu_group = 0;
             kernel();
-            if (!attn::emu_copies.empty()) {
+            if (!ptx::emu_copies.empty()) {
               fprintf(stderr, "cp.async copies never waited for\n");
               abort();
             }
           });
-        for (std::thread& t : threads) t.join();
+        for (std::thread& t : pool) t.join();
         for (std::barrier<>* w : warps) delete w;
       }
 }
@@ -54,6 +75,8 @@ static dim3 grid_of(int B, int N, int H) {
   return {(unsigned)((N + attn::TILE - 1) / attn::TILE), (unsigned)H,
           (unsigned)B};
 }
+
+static const dim3 ATTN_BLOCK{(unsigned)attn::THREADS, 1, 1};
 
 using attn::bf16;
 
@@ -64,9 +87,11 @@ extern "C" int emu_attention(int strided, const void* q, const void* k,
   const FwdArgs a{{(const bf16*)q, ld_q}, {(const bf16*)k, ld_k},
                   {(const bf16*)v, ld_v}, (bf16*)o, ld_o};
   if (strided)
-    run_grid(grid_of(B, N, H), [&] { attention_core_kernel<true>(a, N, scale); });
+    run_grid(grid_of(B, N, H), ATTN_BLOCK,
+             [&] { attention_core_kernel<true>(a, N, scale); });
   else
-    run_grid(grid_of(B, N, H), [&] { attention_core_kernel<false>(a, N, scale); });
+    run_grid(grid_of(B, N, H), ATTN_BLOCK,
+             [&] { attention_core_kernel<false>(a, N, scale); });
   return 0;
 }
 
@@ -83,12 +108,76 @@ extern "C" int emu_attention_bwd(int saved_o, const void* q, const void* k,
                   (bf16*)dv, ld_dq, ld_dk, ld_dv};
   float* st = (float*)stats;
   if (saved_o)
-    run_grid(grid_of(B, N, H),
+    run_grid(grid_of(B, N, H), ATTN_BLOCK,
              [&] { attention_bwd_dq_kernel<true>(a, st, N, H, scale); });
   else
-    run_grid(grid_of(B, N, H),
+    run_grid(grid_of(B, N, H), ATTN_BLOCK,
              [&] { attention_bwd_dq_kernel<false>(a, st, N, H, scale); });
-  run_grid(grid_of(B, N, H),
+  run_grid(grid_of(B, N, H), ATTN_BLOCK,
            [&] { attention_bwd_dkv_kernel(a, st, N, H, scale); });
   return 0;
+}
+
+// conv_bn.cu's launch sequences with a launcher that runs each grid here.
+namespace convbn {
+
+struct EmuRun {
+  template <int MODE, bool PRO>
+  int unit(dim3 grid, const UnitArgs& args) {
+    run_grid(grid, {(unsigned)THREADS, 1, 1},
+             [&] { unit_gemm_kernel<MODE, PRO>(args); },
+             Stage<MODE>::SMEM_BYTES);
+    return 0;
+  }
+  int sums(const float* part, float* lo, float* hi, int groups, int cols,
+           int half) {
+    if (sum_in_order(groups, cols))
+      run_grid({(unsigned)((cols + SUM_SEQ_THREADS - 1) / SUM_SEQ_THREADS),
+                1, 1},
+               {(unsigned)SUM_SEQ_THREADS, 1, 1}, [&] {
+                 sum_groups_seq_kernel(part, lo, hi, groups, cols, half);
+               });
+    else
+      run_grid({(unsigned)((cols + SUM_X - 1) / SUM_X), 1, 1},
+               {(unsigned)SUM_X, (unsigned)SUM_Y, 1},
+               [&] { sum_groups_kernel(part, lo, hi, groups, cols, half); });
+    return 0;
+  }
+};
+
+}  // namespace convbn
+
+extern "C" int emu_conv_bn_fwd(const void* x, const void* a, const void* b,
+                               const void* w, void* y, void* part, void* s1,
+                               void* s2, int M, int K, int N, int prologue) {
+  using namespace convbn;
+  EmuRun run;
+  const auto go = [&](auto seq) {
+    return seq(run, (const bf16*)x, (const bf16*)a, (const bf16*)b,
+               (const bf16*)w, y, (float*)part, (float*)s1, (float*)s2, M, K,
+               N);
+  };
+  return prologue ? go(fwd_sequence<true, EmuRun>)
+                  : go(fwd_sequence<false, EmuRun>);
+}
+
+extern "C" int emu_conv_bn_bwd(const void* x, const void* a, const void* b,
+                               const void* w, const void* y, const void* dy,
+                               const void* ds1, const void* ds2, void* dyt,
+                               void* dx, void* part, void* da, void* db,
+                               void* dz_part, void* dw_part, void* dw, int M,
+                               int K, int N, int prologue, int chunk,
+                               int splits, int dz_chunk, int dz_splits) {
+  using namespace convbn;
+  EmuRun run;
+  const auto go = [&](auto seq) {
+    return seq(run, (const bf16*)x, (const bf16*)a, (const bf16*)b,
+               (const bf16*)w, (const bf16*)y, (const bf16*)dy,
+               (const float*)ds1, (const float*)ds2, (bf16*)dyt, dx,
+               (float*)part, (float*)da, (float*)db, (float*)dz_part,
+               (float*)dw_part, (float*)dw, M, K, N, chunk, splits, dz_chunk,
+               dz_splits);
+  };
+  return prologue ? go(bwd_sequence<true, EmuRun>)
+                  : go(bwd_sequence<false, EmuRun>);
 }

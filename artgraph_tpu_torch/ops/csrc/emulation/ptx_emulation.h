@@ -1,8 +1,12 @@
-// Host versions of the PTX helpers of attention_tiles.cuh, spliced into
-// namespace attn in their place: cp.async copies are queued per thread and
-// done at cp.async.wait_group, and ldmatrix and mma.sync gather the
-// operands of all 32 lanes and hand each lane its fragment, with the lane
-// layouts of the PTX ISA (see the header's note).
+// Host versions of the PTX helpers of ptx_helpers.cuh, spliced into
+// namespace ptx in their place: cp.async copies are queued per thread and
+// done at cp.async.wait_group, ldmatrix and mma.sync gather the operands of
+// all 32 lanes and hand each lane its fragment, with the lane layouts of
+// the PTX ISA (see the header's note), and a kernel's dynamic shared memory
+// is a buffer the harness gives each block.
+#define AG_DYNAMIC_SMEM(name) unsigned char* name = ptx::emu_dyn_smem
+extern unsigned char* emu_dyn_smem;
+
 struct EmuCopy {
   void* dst;
   const void* src;

@@ -21,9 +21,11 @@ The Function saves only x and the parameters, and the backward recomputes:
   (h) db1, db2: column sums in f32                  (block_norm_bwd.cu)
 
 The [B, N, 4C] hidden tensors reach device memory in bf16 (the Pallas kernels
-keep them in VMEM). GELU is the exact erf form with CUDA's `erff`; the Pallas
-kernels need the A&S 7.1.26 approximation (|error| <= 1.5e-7) only because
-Mosaic has no erf. Parameter gradients come back in f32, dx in x's dtype.
+keep them in VMEM). GELU is the exact erf form; the CUDA epilogues evaluate
+erf as the Pallas kernels do, by the A&S 7.1.26 approximation (|error| <=
+1.5e-7; branch-free, one exponential shared with GELU's density, and no
+register spill where CUDA's `erff` had one), the plain twins with
+torch.erf. Parameter gradients come back in f32, dx in x's dtype.
 """
 from __future__ import annotations
 

@@ -30,7 +30,14 @@ non-zero:
               the same function (a yardstick the port never calls): median
               of 10 CUDA-event timings, each over 10 back-to-back calls;
               and each kernel's bound, the larger of its FLOPs at 989 TFLOP/s
-              (bf16 dense) and its bytes at 3.35 TB/s, from the shapes
+              (bf16 dense) and its bytes at 3.35 TB/s, from the shapes.
+              Before them the block GEMM alone (csrc/block_gemm.cu, in rows
+              1, 1b, 2, 2b, 5, 5b): each ViT-B/16 call of it through
+              gemm_cuda (VIT_GEMMS) held against gemm_plain (bf16 at
+              rtol = atol = 3e-2, f32 at relative L2 <= GRAD_REL_L2,
+              bit-identical on repeat) and timed, with its TFLOP/s and the
+              time of torch.matmul on the same bf16 operands beside
+              (gemm_kernel_phases)
   5. serve    ViTSingleTask(32) and NewMultiModalMultiTaskViT(128, ...) at
               full ViT-B/16 width with seeded random weights, saved as
               reference .pt files and loaded back through
@@ -83,8 +90,10 @@ its plain twins on the card at three of ResNet50's shapes at batch 32
 (M, K, N, prologue) = (100352, 64, 256, yes), (6272, 1024, 256, no),
 (1568, 512, 2048, yes), dy a unit normal: y and dx at rtol = atol = 3e-2,
 s1, s2, da, db, dw at relative L2 <= GRAD_REL_L2, bit-identical from call to
-call; timed beside the plain twins and torch.matmul with the column sums
-(conv_bn_kernel_phases); and the kernels of fused_attention and
+call; timed beside the plain twins and torch.matmul with the column sums,
+the backward also beside a full-function yardstick (dyt, the prologue, two
+torch.matmul and the two column sums), and each direction's device time
+broken down by launch (torch.profiler) (conv_bn_kernel_phases); and the kernels of fused_attention and
 fused_qkv_attention, forward and backward, at B=32, N=197, H=12, D=64 (q, k,
 v strided views of one [B, N, 3, H, D] bf16 tensor, never copied; x
 [B, N, 768]) against their plain twins on the card: outputs, dq/dk/dv and
@@ -482,6 +491,79 @@ def kernel_phases() -> dict:
     return results
 
 
+# The ViT-B/16 GEMM calls of the block ops through gemm_cuda at batch B:
+# (what, layout, epilogue, M, N, K); NT: a [M, K], b [N, K]; NN: a [M, K],
+# b [K, N]; TN (weight gradients): a [K, M], b [K, N].
+_M = B * N
+VIT_GEMMS = (
+    ("qkv", 0, 0, _M, 3 * C, C),
+    ("proj", 0, 2, _M, C, C),
+    ("fc1", 0, 1, _M, HIDDEN, C),
+    ("fc1 recompute", 0, 3, _M, HIDDEN, C),
+    ("fc2", 0, 2, _M, C, HIDDEN),
+    ("do.W_proj", 1, 4, _M, C, C),
+    ("dqkv.W_qkv", 1, 5, _M, C, 3 * C),
+    ("dqkv.W_qkv (qkv op dx)", 1, 4, _M, C, 3 * C),
+    ("do.W2", 1, 6, _M, HIDDEN, C),
+    ("dh.W1", 1, 5, _M, C, HIDDEN),
+    ("dW_qkv", 2, 5, 3 * C, C, _M),
+    ("dW_proj", 2, 5, C, C, _M),
+    ("dW1", 2, 5, HIDDEN, C, _M),
+    ("dW2", 2, 5, C, HIDDEN, _M),
+)
+
+
+def gemm_kernel_phases() -> None:
+    """Phases 3 and 4 for the block GEMM (csrc/block_gemm.cu) alone: each
+    ViT-B/16 call of VIT_GEMMS through gemm_cuda against gemm_plain on the
+    same seeded inputs (bf16 outputs at rtol = atol = KERNEL_TOL, f32 at
+    relative L2 <= GRAD_REL_L2), bit-identical on repeat; then its time,
+    TFLOP/s and the time of torch.matmul on the same bf16 operands (a
+    yardstick the port never calls, without the epilogue)."""
+    from artgraph_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(SEED + 90)
+    dev = lambda shape, scale=1.0: torch.from_numpy(
+        (scale * rng.normal(size=shape)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+    for what, layout, epi, M, Nn, K in VIT_GEMMS:
+        a = dev((K, M) if layout == A.LAYOUT_TN else (M, K))
+        b = dev((Nn, K) if layout == A.LAYOUT_NT else (K, Nn),
+                1.0 if layout == A.LAYOUT_TN else K ** -0.5)
+        bias = dev((Nn,), 0.02).float() if epi <= A.EPI_BIAS_GELU_AUX \
+            else None
+        aux = dev((M, Nn)) if epi in (A.EPI_BIAS_RESIDUAL, A.EPI_DGELU) \
+            else None
+        label = (f"gemm {what} ({'NT NN TN'.split()[layout]}, epilogue "
+                 f"{epi}, M={M} N={Nn} K={K})")
+        run = lambda: A.gemm_cuda(a, b, layout, epi, bias=bias, aux=aux)
+        ours, again = _as_tuple(run()), _as_tuple(run())
+        torch.cuda.synchronize()
+        ref = _as_tuple(A.gemm_plain(a, b, layout, epi, bias=bias, aux=aux))
+        if not all(torch.equal(o, g) for o, g in zip(ours, again)):
+            raise AssertionError(f"{label} differs from call to call")
+        for o, r in zip(ours, ref):
+            if epi == A.EPI_F32:
+                rel = ((o.double() - r.double()).norm()
+                       / r.double().norm()).item()
+                print(f"check: {label} f32 vs plain: rel L2 {rel:.4g}; "
+                      f"bit-identical on repeat", flush=True)
+                if not (rel <= GRAD_REL_L2 and torch.isfinite(o).all()):
+                    raise AssertionError(f"{label}: rel L2 {rel}")
+            else:
+                _check_output(label, o, r)
+        matmul = {A.LAYOUT_NT: lambda: torch.matmul(a, b.t()),
+                  A.LAYOUT_NN: lambda: torch.matmul(a, b),
+                  A.LAYOUT_TN: lambda: torch.matmul(a.t(), b)}[layout]
+        ms, lib_ms = _time_ms(run), _time_ms(matmul)
+        flops = 2.0 * M * Nn * K
+        print(f"time: {label} kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+              f"TFLOP/s; torch.matmul {lib_ms:.4f} ms, "
+              f"{flops / lib_ms / 1e9:.1f} TFLOP/s (median of 10 CUDA-event "
+              f"timings of 10 calls)", flush=True)
+        del a, b, bias, aux, ours, again, ref
+
+
 def _counters():
     from artgraph_tpu_torch.ops import attention, mlp, preprocess
 
@@ -814,6 +896,25 @@ def conv_bn_kernel_phases() -> dict:
             if bound_ms > row.get("_largest", 0.0):   # the row's bound_by:
                 row["_largest"] = bound_ms             # its largest shape's
                 row["bound_by"] = bound_by
+
+        def lib_bwd_full():
+            t = (dy.float() + ds1 + 2.0 * y.float() * ds2).to(torch.bfloat16)
+            zz = torch.relu(x * a + b) if pro else x
+            dz = torch.matmul(t, wb)
+            if pro:
+                dz = torch.where(x * a + b > 0, dz, 0.0)
+            dzf = dz.float()
+            return ((dzf * x.float()).sum(0), dzf.sum(0),
+                    torch.matmul(t.t(), zz))
+
+        print(f"time: conv1x1_bn_stats_bwd {label} full-function yardstick "
+              f"(dyt, prologue, two torch.matmul, two column sums) "
+              f"{_time_ms(lib_bwd_full):.4f} ms", flush=True)
+        _print_breakdown(f"conv1x1_bn_stats_bwd {label}",
+                         lambda: U.conv1x1_bn_stats_bwd_cuda(
+                             x, a, b, w, y, dy, ds1, ds2, pro))
+        _print_breakdown(f"conv1x1_bn_stats {label}",
+                         lambda: U.conv1x1_bn_stats_cuda(x, a, b, w, pro))
         del x, a, b, w, dy, fwd, bwd, ref, z, dyt
         torch.cuda.empty_cache()
     for row in rows.values():
@@ -1044,19 +1145,18 @@ def serve_phase() -> dict:
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _profile_steps(step, steps: int, step_ms: float,
-                   label: str = "train") -> None:
-    """Device time by kernel over `steps` profiled steps, and the device idle
-    share against the unprofiled step time. Busy time sums the device's
-    kernels, memcpys and memsets, read by category from the profiler's
-    chrome trace; the user-annotation spans on the device timeline are left
-    out and their time printed beside."""
+def _device_work(fn, calls: int) -> tuple[dict, dict]:
+    """Run fn `calls` times under torch.profiler: (work, spans), each
+    {name: [device ms per call, launches]} read by category from the
+    profiler's chrome trace: work sums the device's kernels, memcpys and
+    memsets, spans its user-annotation spans (which cover kernels counted on
+    their own)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -1069,8 +1169,34 @@ def _profile_steps(step, steps: int, step_ms: float,
         if cat in DEVICE_WORK or cat == "gpu_user_annotation":
             total = (work if cat in DEVICE_WORK else spans).setdefault(
                 ev["name"], [0.0, 0])
-            total[0] += ev.get("dur", 0.0) / steps / 1e3
+            total[0] += ev.get("dur", 0.0) / calls / 1e3
             total[1] += 1
+    return work, spans
+
+
+def _print_breakdown(label: str, fn, calls: int = 10) -> float:
+    """Each kernel's device time per call of fn, largest first (profiler,
+    over `calls` calls after one warm-up); returns the summed device ms."""
+    fn()
+    torch.cuda.synchronize()
+    work, _ = _device_work(fn, calls)
+    total = sum(ms for ms, _ in work.values())
+    for name, (ms, n) in sorted(work.items(), key=lambda kv: -kv[1][0]):
+        print(f"breakdown: {label}: {ms:.4f} ms x{n // calls} {name[:100]}",
+              flush=True)
+    print(f"breakdown: {label}: device {total:.4f} ms per call in all",
+          flush=True)
+    return total
+
+
+def _profile_steps(step, steps: int, step_ms: float,
+                   label: str = "train") -> None:
+    """Device time by kernel over `steps` profiled steps, and the device idle
+    share against the unprofiled step time. Busy time sums the device's
+    kernels, memcpys and memsets, read by category from the profiler's
+    chrome trace; the user-annotation spans on the device timeline are left
+    out and their time printed beside."""
+    work, spans = _device_work(step, steps)
     kernels = sorted(((ms, n // steps, name)
                       for name, (ms, n) in work.items()), reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
@@ -2122,6 +2248,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build_phase()
+        gemm_kernel_phases()
         kernels = kernel_phases()
         kernels.update(csr_kernel_phases())
         kernels.update(conv_bn_kernel_phases())

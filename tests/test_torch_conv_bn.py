@@ -114,8 +114,27 @@ def test_autograd_function_gives_plain_backward(prologue, monkeypatch):
                                    (98, 64, 64), (1000, 96, 32)])
 def test_weight_gradient_split_covers_the_rows(M, K, N):
     chunk, splits = conv_bn.dw_split(M, N, K)
-    assert chunk % conv_bn.DW_CHUNK_STEP == 0
+    assert chunk % conv_bn.SPLIT_STEP == 0
     assert (splits - 1) * chunk < M <= splits * chunk
     tiles = -(-N // conv_bn.ROW_TILE) * -(-K // conv_bn.ROW_TILE)
-    if M >= conv_bn.DW_TARGET_BLOCKS * conv_bn.DW_MIN_CHUNK:
-        assert splits * tiles >= conv_bn.DW_TARGET_BLOCKS // 2
+    if M >= conv_bn.TARGET_BLOCKS * conv_bn.DW_MIN_CHUNK:
+        assert splits * tiles >= conv_bn.TARGET_BLOCKS // 2
+
+
+@pytest.mark.parametrize("M,K,N", [(100352, 64, 256), (6272, 1024, 256),
+                                   (1568, 512, 2048), (1000, 96, 32),
+                                   (98, 64, 1024)])
+def test_input_gradient_split_covers_the_columns(M, K, N):
+    """The input gradient's product splits its N columns only where its
+    [M, K] tiles leave card slots empty (layer4's 1568 x 512: 52 tiles),
+    in whole k steps of at least DZ_MIN_CHUNK columns."""
+    chunk, splits = conv_bn.dz_split(M, N, K)
+    tiles = -(-M // conv_bn.ROW_TILE) * -(-K // conv_bn.ROW_TILE)
+    assert chunk % conv_bn.SPLIT_STEP == 0
+    assert (splits - 1) * chunk < N <= splits * chunk
+    assert splits == 1 or (tiles < conv_bn.TARGET_BLOCKS
+                           and chunk >= conv_bn.DZ_MIN_CHUNK)
+    if tiles >= conv_bn.TARGET_BLOCKS:
+        assert splits == 1
+    if (M, K, N) == (1568, 512, 2048):
+        assert splits == 4

@@ -14,7 +14,10 @@ GRAD_MAX_REL, well inside the JAX tests' bf16 gradient bound of 0.2
 by absolute error only; the normalize bit-exact. The f32 plain references
 run with TF32 off. The f32 CSR segment kernels against their plain twins in
 f64 at rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
-and bit-identical from call to call. The conv + BN-statistics unit's y and dx
+and bit-identical from call to call. The block GEMM (gemm_cuda) in every
+built layout/epilogue pair against gemm_plain at the ViT-B/16 sizes and
+ragged ones: bf16 at rtol = atol = 3e-2, f32 at relative L2 <= GRAD_REL_L2,
+bit-identical on repeat. The conv + BN-statistics unit's y and dx
 at rtol = atol = 3e-2, its f32 sums and gradients (s1, s2, da, db, dw) at
 relative L2 <= GRAD_REL_L2, bit-identical from call to call. The two
 attention ops of the unfused paths (fused_attention on strided q/k/v views,
@@ -201,6 +204,75 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
         normalize_images(torch.zeros((1, 8, 8, 3), device="cuda"), "vit")
     assert (attention.LAUNCHES, preprocess.LAUNCHES) == (1, 1)
 
+    # the block GEMM refuses, before any launch, what its TMA loads and
+    # 16-byte stores cannot take: rows not a multiple of 8 elements
+    bf = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16,
+                                    device="cuda")
+    bias = torch.zeros(64, device="cuda")
+    for a, b, layout, epi in (
+            (bf(16, 36), bf(64, 36), attention.LAYOUT_NT, attention.EPI_BIAS),
+            (bf(16, 32), bf(60, 32), attention.LAYOUT_NT, attention.EPI_BIAS),
+            (bf(16, 36), bf(36, 64), attention.LAYOUT_NN, attention.EPI_NONE),
+            (bf(16, 32), bf(32, 60), attention.LAYOUT_NN, attention.EPI_F32),
+            (bf(40, 12), bf(40, 64), attention.LAYOUT_TN, attention.EPI_F32),
+            (bf(40, 16), bf(40, 20), attention.LAYOUT_TN, attention.EPI_F32)):
+        with pytest.raises(ValueError, match="not a shape the kernel takes"):
+            attention.gemm_cuda(a, b, layout, epi, bias=bias[:b.shape[0]])
+    torch.cuda.synchronize()
+
+
+# every (layout, epilogue) pair csrc/block_gemm.cu builds
+GEMM_PAIRS = ([(attention.LAYOUT_NT, e) for e in (
+    attention.EPI_BIAS, attention.EPI_BIAS_GELU, attention.EPI_BIAS_RESIDUAL,
+    attention.EPI_BIAS_GELU_AUX)]
+    + [(attention.LAYOUT_NN, e) for e in (
+        attention.EPI_NONE, attention.EPI_F32, attention.EPI_DGELU)]
+    + [(attention.LAYOUT_TN, attention.EPI_F32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epilogue", GEMM_PAIRS)
+@pytest.mark.parametrize("size", ["vit", "ragged"])
+def test_cuda_gemm_matches_plain(layout, epilogue, size):
+    """gemm_cuda in each built layout/epilogue pair against gemm_plain at
+    the ViT-B/16 sizes (M = 32 x 197 = 6304, ragged against the 128-row
+    tile; K = 768, N = 768 or 2304; the weight gradients at K = 6304) and at
+    a ragged M = 200 with K = 3072 (TN: a ragged K = 1000, not a whole
+    number of k-steps, split in chunks); bf16 at rtol = atol = 3e-2, f32
+    at relative L2 <= GRAD_REL_L2; bit-identical on repeat."""
+    _need_cuda()
+    A = attention
+    if layout == A.LAYOUT_TN:
+        M, N, K = (768, 2304, 6304) if size == "vit" else (2304, 768, 1000)
+    else:
+        M, N, K = (6304, 768, 768) if size == "vit" else (200, 2304, 3072)
+    rng = np.random.default_rng(M + N + K + 10 * layout + epilogue)
+    dev = lambda shape, s=1.0: torch.from_numpy(
+        (s * rng.normal(size=shape)).astype(np.float32)).to("cuda",
+                                                            torch.bfloat16)
+    a = dev((K, M) if layout == A.LAYOUT_TN else (M, K))
+    b = dev((N, K) if layout == A.LAYOUT_NT else (K, N),
+            1.0 if layout == A.LAYOUT_TN else K ** -0.5)
+    bias = (dev((N,), 0.02).float() if epilogue <= A.EPI_BIAS_GELU_AUX
+            else None)
+    aux = (dev((M, N)) if epilogue in (A.EPI_BIAS_RESIDUAL, A.EPI_DGELU)
+           else None)
+    run = lambda: A.gemm_cuda(a, b, layout, epilogue, bias=bias, aux=aux)
+    ours, again = run(), run()
+    torch.cuda.synchronize()
+    ref = A.gemm_plain(a, b, layout, epilogue, bias=bias, aux=aux)
+    if epilogue != A.EPI_BIAS_GELU_AUX:
+        ours, again, ref = (ours,), (again,), (ref,)
+    for o, g, r in zip(ours, again, ref):
+        assert torch.equal(o, g)
+        assert o.dtype == r.dtype and o.shape == r.shape
+        if epilogue == A.EPI_F32:
+            rel = (o.double() - r.double()).norm() / r.double().norm()
+            assert rel <= GRAD_REL_L2, float(rel)
+        else:
+            torch.testing.assert_close(o.float(), r.float(), rtol=3e-2,
+                                       atol=3e-2)
+
 
 def csr_case(S: int, F: int, seed: int, device: str = "cuda"):
     """Sorted segment ids over 3000 edges into S segments (segment 0 a hub
@@ -285,13 +357,13 @@ def test_cuda_csr_gradients_match_the_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(98, 64, 64), (1000, 96, 160),
-                                   (6272, 256, 64)])
+                                   (6272, 256, 64), (1568, 512, 1024)])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_cuda_conv_bn_unit_matches_plain(M, K, N, prologue, monkeypatch):
     """Both kernels of the unit against the plain twins; M ragged against
     the 128-row tile, N and K not multiples of 128; (6272, 256, 64) splits
-    the weight gradient's rows; bit-identical on repeat; one launch a
-    call."""
+    the weight gradient's rows, (1568, 512, 1024) the input gradient's N
+    (52 tiles); bit-identical on repeat; one launch a call."""
     _need_cuda()
     monkeypatch.setattr(conv_bn, "LAUNCHES", 0)
     monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
