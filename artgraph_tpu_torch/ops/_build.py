@@ -47,9 +47,8 @@ _SIGNATURES = {
                                    _I),
     "ag_attention_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
     "ag_attention_bwd_bf16": ((_P,) * 9 + (_I,) * 12 + (_F, _P), _I),
-    "ag_layernorm_bwd_bf16": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                               _I, _P), _I),
-    "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _P), _I),
+    "ag_layernorm_bwd_bf16": ((_P,) * 7 + (_I, _I, _F, _I, _I, _P), _I),
+    "ag_colsum_bf16": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ag_normalize_u8": ((_P, _P, _I, _F, _F, _F, _F, _F, _F, _P), _I),
     "ag_csr_sum_f32": ((_P, _P, _I, _I, _I, _P, _P, _I, _I, _P), _I),
     "ag_csr_weighted_sum_f32": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,

@@ -21,9 +21,10 @@ backward recomputes (a)-(c) with the same launches, then:
   (f) dqkv in three phases (row statistics; dK, dV per key tile; dQ per
       query tile), bf16                            (block_attention_bwd.cu)
   (g) dy = dqkv . W_qkv, f32                       (block_gemm.cu, NN, f32)
-  (h) dx = bf16(do + LN'(dy)), dgamma, dbeta       (block_norm_bwd.cu)
+  (h) dx = bf16(do + LN'(dy)), dgamma, dbeta and db_proj = the column sums
+      of do, in one pass over the rows             (block_norm_bwd.cu)
   (i) dW_qkv = dqkv^T . y, dW_proj = do^T . attn   (block_gemm.cu, TN, f32)
-  (j) db_qkv, db_proj: column sums in f32          (block_norm_bwd.cu)
+  (j) db_qkv: the column sums of dqkv in f32       (block_norm_bwd.cu)
 
 Parameter gradients come back in f32 and dx in x's dtype, as
 `_fused_block_bwd` returns them. The intermediates that the Pallas kernels
@@ -71,8 +72,16 @@ LAYOUT_NT, LAYOUT_NN, LAYOUT_TN = 0, 1, 2
 (EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL, EPI_BIAS_GELU_AUX, EPI_NONE,
  EPI_F32, EPI_DGELU) = range(7)
 
-# row groups of the two-pass column sums (block_norm_bwd.cu)
-SUM_GROUPS = 128
+# csrc/block_norm_bwd.cu: the LayerNorm backward's rows in flight a block
+# (LNB_WARPS, one warp a row) and its widest row (LNB_MAX_CHUNKS 16-byte
+# loads a lane); a column-sum block's columns and row lanes (COLSUM_COLS,
+# COLSUM_Y)
+NORM_WARPS, NORM_MAX_COLS = 4, 1024
+COLSUM_COLS, COLSUM_LANES = 256, 8
+# blocks that fill the card (132 SMs): two LayerNorm-backward blocks an SM
+# (its registers allow three; at ViT-B/16's 6304 rows the third's gain is
+# lost to the second pass over more partial rows), four column-sum blocks
+NORM_BLOCKS, COLSUM_BLOCKS = 264, 528
 
 _F32 = torch.float32
 
@@ -100,9 +109,10 @@ def ln_rows_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def ln_bwd_plain(x, gamma, dy, dres, eps: float):
-    """(dx, dgamma, dbeta) of y = xhat * gamma + beta plus the residual
-    gradient dres, as the Pallas backward kernels write them: dy f32, dx
-    rounded once after adding dres in f32."""
+    """(dx, dgamma, dbeta, db_res) of y = xhat * gamma + beta plus the
+    residual gradient dres, as the Pallas backward kernels write them: dy
+    f32, dx rounded once after adding dres in f32; db_res, the f32 column
+    sums of dres, is the gradient of the residual branch's bias."""
     xhat, rstd = ln_stats_plain(x, eps)
     dyg = dy * gamma.to(_F32)
     mean_dyg = dyg.mean(-1, keepdim=True)
@@ -110,7 +120,8 @@ def ln_bwd_plain(x, gamma, dy, dres, eps: float):
     dx_ln = rstd * (dyg - mean_dyg - xhat * mean_dyg_xhat)
     dx = (dres.to(_F32) + dx_ln).to(x.dtype)
     rows = tuple(range(dy.dim() - 1))
-    return dx, (dy * xhat).sum(rows), dy.sum(rows)
+    return (dx, (dy * xhat).sum(rows), dy.sum(rows),
+            dres.to(_F32).sum(rows))
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor,
@@ -237,10 +248,9 @@ def block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, dout,
     dqkv = torch.stack(grads).to(dt).permute(1, 3, 0, 2, 4) \
         .reshape(B, N, 3 * C)
     dy = dqkv.to(_F32) @ weight_f32(w_qkv, dt)          # [B, N, C] f32
-    dx, dgamma, dbeta = ln_bwd_plain(x, gamma, dy, do, eps)
+    dx, dgamma, dbeta, db_proj = ln_bwd_plain(x, gamma, dy, do, eps)
     return (dx, dgamma, dbeta, rows_t_dot(dqkv, y),
-            dqkv.to(_F32).sum((0, 1)), rows_t_dot(do, attn),
-            do.to(_F32).sum((0, 1)))
+            dqkv.to(_F32).sum((0, 1)), rows_t_dot(do, attn), db_proj)
 
 
 # --- CUDA launches, shared with ops/mlp.py ----------------------------------
@@ -267,7 +277,10 @@ def check_block_operands(name: str, x: torch.Tensor,
 
 
 def bf16_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).contiguous()
+    """t as a contiguous, 16-byte aligned bf16 tensor (a copy where it is
+    not one)."""
+    t = t.to(torch.bfloat16).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def layernorm_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -334,30 +347,67 @@ def gemm_nt_cuda(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return gemm_cuda(a, bf16_contiguous(w), LAYOUT_NT, epilogue, bias=b, aux=residual)
 
 
+def norm_groups(rows: int) -> tuple[int, int]:
+    """(rows per block, blocks) of the LayerNorm backward: runs of whole
+    NORM_WARPS rows, about NORM_BLOCKS of them where the rows allow. The
+    blocks' partial sums are added in block order, so the split, a function
+    of the shape only, fixes the result bit for bit."""
+    per = NORM_WARPS * -(-rows // (NORM_BLOCKS * NORM_WARPS))
+    return per, -(-rows // per)
+
+
+def colsum_groups(rows: int, cols: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of a column sum: runs of whole COLSUM_LANES
+    rows, so that about COLSUM_BLOCKS blocks of COLSUM_COLS columns fill
+    the card where the rows allow; a function of the shape only, as
+    norm_groups."""
+    want = max(1, COLSUM_BLOCKS // -(-cols // COLSUM_COLS))
+    per = COLSUM_LANES * -(-rows // (want * COLSUM_LANES))
+    return per, -(-rows // per)
+
+
+def _check_rows(name: str, cols: int, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor is contiguous and 16-byte aligned and the
+    rows hold whole 16-byte loads (cols a multiple of 8)."""
+    if cols % 8:
+        raise ValueError(f"{name}: {cols} columns, not a multiple of 8")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous and 16-byte "
+                         f"aligned")
+
+
 def layernorm_bwd_cuda(x2d, gamma, dy, dres, eps: float):
-    """(dx bf16, dgamma f32, dbeta f32) (csrc/block_norm_bwd.cu)."""
+    """(dx bf16, dgamma, dbeta, db_res f32) (csrc/block_norm_bwd.cu): x2d,
+    dres bf16 and dy f32 [rows, cols], cols a multiple of 8 and at most
+    NORM_MAX_COLS."""
     rows, cols = x2d.shape
+    if cols > NORM_MAX_COLS:
+        raise ValueError(f"layernorm_bwd_cuda: {cols} columns; the kernel "
+                         f"holds a row in registers, at most {NORM_MAX_COLS}")
+    gamma = gamma.contiguous()
+    _check_rows("layernorm_bwd_cuda", cols, x2d, gamma, dy, dres)
+    per, groups = norm_groups(rows)
     dx = torch.empty_like(x2d)
-    dgamma = torch.empty(cols, device=x2d.device, dtype=_F32)
-    dbeta = torch.empty_like(dgamma)
-    groups = min(SUM_GROUPS, rows)
-    scratch = torch.empty((2, groups, cols), device=x2d.device, dtype=_F32)
+    sums = torch.empty((3, cols), device=x2d.device, dtype=_F32)
+    scratch = torch.empty((groups, 3 * cols), device=x2d.device, dtype=_F32)
     rc = _build.lib().ag_layernorm_bwd_bf16(
-        x2d.data_ptr(), gamma.contiguous().data_ptr(), dy.data_ptr(),
-        dres.data_ptr(), dx.data_ptr(), scratch.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), rows, cols, eps, groups, _build.stream_ptr(x2d))
+        x2d.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dres.data_ptr(),
+        dx.data_ptr(), scratch.data_ptr(), sums.data_ptr(), rows, cols, eps,
+        per, groups, _build.stream_ptr(x2d))
     _build.check(rc, "ag_layernorm_bwd_bf16")
-    return dx, dgamma, dbeta
+    return (dx, *sums)
 
 
 def colsum_cuda(t: torch.Tensor) -> torch.Tensor:
-    """f32 column sums of a contiguous bf16 [rows, cols] tensor."""
+    """f32 column sums of a contiguous, 16-byte aligned bf16 [rows, cols]
+    tensor, cols a multiple of 8."""
     rows, cols = t.shape
-    groups = min(SUM_GROUPS, rows)
-    scratch = torch.empty((groups, cols), device=t.device, dtype=_F32)
+    _check_rows("colsum_cuda", cols, t)
+    per, chunks = colsum_groups(rows, cols)
+    scratch = torch.empty((chunks, cols), device=t.device, dtype=_F32)
     out = torch.empty(cols, device=t.device, dtype=_F32)
     rc = _build.lib().ag_colsum_bf16(t.data_ptr(), scratch.data_ptr(),
-                                     out.data_ptr(), rows, cols, groups,
+                                     out.data_ptr(), rows, cols, per, chunks,
                                      _build.stream_ptr(t))
     _build.check(rc, "ag_colsum_bf16")
     return out
@@ -432,16 +482,16 @@ def block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
     _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads)
     B, N, C = x.shape
     x2d = x.view(B * N, C)
-    do = dout.to(torch.bfloat16).contiguous().view(B * N, C)
+    do = bf16_contiguous(dout).view(B * N, C)
     y, qkv, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv,
                                              B, N, num_heads, eps)
     do_attn = gemm_cuda(do, bf16_contiguous(w_proj), LAYOUT_NN, EPI_NONE)
     dqkv = attention_core_bwd_cuda(qkv, do_attn, B, N, num_heads)
     dy = gemm_cuda(dqkv, bf16_contiguous(w_qkv), LAYOUT_NN, EPI_F32)
-    dx, dgamma, dbeta = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
+    dx, dgamma, dbeta, db_proj = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
     return (dx.view(B, N, C), dgamma, dbeta,
             gemm_cuda(dqkv, y, LAYOUT_TN, EPI_F32), colsum_cuda(dqkv),
-            gemm_cuda(do, attn, LAYOUT_TN, EPI_F32), colsum_cuda(do))
+            gemm_cuda(do, attn, LAYOUT_TN, EPI_F32), db_proj)
 
 
 class _FusedBlockAttention(torch.autograd.Function):

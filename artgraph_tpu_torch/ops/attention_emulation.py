@@ -1,12 +1,15 @@
-"""The mma.sync kernels' CUDA source run on the host, against the plain twins:
-the attention cores and the conv + BN-statistics unit.
+"""The port's CUDA kernels' source run on the host, against the plain twins:
+the attention cores, the conv + BN-statistics unit, and the LayerNorm
+backward and column sums of the transformer blocks' backward.
 
     python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
 
-(default: 1,197,2 1,600,1; then the unit at two shapes each way). No GPU
-and no nvcc: g++ (C++20) compiles csrc/block_attention.cu,
-csrc/block_attention_bwd.cu, csrc/conv_bn.cu and the headers they include
-as host code into build/emulate_attention/, with the PTX helpers of
+(default: 1,197,2 1,600,1; then the unit at two shapes each way, and the
+LayerNorm backward and a column sum at two shapes each). No GPU and no
+nvcc: g++ (C++20) compiles csrc/block_attention.cu,
+csrc/block_attention_bwd.cu, csrc/conv_bn.cu, csrc/block_norm_bwd.cu and
+the headers they include as host code into build/emulate_attention/, with
+the PTX helpers of
 csrc/ptx_helpers.cuh (cp.async, ldmatrix, mma.sync, dynamic shared memory)
 replaced by the warp-cooperative host versions of
 csrc/emulation/ptx_emulation.h and CUDA's built-ins by
@@ -16,16 +19,18 @@ attention shape the kernels of the four entry points (strided and packed
 forward, saved-o and recomputed-o backward) run on seeded bf16 inputs; for
 each unit shape the forward and backward launches of conv_bn.cu (the three
 products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16` runs
-them. It prints their max abs error against the plain twins and the worst
-error over the card's tolerance (bf16 outputs: atol + rtol |ref|, both
-3e-2; the unit's f32 sums and dw: relative L2 over 2e-2), and exits
-non-zero past it. It checks the kernels' indexing, fragment layouts, masks
+them, and block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
+`ag_colsum_bf16` run them (norm_sequence, colsum_sequence, with the row
+splits of ops/attention.py). It prints their max abs error against the
+plain twins and the worst error over the card's tolerance (bf16 outputs:
+atol + rtol |ref|, both 3e-2; f32 sums and dw: relative L2 over 2e-2), and
+exits non-zero past it. It checks the kernels' indexing, fragment layouts, masks
 and phases; not their speed, and not what only nvcc or the card can reject.
 The block GEMM (csrc/block_gemm.cu: wgmma fed by TMA and mbarriers) has no
 host version: those instructions act on shared memory and barriers behind
 the threads' backs, so only the card checks it (tests/test_torch_cuda.py,
 chip_smoke.py). The port never calls this module;
-tests/test_torch_emulated_{attention,conv_bn}.py do.
+tests/test_torch_emulated_{attention,conv_bn,norm}.py do.
 """
 import ctypes
 import subprocess
@@ -68,6 +73,8 @@ def build(out: Path = OUT) -> ctypes.CDLL:
             (CSRC / name).read_text(), launcher + "\nint launch("))
     (out / "conv_bn.cu").write_text(_kernels_only(
         (CSRC / "conv_bn.cu").read_text(), "// Host side: launches."))
+    (out / "block_norm_bwd.cu").write_text(_kernels_only(
+        (CSRC / "block_norm_bwd.cu").read_text(), "// Host side: launches."))
     (out / "sum_groups.cuh").write_text(_kernels_only(
         (CSRC / "sum_groups.cuh").read_text(),
         "// Launches the pass on stream s"))
@@ -83,6 +90,8 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     handle.emu_attention_bwd.argtypes = (I,) + (P,) * 9 + (I,) * 11 + (F,)
     handle.emu_conv_bn_fwd.argtypes = (P,) * 8 + (I,) * 4
     handle.emu_conv_bn_bwd.argtypes = (P,) * 16 + (I,) * 8
+    handle.emu_layernorm_bwd.argtypes = (P,) * 7 + (I, I, F, I, I)
+    handle.emu_colsum.argtypes = (P,) * 3 + (I,) * 4
     return handle
 
 
@@ -212,6 +221,82 @@ def check_conv_bn(lib: ctypes.CDLL, M: int, K: int, N: int,
     return worst
 
 
+def _rel_l2(ours: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative L2 distance in f64, over GRAD_REL_L2 (inf where ours is not
+    finite)."""
+    if not torch.isfinite(ours).all():
+        return float("inf")
+    a, r = ours.double(), ref.double()
+    return ((a - r).norm() / r.norm()).item() / GRAD_REL_L2
+
+
+def check_norm(lib: ctypes.CDLL, rows: int, cols: int,
+               eps: float = 1e-6) -> float:
+    """`ag_layernorm_bwd_bf16`'s launches at one shape, twice, against
+    `ln_bwd_plain`: dx at rtol = atol = 3e-2, dgamma, dbeta and db_res at
+    relative L2 <= GRAD_REL_L2, the second call bit-identical to the first.
+    Returns the worst error over tolerance."""
+    rng = np.random.default_rng(rows * 4099 + cols)
+    f32 = lambda *shape, s=1.0, m=0.0: torch.from_numpy(
+        (m + s * rng.normal(size=shape)).astype(np.float32))
+    x = f32(rows, cols, s=2.0, m=0.5).to(torch.bfloat16)
+    gamma, dy = f32(cols, s=0.1, m=1.0), f32(rows, cols)
+    dres = f32(rows, cols).to(torch.bfloat16)
+    per, groups = A.norm_groups(rows)
+
+    def run():
+        dx = torch.full((rows, cols), float("nan"), dtype=torch.bfloat16)
+        part = torch.full((groups, 3 * cols), float("nan"))
+        out = torch.full((3, cols), float("nan"))
+        lib.emu_layernorm_bwd(x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                              dres.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                              out.data_ptr(), rows, cols, eps, per, groups)
+        return dx, *out
+
+    ours, again = run(), run()
+    ref = A.ln_bwd_plain(x, gamma, dy, dres, eps)
+    worst = 0.0 if all(torch.equal(a, b) for a, b in zip(ours, again)) \
+        else float("inf")
+    for name, a, r in zip(("dx", "dgamma", "dbeta", "db_res"), ours, ref):
+        max_abs = (a.double() - r.double()).abs().max().item()
+        if name == "dx":
+            ratio = errors(a, r)[1] if torch.isfinite(a.float()).all() \
+                else float("inf")
+            held = "worst err/(atol+rtol|ref|)"
+        else:
+            ratio, held = _rel_l2(a, r), f"rel L2 / {GRAD_REL_L2}"
+        worst = max(worst, ratio)
+        print(f"layernorm bwd rows={rows} C={cols} ({groups} blocks of "
+              f"{per} rows) {name}: max abs {max_abs:.4g}, {held} "
+              f"{ratio:.4g}", flush=True)
+    return worst
+
+
+def check_colsum(lib: ctypes.CDLL, rows: int, cols: int) -> float:
+    """`ag_colsum_bf16`'s launches at one shape, twice, against the f32
+    column sum of the same tensor at relative L2 <= GRAD_REL_L2, the second
+    call bit-identical to the first. Returns the error over tolerance."""
+    rng = np.random.default_rng(rows * 7919 + cols)
+    t = torch.from_numpy((0.1 + rng.normal(size=(rows, cols)))
+                         .astype(np.float32)).to(torch.bfloat16)
+    per, chunks = A.colsum_groups(rows, cols)
+
+    def run():
+        part = torch.full((chunks, cols), float("nan"))
+        out = torch.full((cols,), float("nan"))
+        lib.emu_colsum(t.data_ptr(), part.data_ptr(), out.data_ptr(), rows,
+                       cols, per, chunks)
+        return out
+
+    ours, again = run(), run()
+    ratio = _rel_l2(ours, t.float().sum(0))
+    if not torch.equal(ours, again):
+        ratio = float("inf")
+    print(f"colsum rows={rows} C={cols} ({chunks} chunks of {per} rows): "
+          f"rel L2 / {GRAD_REL_L2} {ratio:.4g}", flush=True)
+    return ratio
+
+
 def main(shapes: list[str]) -> int:
     lib = build()
     worst = max(check(lib, *map(int, s.split(","))) for s in shapes)
@@ -219,6 +304,9 @@ def main(shapes: list[str]) -> int:
             (300, 96, 96, True, 96, 32), (130, 32, 160, False, None, None)):
         worst = max(worst, check_conv_bn(lib, M, K, N, prologue, chunk,
                                          dz_chunk))
+    for rows, cols in ((300, 768), (17, 192)):
+        worst = max(worst, check_norm(lib, rows, cols),
+                    check_colsum(lib, rows, 4 * cols))
     return 0 if worst <= 1.0 else 1
 
 

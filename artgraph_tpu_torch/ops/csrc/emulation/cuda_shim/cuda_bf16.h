@@ -31,3 +31,4 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }

@@ -29,7 +29,11 @@ struct alignas(16) uint4 {
 struct alignas(8) float2 {
   float x, y;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float rsqrtf(float v) { return 1.0f / sqrtf(v); }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return {x, y, z, w};
 }

@@ -1,8 +1,10 @@
-// Runs the mma.sync kernels on the host: the attention cores and the
-// conv + BN-statistics unit (conv_bn.cu, in its own namespace, with the
-// second pass of sum_groups.cuh). The patched sources are included here, and
-// every block of a grid runs as one host thread per CUDA thread, one block
-// after another. Built and driven by ops/attention_emulation.py.
+// Runs the port's CUDA kernels on the host: the attention cores, the
+// conv + BN-statistics unit (conv_bn.cu) and the LayerNorm backward and
+// column sums (block_norm_bwd.cu), each of the last two in its own
+// namespace, with the second pass of sum_groups.cuh. The patched sources
+// are included here, and every block of a grid runs as one host thread per
+// CUDA thread, one block after another. Built and driven by
+// ops/attention_emulation.py.
 #include <stdio.h>
 #include <stdlib.h>
 
@@ -17,9 +19,14 @@ EmuBlock* emu;
 
 #include "block_attention.cu"
 #include "block_attention_bwd.cu"
+#include "sum_groups.cuh"  // shared by the two sources below
 
 namespace convbn {
 #include "conv_bn.cu"
+}
+
+namespace norm {
+#include "block_norm_bwd.cu"
 }
 
 thread_local std::vector<ptx::EmuCopy> ptx::emu_copies;
@@ -28,7 +35,9 @@ unsigned char* ptx::emu_dyn_smem;
 
 // Every block of `grid` in turn, `block` threads each, with `smem` bytes of
 // dynamic shared memory (filled with 0xff, NaN as bf16, so a read before a
-// write shows).
+// write shows). The host threads are made once for the grid and walk its
+// blocks together, meeting at a barrier after each block (the static
+// shared memory is the next block's).
 template <class F>
 static void run_grid(dim3 grid, dim3 block, F kernel, size_t smem = 0) {
   const int threads = (int)(block.x * block.y * block.z);
@@ -41,22 +50,22 @@ static void run_grid(dim3 grid, dim3 block, F kernel, size_t smem = 0) {
   std::vector<unsigned char> dyn(smem + 128, 0xff);
   ptx::emu_dyn_smem = (unsigned char*)(((uintptr_t)dyn.data() + 127) &
                                        ~(uintptr_t)127);
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        EmuBlock blk;
-        std::barrier<> sync(threads);
-        std::vector<std::barrier<>*> warps;
-        for (int w = 0; w < threads / 32; ++w)
-          warps.push_back(blk.warp[w] = new std::barrier<>(32));
-        blk.block = &sync;
-        emu = &blk;
-        std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t)
-          pool.emplace_back([&, t] {
-            emu_tid = t;
-            threadIdx = {t % block.x, (t / block.x) % block.y,
-                         t / (block.x * block.y)};
+  EmuBlock blk;
+  std::barrier<> sync(threads);
+  std::vector<std::barrier<>*> warps;
+  for (int w = 0; w < threads / 32; ++w)
+    warps.push_back(blk.warp[w] = new std::barrier<>(32));
+  blk.block = &sync;
+  emu = &blk;
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      emu_tid = t;
+      threadIdx = {t % block.x, (t / block.x) % block.y,
+                   t / (block.x * block.y)};
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
             blockIdx = {x, y, z};
             ptx::emu_copies.clear();
             ptx::emu_group = 0;
@@ -65,10 +74,11 @@ static void run_grid(dim3 grid, dim3 block, F kernel, size_t smem = 0) {
               fprintf(stderr, "cp.async copies never waited for\n");
               abort();
             }
-          });
-        for (std::thread& t : pool) t.join();
-        for (std::barrier<>* w : warps) delete w;
-      }
+            sync.arrive_and_wait();
+          }
+    });
+  for (std::thread& t : pool) t.join();
+  for (std::barrier<>* w : warps) delete w;
 }
 
 static dim3 grid_of(int B, int N, int H) {
@@ -118,6 +128,22 @@ extern "C" int emu_attention_bwd(int saved_o, const void* q, const void* k,
   return 0;
 }
 
+// sum_groups.cuh's pass, as sum_groups launches it.
+static int emu_sums(const float* part, float* lo, float* hi, int groups,
+                    int cols, int half) {
+  if (sum_in_order(groups, cols))
+    run_grid({(unsigned)((cols + SUM_SEQ_THREADS - 1) / SUM_SEQ_THREADS), 1,
+              1},
+             {(unsigned)SUM_SEQ_THREADS, 1, 1}, [&] {
+               sum_groups_seq_kernel(part, lo, hi, groups, cols, half);
+             });
+  else
+    run_grid({(unsigned)((cols + SUM_X - 1) / SUM_X), 1, 1},
+             {(unsigned)SUM_X, (unsigned)SUM_Y, 1},
+             [&] { sum_groups_kernel(part, lo, hi, groups, cols, half); });
+  return 0;
+}
+
 // conv_bn.cu's launch sequences with a launcher that runs each grid here.
 namespace convbn {
 
@@ -131,17 +157,7 @@ struct EmuRun {
   }
   int sums(const float* part, float* lo, float* hi, int groups, int cols,
            int half) {
-    if (sum_in_order(groups, cols))
-      run_grid({(unsigned)((cols + SUM_SEQ_THREADS - 1) / SUM_SEQ_THREADS),
-                1, 1},
-               {(unsigned)SUM_SEQ_THREADS, 1, 1}, [&] {
-                 sum_groups_seq_kernel(part, lo, hi, groups, cols, half);
-               });
-    else
-      run_grid({(unsigned)((cols + SUM_X - 1) / SUM_X), 1, 1},
-               {(unsigned)SUM_X, (unsigned)SUM_Y, 1},
-               [&] { sum_groups_kernel(part, lo, hi, groups, cols, half); });
-    return 0;
+    return emu_sums(part, lo, hi, groups, cols, half);
   }
 };
 
@@ -180,4 +196,59 @@ extern "C" int emu_conv_bn_bwd(const void* x, const void* a, const void* b,
   };
   return prologue ? go(bwd_sequence<true, EmuRun>)
                   : go(bwd_sequence<false, EmuRun>);
+}
+
+// block_norm_bwd.cu's launch sequences with a launcher that runs each grid
+// here.
+namespace norm {
+
+struct EmuRun {
+  int norm(int chunks, int groups, const NormArgs& a) {
+    const auto go = [&](auto kernel) {
+      run_grid({(unsigned)groups, 1, 1}, {(unsigned)(LNB_WARPS * 32), 1, 1},
+               kernel);
+      return 0;
+    };
+    switch (chunks) {
+      case 1: return go([&] { layernorm_bwd_kernel<1>(a); });
+      case 2: return go([&] { layernorm_bwd_kernel<2>(a); });
+      case 3: return go([&] { layernorm_bwd_kernel<3>(a); });
+      case 4: return go([&] { layernorm_bwd_kernel<4>(a); });
+    }
+    return 1;
+  }
+  int colsum(dim3 grid, const bf16* in, float* part, int rows, int cols,
+             int rows_per_chunk) {
+    run_grid(grid, {(unsigned)COLSUM_X, (unsigned)COLSUM_Y, 1}, [&] {
+      colsum_kernel(in, part, rows, cols, rows_per_chunk);
+    });
+    return 0;
+  }
+  int sums(const float* part, float* lo, float* hi, int groups, int cols,
+           int half) {
+    return emu_sums(part, lo, hi, groups, cols, half);
+  }
+};
+
+}  // namespace norm
+
+extern "C" int emu_layernorm_bwd(const void* x, const void* gamma,
+                                 const void* dy, const void* dres, void* dx,
+                                 void* part, void* out, int rows, int cols,
+                                 float eps, int rows_per_group, int groups) {
+  using namespace norm;
+  EmuRun run;
+  const NormArgs a{(const bf16*)x,    (const float*)gamma, (const float*)dy,
+                   (const bf16*)dres, (bf16*)dx,           (float*)part,
+                   rows,              cols,                rows_per_group,
+                   eps};
+  return norm_sequence(run, a, groups, (float*)out);
+}
+
+extern "C" int emu_colsum(const void* in, void* part, void* out, int rows,
+                          int cols, int rows_per_chunk, int chunks) {
+  using namespace norm;
+  EmuRun run;
+  return colsum_sequence(run, (const bf16*)in, (float*)part, (float*)out,
+                         rows, cols, rows_per_chunk, chunks);
 }

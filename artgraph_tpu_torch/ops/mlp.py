@@ -16,9 +16,10 @@ The Function saves only x and the parameters, and the backward recomputes:
       (NT, epilogue writing both; GELU' needs h)
   (d) dh = bf16((do . W2) * GELU'(h))               (NN, dGELU epilogue)
   (e) dy = dh . W1, f32                             (NN, f32 out)
-  (f) dx = bf16(do + LN'(dy)), dgamma, dbeta        (block_norm_bwd.cu)
+  (f) dx = bf16(do + LN'(dy)), dgamma, dbeta and db2 = the column sums of
+      do, in one pass over the rows                 (block_norm_bwd.cu)
   (g) dW1 = dh^T . y, dW2 = do^T . act              (TN, f32 out)
-  (h) db1, db2: column sums in f32                  (block_norm_bwd.cu)
+  (h) db1: the column sums of dh in f32             (block_norm_bwd.cu)
 
 The [B, N, 4C] hidden tensors reach device memory in bf16 (the Pallas kernels
 keep them in VMEM). GELU is the exact erf form; the CUDA epilogues evaluate
@@ -83,10 +84,10 @@ def block_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dout,
     dact = do.to(_F32) @ weight_f32(w2, dt)
     dh = (dact * gelu_grad_plain(h)).to(dt)
     dy = dh.to(_F32) @ weight_f32(w1, dt)               # [B, N, C] f32
-    dx, dgamma, dbeta = ln_bwd_plain(x, gamma, dy, do, eps)
+    dx, dgamma, dbeta, db2 = ln_bwd_plain(x, gamma, dy, do, eps)
     rows = tuple(range(x.dim() - 1))
     return (dx, dgamma, dbeta, rows_t_dot(dh, y), dh.to(_F32).sum(rows),
-            rows_t_dot(do, act), do.to(_F32).sum(rows))
+            rows_t_dot(do, act), db2)
 
 
 def _check_mlp(x, gamma, beta, w1, b1, w2, b2) -> None:
@@ -115,15 +116,15 @@ def block_mlp_bwd_cuda(x, gamma, beta, w1, b1, w2, b2, dout, eps: float):
     _check_mlp(x, gamma, beta, w1, b1, w2, b2)
     B, N, C = x.shape
     x2d = x.view(B * N, C)
-    do = dout.to(torch.bfloat16).contiguous().view(B * N, C)
+    do = bf16_contiguous(dout).view(B * N, C)
     y = layernorm_cuda(x2d, gamma, beta, eps)
     h, act = gemm_nt_cuda(y, w1, b1, EPI_BIAS_GELU_AUX)
     dh = gemm_cuda(do, bf16_contiguous(w2), LAYOUT_NN, EPI_DGELU, aux=h)
     dy = gemm_cuda(dh, bf16_contiguous(w1), LAYOUT_NN, EPI_F32)
-    dx, dgamma, dbeta = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
+    dx, dgamma, dbeta, db2 = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
     return (dx.view(B, N, C), dgamma, dbeta,
             gemm_cuda(dh, y, LAYOUT_TN, EPI_F32), colsum_cuda(dh),
-            gemm_cuda(do, act, LAYOUT_TN, EPI_F32), colsum_cuda(do))
+            gemm_cuda(do, act, LAYOUT_TN, EPI_F32), db2)
 
 
 class _FusedBlockMlp(torch.autograd.Function):

@@ -37,7 +37,18 @@ non-zero:
               rtol = atol = 3e-2, f32 at relative L2 <= GRAD_REL_L2,
               bit-identical on repeat) and timed, with its TFLOP/s and the
               time of torch.matmul on the same bf16 operands beside
-              (gemm_kernel_phases)
+              (gemm_kernel_phases). Then the row and column reductions
+              of rows 1b, 2b and 5b alone (csrc/block_norm_bwd.cu): the
+              LayerNorm backward at [B*N, C] against ln_bwd_plain (dx at
+              rtol = atol = 3e-2; dgamma, dbeta and db_res, the residual
+              bias's column sum, at relative L2 <= GRAD_REL_L2) and the
+              column sums at [B*N, 3C], [B*N, 3072] and [B*N, C] against
+              the f32 column sum, bit-identical on repeat, each timed
+              beside its plain version, its byte bound and a library call
+              (native_layer_norm_backward on f32 copies plus the residual
+              add; torch.sum in f32); and the LayerNorm forward of
+              block_gemm.cu the same way beside F.layer_norm
+              (norm_kernel_phases)
   5. serve    ViTSingleTask(32) and NewMultiModalMultiTaskViT(128, ...) at
               full ViT-B/16 width with seeded random weights, saved as
               reference .pt files and loaded back through
@@ -562,6 +573,166 @@ def gemm_kernel_phases() -> None:
               f"{flops / lib_ms / 1e9:.1f} TFLOP/s (median of 10 CUDA-event "
               f"timings of 10 calls)", flush=True)
         del a, b, bias, aux, ours, again, ref
+
+
+def _rel_l2(a: torch.Tensor, r: torch.Tensor) -> float:
+    a, r = a.double(), r.double()
+    return ((a - r).norm() / r.norm()).item()
+
+
+def _device_ms(fn, calls: int = 10, tries: int = 3) -> float | None:
+    """Device ms per call of fn: its kernels', memcpys' and memsets' summed
+    durations (torch.profiler), after one warm-up call. A profiler session
+    now and then records no device event at all; such a session is run
+    again, up to `tries` sessions in all, and None returned if none saw
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        work, _ = _device_work(fn, calls)
+        ms = sum(ms for ms, _ in work.values())
+        if ms > 0:
+            return ms
+    return None
+
+
+def _rotating(make, inputs: list):
+    """A call of make(*inputs[i]) for i = 0, 1, ... in turn: over copies of
+    the inputs larger together than the 50 MB L2, each call reads its
+    operands from device memory, as the block backward's launches do."""
+    turn = iter(range(1 << 62))
+    return lambda: make(*inputs[next(turn) % len(inputs)])
+
+
+def _copies(nbytes: int) -> int:
+    """Copies of nbytes of inputs that together exceed twice the L2."""
+    return max(2, -(-100 * 2 ** 20 // nbytes))
+
+
+def _time_line(label: str, run, plain, library, nbytes: float,
+               copies: int) -> None:
+    """Time a kernel beside its plain version and a library call: device ms
+    per call (torch.profiler) of each, and the kernel's CUDA-event ms (10
+    calls back to back, where the host's launch cost shows); with its byte
+    bound (each input read once, each output written once, at the HBM
+    rate). Where the profiler saw no device time for a function, its CUDA-
+    event ms stands in and the line says so."""
+    times, notes = [], []
+    for what, fn in (("kernel", run), ("plain", plain),
+                     ("library", library)):
+        ms = _device_ms(fn)
+        if ms is None:
+            ms = _time_ms(fn)
+            notes.append(f"{what}: the profiler saw no device time, CUDA "
+                         "events stand in")
+        times.append(ms)
+    ms, plain_ms, lib_ms = times
+    bound_ms, _ = _bound(0, nbytes)
+    print(f"time: {label} kernel {ms:.4f} ms of device time ("
+          f"{_time_ms(run):.4f} ms by CUDA events back to back), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms (bytes), {100 * bound_ms / ms:.1f}% of the bound (inputs "
+          f"rotated over {copies} copies: read from device memory)"
+          + "".join(f"; {n}" for n in notes), flush=True)
+
+
+def norm_kernel_phases() -> None:
+    """Phases 3 and 4 for the row and column reductions of the block ops
+    alone: csrc/block_norm_bwd.cu's LayerNorm backward (rows 1b, 2b, with
+    db_res, the residual bias's column sum) at [B*N, C] against
+    ln_bwd_plain (dx at rtol = atol = KERNEL_TOL, dgamma, dbeta and db_res
+    at relative L2 <= GRAD_REL_L2) and its column sums (rows 1b, 2b, 5b) at
+    [B*N, 3C] (dqkv), [B*N, HIDDEN] (dh) and [B*N, C] against the f32 column
+    sum of the same tensor (relative L2 <= GRAD_REL_L2), each bit-identical
+    on repeat; then block_gemm.cu's LayerNorm forward (rows 1, 1b, 2, 2b)
+    against ln_rows_plain (rtol = atol = KERNEL_TOL), the same way. Each
+    timed beside its plain version and a library call the port never makes
+    (native_layer_norm_backward on f32 copies plus the residual add;
+    torch.sum in f32; F.layer_norm on bf16 copies), with its byte bound."""
+    import torch.nn.functional as F
+
+    from artgraph_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(SEED + 91)
+    M, bf = B * N, torch.bfloat16
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    x = dev(0.5 + 2.0 * rng.normal(size=(M, C)), bf)
+    gamma = dev(1.0 + 0.1 * rng.normal(size=C))
+    beta = dev(0.1 * rng.normal(size=C))
+    dy = dev(rng.normal(size=(M, C)))
+    dres = dev(rng.normal(size=(M, C)), bf)
+
+    label = f"layernorm_bwd [{M}, {C}]"
+    ours, again = (A.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+                   for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, g) for a, g in zip(ours, again)):
+        raise AssertionError(f"{label} differs from call to call")
+    ref = A.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
+    _check_output("layernorm_bwd dx", ours[0], ref[0])
+    for name, a, r in zip(("dgamma", "dbeta", "db_res"), ours[1:], ref[1:]):
+        rel = _rel_l2(a, r)
+        print(f"check: {label} {name} f32 vs plain: rel L2 {rel:.4g}; "
+              f"bit-identical on repeat", flush=True)
+        if not (rel <= GRAD_REL_L2 and torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {name}: rel L2 {rel}")
+    del ours, again, ref
+    # x, do, dx bf16 and dy f32; gamma in, three f32 sums out
+    nbytes = M * C * (2 + 2 + 2 + 4) + 4 * C * 4
+    copies = _copies(M * C * 8)
+    sets = [(x.clone(), dy.clone(), dres.clone()) for _ in range(copies)]
+    _, mean, rstd = torch.native_layer_norm(x.float(), [C], gamma, beta, 1e-6)
+    f32_sets = [(xs.float(), d, r.float()) for xs, d, r in sets]
+
+    def library(xf, d, rf):
+        dx, dg, db = torch.ops.aten.native_layer_norm_backward(
+            d, xf, [C], mean, rstd, gamma, beta, [True, True, True])
+        return (rf + dx).to(bf), dg, db
+
+    _time_line(label, _rotating(lambda xs, d, r: A.layernorm_bwd_cuda(
+        xs, gamma, d, r, 1e-6), sets), _rotating(
+            lambda xs, d, r: A.ln_bwd_plain(xs, gamma, d, r, 1e-6), sets),
+        _rotating(library, f32_sets), nbytes, copies)
+    del sets, f32_sets, dy, dres
+
+    for cols in (3 * C, HIDDEN, C):
+        label = f"colsum [{M}, {cols}]"
+        t = dev(0.1 + rng.normal(size=(M, cols)), bf)
+        ours, again = A.colsum_cuda(t), A.colsum_cuda(t)
+        torch.cuda.synchronize()
+        if not torch.equal(ours, again):
+            raise AssertionError(f"{label} differs from call to call")
+        rel = _rel_l2(ours, t.float().sum(0))
+        print(f"check: {label} f32 vs plain: rel L2 {rel:.4g}; "
+              f"bit-identical on repeat", flush=True)
+        if not (rel <= GRAD_REL_L2 and torch.isfinite(ours).all()):
+            raise AssertionError(f"{label}: rel L2 {rel}")
+        copies = _copies(M * cols * 2)
+        sets = [(t.clone(),) for _ in range(copies)]
+        _time_line(label, _rotating(A.colsum_cuda, sets),
+                   _rotating(lambda u: u.to(torch.float32).sum(0), sets),
+                   _rotating(lambda u: torch.sum(u, 0, dtype=torch.float32),
+                             sets),
+                   M * cols * 2 + cols * 4, copies)
+        del t, ours, again, sets
+
+    label = f"layernorm forward [{M}, {C}]"
+    ours, again = (A.layernorm_cuda(x, gamma, beta, 1e-6) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError(f"{label} differs from call to call")
+    _check_output("layernorm forward", ours,
+                  A.ln_rows_plain(x, gamma, beta, 1e-6))
+    gb, bb = gamma.to(bf), beta.to(bf)
+    copies = _copies(M * C * 2)
+    sets = [(x.clone(),) for _ in range(copies)]
+    _time_line(label, _rotating(
+        lambda xs: A.layernorm_cuda(xs, gamma, beta, 1e-6), sets),
+        _rotating(lambda xs: A.ln_rows_plain(xs, gamma, beta, 1e-6), sets),
+        _rotating(lambda xs: F.layer_norm(xs, (C,), gb, bb, 1e-6), sets),
+        2 * M * C * 2 + 2 * C * 4, copies)
+    torch.cuda.empty_cache()
 
 
 def _counters():
@@ -1210,7 +1381,7 @@ def _profile_steps(step, steps: int, step_ms: float,
           f"memcpys, memsets) against {step_ms:.3f} ms per unprofiled step: "
           f"idle share {max(0.0, 1 - busy / step_ms):.4f}; user-annotation "
           f"spans left out: {dropped or 'none'}", flush=True)
-    for ms, calls, name in kernels[:14]:
+    for ms, calls, name in kernels[:20]:
         print(f"{label} profile:   {ms:8.3f} ms/step {100 * ms / busy:5.1f}% "
               f"{calls:4d} calls  {name[:110]}", flush=True)
 
@@ -2249,6 +2420,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         build_phase()
         gemm_kernel_phases()
+        norm_kernel_phases()
         kernels = kernel_phases()
         kernels.update(csr_kernel_phases())
         kernels.update(conv_bn_kernel_phases())

@@ -141,6 +141,79 @@ def test_cuda_block_bwd_kernels_match_plain(N, C, H, Hd):
         check_grads(ours, ref, kind, C)
 
 
+def _rel_l2(a: torch.Tensor, r: torch.Tensor) -> float:
+    a, r = a.double(), r.double()
+    return ((a - r).norm() / r.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [64, 192, 768])
+@pytest.mark.parametrize("rows", [1, 17, 6304, 6305])
+def test_cuda_layernorm_bwd_matches_plain(rows, cols):
+    """csrc/block_norm_bwd.cu's one-pass LayerNorm backward against
+    ln_bwd_plain: dx at rtol = atol = 3e-2, dgamma, dbeta and db_res (the
+    column sums of the residual gradient) at relative L2 <= GRAD_REL_L2,
+    bit-identical on repeat; rows off the blocks' runs, C off the 256
+    columns of a warp's loads."""
+    _need_cuda()
+    rng = np.random.default_rng(rows + cols)
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    x = dev(0.5 + 2.0 * rng.normal(size=(rows, cols)), torch.bfloat16)
+    gamma = dev(1.0 + 0.1 * rng.normal(size=cols))
+    dy = dev(rng.normal(size=(rows, cols)))
+    dres = dev(rng.normal(size=(rows, cols)), torch.bfloat16)
+    ours = attention.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+    again = attention.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(ours, again))
+    ref = attention.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
+    assert ours[0].dtype == torch.bfloat16
+    torch.testing.assert_close(ours[0].float(), ref[0].float(), rtol=3e-2,
+                               atol=3e-2)
+    for name, a, r in zip(("dgamma", "dbeta", "db_res"), ours[1:], ref[1:]):
+        assert a.dtype == torch.float32 and a.shape == (cols,)
+        assert _rel_l2(a, r) <= GRAD_REL_L2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [64, 192, 768])
+@pytest.mark.parametrize("rows", [1, 17, 6304, 6305])
+def test_cuda_colsum_matches_plain(rows, cols):
+    """csrc/block_norm_bwd.cu's column sums against the f32 column sum of
+    the same bf16 tensor at relative L2 <= GRAD_REL_L2, bit-identical on
+    repeat."""
+    _need_cuda()
+    t = torch.from_numpy(np.random.default_rng(rows * cols).normal(
+        0.1, 1.0, size=(rows, cols)).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+    ours, again = attention.colsum_cuda(t), attention.colsum_cuda(t)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again)
+    assert ours.dtype == torch.float32 and ours.shape == (cols,)
+    assert _rel_l2(ours, t.float().sum(0)) <= GRAD_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_norm_kernels_raise_on_widths_they_do_not_take():
+    """A row wider than NORM_MAX_COLS (held in registers) and rows that are
+    not whole 16-byte loads raise before any launch; nothing falls back."""
+    _need_cuda()
+    z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt,
+                                                      device="cuda")
+    with pytest.raises(ValueError, match="at most 1024"):
+        attention.layernorm_bwd_cuda(z(4, 1032), z(1032, dt=torch.float32),
+                                     z(4, 1032, dt=torch.float32),
+                                     z(4, 1032), 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.layernorm_bwd_cuda(z(4, 68), z(68, dt=torch.float32),
+                                     z(4, 68, dt=torch.float32), z(4, 68),
+                                     1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.colsum_cuda(z(4, 68))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_backward_reaches_every_block_parameter(monkeypatch):
     """backward() through both block ops on cuda: each parameter gets a
