@@ -55,7 +55,7 @@ _SIGNATURES = {
                                  _P), _I),
     "ag_csr_softmax_f32": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
                             _P), _I),
-    "ag_csr_scalar_sum_f32": ((_P, _P, _P, _I, _P), _I),
+    "ag_csr_scalar_sum_f32": ((_P, _P, _I, _I, _I, _P, _P, _I, _P), _I),
     "ag_conv_bn_fwd_bf16": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
     "ag_conv_bn_bwd_bf16": ((_P,) * 16 + (_I,) * 8 + (_P,), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),

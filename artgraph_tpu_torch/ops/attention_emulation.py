@@ -1,13 +1,15 @@
 """The port's CUDA kernels' source run on the host, against the plain twins:
-the attention cores, the conv + BN-statistics unit, and the LayerNorm
-backward and column sums of the transformer blocks' backward.
+the attention cores, the conv + BN-statistics unit, the LayerNorm
+backward and column sums of the transformer blocks' backward, and the CSR
+scalar sum.
 
     python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
 
-(default: 1,197,2 1,600,1; then the unit at two shapes each way, and the
-LayerNorm backward and a column sum at two shapes each). No GPU and no
-nvcc: g++ (C++20) compiles csrc/block_attention.cu,
-csrc/block_attention_bwd.cu, csrc/conv_bn.cu, csrc/block_norm_bwd.cu and
+(default: 1,197,2 1,600,1; then the unit at two shapes each way, the
+LayerNorm backward and a column sum at two shapes each, and the scalar
+sum on hubs and on short segments). No GPU and no nvcc: g++ (C++20)
+compiles csrc/block_attention.cu, csrc/block_attention_bwd.cu,
+csrc/conv_bn.cu, csrc/block_norm_bwd.cu, csrc/csr_segment.cu and
 the headers they include as host code into build/emulate_attention/, with
 the PTX helpers of
 csrc/ptx_helpers.cuh (cp.async, ldmatrix, mma.sync, dynamic shared memory)
@@ -19,18 +21,21 @@ attention shape the kernels of the four entry points (strided and packed
 forward, saved-o and recomputed-o backward) run on seeded bf16 inputs; for
 each unit shape the forward and backward launches of conv_bn.cu (the three
 products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16` runs
-them, and block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
+them, block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
 `ag_colsum_bf16` run them (norm_sequence, colsum_sequence, with the row
-splits of ops/attention.py). It prints their max abs error against the
-plain twins and the worst error over the card's tolerance (bf16 outputs:
-atol + rtol |ref|, both 3e-2; f32 sums and dw: relative L2 over 2e-2), and
-exits non-zero past it. It checks the kernels' indexing, fragment layouts, masks
-and phases; not their speed, and not what only nvcc or the card can reject.
+splits of ops/attention.py) and csr_segment.cu's two passes as
+`ag_csr_scalar_sum_f32` runs them over a CSR's plan (scalar_sequence). It
+prints their max abs error against the plain twins and the worst error
+over the card's tolerance (bf16 outputs: atol + rtol |ref|, both 3e-2; f32
+sums and dw: relative L2 over 2e-2; the scalar sum against its twin in f64
+at CSR_ATOL + CSR_RTOL |ref|), and exits non-zero past it. It checks the
+kernels' indexing, fragment layouts, masks and phases; not their speed,
+and not what only nvcc or the card can reject.
 The block GEMM (csrc/block_gemm.cu: wgmma fed by TMA and mbarriers) has no
 host version: those instructions act on shared memory and barriers behind
 the threads' backs, so only the card checks it (tests/test_torch_cuda.py,
 chip_smoke.py). The port never calls this module;
-tests/test_torch_emulated_{attention,conv_bn,norm}.py do.
+tests/test_torch_emulated_{attention,conv_bn,norm,csr}.py do.
 """
 import ctypes
 import subprocess
@@ -47,6 +52,7 @@ HERE = CSRC / "emulation"
 OUT = Path(__file__).resolve().parents[2] / "build" / "emulate_attention"
 TOL = 3e-2
 GRAD_REL_L2 = 2e-2
+CSR_RTOL, CSR_ATOL = 1e-4, 1e-3
 
 
 def _kernels_only(src: str, marker: str) -> str:
@@ -75,6 +81,8 @@ def build(out: Path = OUT) -> ctypes.CDLL:
         (CSRC / "conv_bn.cu").read_text(), "// Host side: launches."))
     (out / "block_norm_bwd.cu").write_text(_kernels_only(
         (CSRC / "block_norm_bwd.cu").read_text(), "// Host side: launches."))
+    (out / "csr_segment.cu").write_text(_kernels_only(
+        (CSRC / "csr_segment.cu").read_text(), "// Host side: launches."))
     (out / "sum_groups.cuh").write_text(_kernels_only(
         (CSRC / "sum_groups.cuh").read_text(),
         "// Launches the pass on stream s"))
@@ -92,6 +100,7 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     handle.emu_conv_bn_bwd.argtypes = (P,) * 16 + (I,) * 8
     handle.emu_layernorm_bwd.argtypes = (P,) * 7 + (I, I, F, I, I)
     handle.emu_colsum.argtypes = (P,) * 3 + (I,) * 4
+    handle.emu_csr_scalar_sum.argtypes = (P, P, I, I, P, P, I)
     return handle
 
 
@@ -297,6 +306,51 @@ def check_colsum(lib: ctypes.CDLL, rows: int, cols: int) -> float:
     return ratio
 
 
+def csr_from_counts(counts):
+    """The metadata (on the CPU) of segments of `counts` edges each."""
+    from artgraph_tpu_torch.ops import csr_segment as T
+
+    counts = np.asarray(counts, np.int64)
+    return T._csr_from_sorted(np.repeat(np.arange(counts.size), counts),
+                              counts.size, "cpu")
+
+
+def check_csr_scalar(lib: ctypes.CDLL, counts, lanes: int | None = None
+                     ) -> float:
+    """`ag_csr_scalar_sum_f32`'s two passes over the plan of segments of
+    `counts` edges, in groups of `lanes` lanes (the CSR's own width by
+    default), twice, against `scalar_segment_sum_plain` in f64: the worst
+    error over CSR_ATOL + CSR_RTOL |ref| (inf unless the second call is
+    bit-identical to the first)."""
+    from artgraph_tpu_torch.ops import csr_segment as T
+
+    csr = csr_from_counts(counts)
+    lanes = lanes or csr.scalar_lanes
+    rng = np.random.default_rng(len(counts) * 7 + csr.num_edges)
+    w = torch.from_numpy(rng.normal(size=csr.num_edges).astype(np.float32))
+
+    def run():
+        out = torch.full((csr.num_segments,), float("nan"))
+        scratch = torch.full((csr.num_slots,), float("nan"))
+        lib.emu_csr_scalar_sum(w.data_ptr(), csr.plan.data_ptr(),
+                               csr.num_chunks, csr.num_merge,
+                               scratch.data_ptr(), out.data_ptr(), lanes)
+        return out
+
+    ours, again = run(), run()
+    ref = T.scalar_segment_sum_plain(w.double(), csr)
+    err = (ours.double() - ref).abs()
+    ratio = (err / (CSR_ATOL + CSR_RTOL * ref.abs())).max().item() \
+        if ref.numel() else 0.0
+    if not (torch.isfinite(ours).all() and torch.equal(ours, again)):
+        ratio = float("inf")
+    print(f"csr scalar sum S={csr.num_segments} E={csr.num_edges} "
+          f"({csr.num_chunks} chunks, {csr.num_merge} hubs, {lanes} lanes a "
+          f"chunk): max abs {err.max().item() if err.numel() else 0.0:.4g},"
+          f" worst err/(atol+rtol|ref|) {ratio:.4g}", flush=True)
+    return ratio
+
+
 def main(shapes: list[str]) -> int:
     lib = build()
     worst = max(check(lib, *map(int, s.split(","))) for s in shapes)
@@ -307,6 +361,8 @@ def main(shapes: list[str]) -> int:
     for rows, cols in ((300, 768), (17, 192)):
         worst = max(worst, check_norm(lib, rows, cols),
                     check_colsum(lib, rows, 4 * cols))
+    for counts in ([0, 1, 255, 256, 257, 31250, 0], [10] * 500):
+        worst = max(worst, check_csr_scalar(lib, counts))
     return 0 if worst <= 1.0 else 1
 
 

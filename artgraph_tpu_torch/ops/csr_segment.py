@@ -15,16 +15,17 @@ message passing then becomes a read of contiguous edge rows:
   ag_csr_scalar_sum_f32          _scalar_kernel   csr_scalar_segment_sum,
                                                   csr_gather backward (1-D)
 
-The first three run over a chunk plan built with the metadata (`_plan`):
-one warp per chunk of at most CHUNK edges, and a second, fixed-order pass
-that merges the chunks of the hub segments. Each kernel has a plain PyTorch
-twin here (`*_plain`: `index_add_` in the sorted order; `scatter_reduce`
-amax and `exp` for the softmax). A CPU tensor takes the twin; a CUDA tensor
-launches the kernel or raises. The public ops
-are `torch.autograd.Function`s whose backwards restate the JAX VJPs: a
-gather of the output cotangent back to the edges, the `src_perm` reorder for
-the source side, and a detached softmax max. The kernels' own backwards are
-gathers in JAX too, so they stay torch indexing here.
+All four run over a chunk plan built with the metadata (`_plan`): one warp
+(for the scalar sum, a group of `scalar_lanes` lanes) per chunk of at most
+CHUNK edges, and a second, fixed-order pass that merges the chunks of the
+hub segments. Each kernel has a plain PyTorch twin here (`*_plain`:
+`index_add_` in the sorted order; `scatter_reduce` amax and `exp` for the
+softmax). A CPU tensor takes the twin; a CUDA tensor launches the kernel or
+raises. The public ops are `torch.autograd.Function`s whose backwards
+restate the JAX VJPs: a gather of the output cotangent back to the edges,
+the `src_perm` reorder for the source side, and a detached softmax max.
+The kernels' own backwards are gathers in JAX too, so they stay torch
+indexing here.
 """
 from __future__ import annotations
 
@@ -43,7 +44,10 @@ LAUNCHES_SOFTMAX = 0
 LAUNCHES_SCALAR = 0
 
 _F32 = torch.float32
-CHUNK = 256   # most edges one warp of the row kernels reduces (see _plan)
+CHUNK = 256   # most edges one warp of the kernels reduces (see _plan)
+# the scalar sum's group widths (lanes a chunk) and the loads a lane issues
+# in one round (kScalarLoads in csrc/csr_segment.cu)
+SCALAR_LANES, SCALAR_LOADS = (4, 16, 32), 8
 
 
 @dataclasses.dataclass
@@ -55,20 +59,22 @@ class CSR:
     counts: torch.Tensor      # [S] f32 in-degree (for the mean)
     num_segments: int
     num_edges: int
-    plan: torch.Tensor        # int32: the row kernels' chunk plan (_plan)
+    plan: torch.Tensor        # int32: the kernels' chunk plan (_plan)
     num_chunks: int
     num_merge: int            # segments of more than one chunk
     num_slots: int            # their chunks: the partials to merge
+    scalar_lanes: int         # the scalar sum's lanes a chunk (scalar_lanes)
 
 
 def _plan(row_ptr: np.ndarray) -> tuple[np.ndarray, int, int, int]:
     """Cut every segment into chunks of at most CHUNK edges (an empty
-    segment into one empty chunk) for the row kernels of csr_segment.cu:
-    one warp reduces one chunk; a segment of one chunk is written to the
-    output directly, a longer one (a hub) through one partial per chunk,
-    merged in chunk order by a second kernel. Returns (plan, C, M, slots),
-    plan = [chunk_edge (C+1) | chunk_seg (C) | chunk_slot (C) |
-    merge_seg (M) | merge_ptr (M+1)] as one int32 array."""
+    segment into one empty chunk) for the kernels of csr_segment.cu: one
+    warp (or lane group) reduces one chunk; a segment of one chunk is
+    written to the output directly, a longer one (a hub) through one
+    partial per chunk, merged in chunk order by a second kernel. Returns
+    (plan, C, M, slots), plan = [chunk_edge (C+1) | chunk_seg (C) |
+    chunk_slot (C) | merge_seg (M) | merge_ptr (M+1)] as one int32
+    array."""
     counts = np.diff(row_ptr.astype(np.int64))
     n_chunks = np.maximum(1, -(-counts // CHUNK))
     first = np.cumsum(n_chunks) - n_chunks
@@ -83,6 +89,16 @@ def _plan(row_ptr: np.ndarray) -> tuple[np.ndarray, int, int, int]:
     plan = np.concatenate([chunk_edge, chunk_seg, chunk_slot, merge_seg,
                            merge_ptr]).astype(np.int32)
     return plan, int(chunk_seg.size), int(merge_seg.size), int(merge_ptr[-1])
+
+
+def scalar_lanes(num_edges: int, num_chunks: int) -> int:
+    """The scalar kernel's group width for a CSR: the fewest SCALAR_LANES
+    whose one round of SCALAR_LOADS loads a lane covers the mean chunk (a
+    full warp for the hubs' 256-edge chunks, 4 lanes for ~10-edge
+    segments). A function of the shape, so the order of the adds is too."""
+    return next(g for g in SCALAR_LANES
+                if g == SCALAR_LANES[-1]
+                or num_edges <= SCALAR_LOADS * g * num_chunks)
 
 
 def _csr_from_sorted(ids: np.ndarray, num_segments: int,
@@ -104,7 +120,8 @@ def _csr_from_sorted(ids: np.ndarray, num_segments: int,
                    np.diff(row_ptr).astype(np.float32)).to(device),
                num_segments=int(num_segments), num_edges=int(ids.size),
                plan=torch.from_numpy(plan).to(device), num_chunks=n_chunks,
-               num_merge=n_merge, num_slots=n_slots)
+               num_merge=n_merge, num_slots=n_slots,
+               scalar_lanes=scalar_lanes(ids.size, n_chunks))
 
 
 def build_csr(edge_index: np.ndarray, num_segments: int,
@@ -221,7 +238,7 @@ def _scratch(data: torch.Tensor, csr: CSR) -> torch.Tensor:
 
 
 def _plan_args(csr: CSR, scratch: torch.Tensor) -> tuple:
-    """The plan and scratch arguments of the row kernels' C entries."""
+    """The plan and scratch arguments of the kernels' C entries."""
     return (csr.plan.data_ptr(), csr.num_chunks, csr.num_merge,
             csr.num_slots, scratch.data_ptr())
 
@@ -293,9 +310,10 @@ def scalar_segment_sum_cuda(w: torch.Tensor, csr: CSR) -> torch.Tensor:
         raise ValueError(f"csr_scalar_segment_sum: w must be [E], got "
                          f"{tuple(w.shape)}")
     out = torch.empty((csr.num_segments,), dtype=_F32, device=w.device)
+    scratch = torch.empty((csr.num_slots,), dtype=_F32, device=w.device)
     _build.check(_build.lib().ag_csr_scalar_sum_f32(
-        w.data_ptr(), csr.row_ptr.data_ptr(), out.data_ptr(),
-        csr.num_segments, _build.stream_ptr(w)), "ag_csr_scalar_sum_f32")
+        w.data_ptr(), *_plan_args(csr, scratch), out.data_ptr(),
+        csr.scalar_lanes, _build.stream_ptr(w)), "ag_csr_scalar_sum_f32")
     LAUNCHES_SCALAR += 1
     return out
 

@@ -9,9 +9,10 @@
 //                                         segment_sum)
 //   mode kSoftmax                      <- _softmax_kernel  (_csr_softmax_raw,
 //                                         GATConv)
-//   csr_scalar_sum_kernel              <- _scalar_kernel   (csr_scalar_
-//                                         segment_sum, the backward of
-//                                         csr_gather on 1-D cotangents)
+//   csr_scalar_chunk_kernel and        <- _scalar_kernel   (csr_scalar_
+//   csr_scalar_merge_kernel                               segment_sum, the
+//                                         backward of csr_gather on 1-D
+//                                         cotangents)
 //
 // The edges of a relation are sorted by segment once, on the host, so each
 // segment's edge rows are one contiguous run. None of the TPU mechanics carry
@@ -35,9 +36,20 @@
 // benchmark graph) writes one partial per chunk to a scratch slot, and a
 // second kernel merges each such segment's partials in chunk order, one warp
 // per segment. So a hub costs ~120 warps instead of one, and its sum is a
-// two-level sum of <= 256 terms per level, not one serial sum of 31K. The
-// scalar kernel strides its lanes across a whole segment's edges and ends in
-// a shuffle reduction of fixed order. There are no atomics: every result is
+// two-level sum of <= 256 terms per level, not one serial sum of 31K.
+//
+// The scalar sum (4 bytes an edge) walks the same plan, since one warp per
+// segment would put a hub's 31K edges on one warp, and the 32 hubs on 4 of
+// the 132 SMs, each lane waiting out ~250 load latencies in a row. Here a
+// group of G lanes reduces one chunk: each lane issues kScalarLoads loads
+// (edges e0 + lane + G k) before it adds them in k order, then a shuffle
+// tree of fixed order sums the group. G is 4, 16 or 32, the fewest lanes
+// whose one round of loads covers the CSR's mean chunk (the wrapper picks it
+// once per CSR): the reverse relations' ~10-edge segments would leave most
+// of a warp idle, and 4 lanes a chunk put 8 chunks in a warp. A hub's
+// chunks write partials to the scratch, and one warp per hub adds them the
+// same way, lanes strided over the slots. So the order of the adds is a
+// function of the shape alone. There are no atomics: every result is
 // bit-identical from call to call.
 //
 // The softmax mode keeps the running max m of the chunk's logits. For each
@@ -223,26 +235,120 @@ csr_merge_kernel(Plan plan, int M, const float* __restrict__ part,
   }
 }
 
-// out[s] = sum of w over segment s: lanes stride the edges, then a shuffle
-// tree of fixed order
-__global__ void __launch_bounds__(256)
-csr_scalar_sum_kernel(const float* __restrict__ w,
-                      const int* __restrict__ row_ptr,
-                      float* __restrict__ out, int S) {
-  const int s = warp_item();
-  if (s >= S) return;  // uniform across the warp: the shuffles stay full
-  const int lane = threadIdx.x & 31;
-  const int e0 = row_ptr[s], e1 = row_ptr[s + 1];
-  float acc = 0.f;
-#pragma unroll 4
-  for (int e = e0 + lane; e < e1; e += 32) acc += __ldg(w + e);
+// The scalar sum over the plan. kScalarLoads loads a lane issues before it
+// adds them: with G = 32 one round covers a whole chunk (CHUNK = 256).
+constexpr int kScalarLoads = 8;
+
+// The sum over a group of G lanes (G a power of two, groups aligned in the
+// warp) in a fixed tree; lane 0 of the group holds it. Every lane of the
+// warp takes part.
+template <int G>
+__device__ __forceinline__ float group_sum(float acc) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = G / 2; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[s] = acc;
+  return acc;
+}
+
+// The sum of x[i0 .. i1) in the order of the whole path: lane l of a group
+// of G adds x[i0 + l + G k] for k = 0, 1, ... (kScalarLoads loads in flight
+// before each round's adds), then group_sum<G>.
+template <int G>
+__device__ __forceinline__ float strided_sum(const float* __restrict__ x,
+                                             int i0, int i1, int lane) {
+  float acc = 0.f;
+  for (int base = i0; base < i1; base += kScalarLoads * G) {
+    float v[kScalarLoads];
+#pragma unroll
+    for (int k = 0; k < kScalarLoads; ++k) {
+      const int i = base + lane + G * k;
+      v[k] = i < i1 ? __ldg(x + i) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kScalarLoads; ++k) acc += v[k];
+  }
+  return group_sum<G>(acc);
+}
+
+// Pass 1: a group of G lanes per chunk, 256 / G chunks to a block. A
+// segment of one chunk (an empty one included: its sum is 0) is written to
+// out; a hub's chunk to its scratch slot.
+template <int G>
+__global__ void __launch_bounds__(256)
+csr_scalar_chunk_kernel(const float* __restrict__ w, Plan plan, int C,
+                        float* __restrict__ part, float* __restrict__ out) {
+  const int c = (int)(((int64_t)blockIdx.x * 256 + threadIdx.x) / G);
+  const int lane = threadIdx.x % G;
+  // a group past C sums nothing but stays for its warp's shuffles
+  int e0 = 0, e1 = 0, slot = -1, seg = 0;
+  if (c < C) {
+    e0 = plan.chunk_edge[c];
+    e1 = plan.chunk_edge[c + 1];
+    slot = plan.chunk_slot[c];
+    seg = plan.chunk_seg[c];
+  }
+  const float acc = strided_sum<G>(w, e0, e1, lane);
+  if (c < C && lane == 0) {
+    if (slot < 0)
+      out[seg] = acc;
+    else
+      part[slot] = acc;
+  }
+}
+
+// Pass 2: one warp per hub adds its partials, slots in edge order.
+__global__ void __launch_bounds__(256)
+csr_scalar_merge_kernel(Plan plan, int M, const float* __restrict__ part,
+                        float* __restrict__ out) {
+  const int i = warp_item();
+  if (i >= M) return;  // uniform across the warp: the shuffles stay full
+  const int lane = threadIdx.x & 31;
+  const float acc = strided_sum<32>(part, plan.merge_ptr[i],
+                                    plan.merge_ptr[i + 1], lane);
+  if (lane == 0) out[plan.merge_seg[i]] = acc;
 }
 
 inline int blocks_for(int n) { return (n + kWarps - 1) / kWarps; }
+
+// The scalar sum's launch sequence over a launcher (StreamRun below on a
+// CUDA stream; the host emulation runs the same one): pass 1 over the C
+// chunks with groups of `lanes` lanes, pass 2 over the M hubs.
+template <class Run>
+int scalar_sequence(Run& run, const float* w, const Plan& plan, int C, int M,
+                    float* part, float* out, int lanes) {
+  int err = 0;
+  if (C > 0)
+    err = run.scalar_chunks(lanes, (int)(((int64_t)C * lanes + 255) / 256), w,
+                            plan, C, part, out);
+  if (!err && M > 0) err = run.scalar_merge(blocks_for(M), plan, M, part, out);
+  return err;
+}
+
+// Host side: launches.
+
+struct StreamRun {
+  cudaStream_t s;
+  template <int G>
+  int chunks(int blocks, const float* w, const Plan& plan, int C,
+             float* part, float* out) {
+    csr_scalar_chunk_kernel<G><<<blocks, 256, 0, s>>>(w, plan, C, part, out);
+    return (int)cudaGetLastError();
+  }
+  int scalar_chunks(int lanes, int blocks, const float* w, const Plan& plan,
+                    int C, float* part, float* out) {
+    switch (lanes) {
+      case 4: return chunks<4>(blocks, w, plan, C, part, out);
+      case 16: return chunks<16>(blocks, w, plan, C, part, out);
+      case 32: return chunks<32>(blocks, w, plan, C, part, out);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  int scalar_merge(int blocks, const Plan& plan, int M, const float* part,
+                   float* out) {
+    csr_scalar_merge_kernel<<<blocks, 256, 0, s>>>(plan, M, part, out);
+    return (int)cudaGetLastError();
+  }
+};
 
 template <int V, Mode kMode>
 int launch_rows(const float* data, const float* w, const int* plan_buf,
@@ -299,13 +405,18 @@ int ag_csr_softmax_f32(const void* data, const void* logits, const void* plan,
                               m, den, F, vec, stream);
 }
 
-int ag_csr_scalar_sum_f32(const void* w, const void* row_ptr, void* out,
-                          int S, void* stream) {
-  if (S < 0) return (int)cudaErrorInvalidValue;
-  if (S == 0) return 0;
-  csr_scalar_sum_kernel<<<blocks_for(S), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const int*)row_ptr, (float*)out, S);
-  return (int)cudaGetLastError();
+// out [S] = the per-segment sums of w [E] over the plan (C chunks, M hubs,
+// `slots` partials), pass 1 in groups of `lanes` (4, 16 or 32) lanes;
+// scratch: `slots` floats.
+int ag_csr_scalar_sum_f32(const void* w, const void* plan, int C, int M,
+                          int slots, void* scratch, void* out, int lanes,
+                          void* stream) {
+  if (C < 0 || M < 0 || slots < 0 || (M > 0) != (slots > 0))
+    return (int)cudaErrorInvalidValue;
+  StreamRun run{(cudaStream_t)stream};
+  return scalar_sequence(run, (const float*)w,
+                         make_plan((const int*)plan, C, M), C, M,
+                         (float*)scratch, (float*)out, lanes);
 }
 
 }  // extern "C"

@@ -33,6 +33,10 @@ struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 inline float rsqrtf(float v) { return 1.0f / sqrtf(v); }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return {x, y, z, w};
@@ -77,6 +81,15 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
   emu->sx[w][l] = v;
   __syncwarp();
   const uint32_t r = emu->sx[w][src];
+  __syncwarp();
+  return r;
+}
+// lane l + delta's value, or l's own where that is past the warp
+inline float __shfl_down_sync(unsigned, float v, unsigned delta) {
+  const int w = emu_warp(), l = emu_lane();
+  emu->fx[w][l] = v;
+  __syncwarp();
+  const float r = l + delta < 32 ? emu->fx[w][l + delta] : v;
   __syncwarp();
   return r;
 }

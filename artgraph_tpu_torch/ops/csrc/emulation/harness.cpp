@@ -1,7 +1,8 @@
 // Runs the port's CUDA kernels on the host: the attention cores, the
-// conv + BN-statistics unit (conv_bn.cu) and the LayerNorm backward and
-// column sums (block_norm_bwd.cu), each of the last two in its own
-// namespace, with the second pass of sum_groups.cuh. The patched sources
+// conv + BN-statistics unit (conv_bn.cu), the LayerNorm backward and
+// column sums (block_norm_bwd.cu) and the CSR scalar sum (csr_segment.cu),
+// each of the last three in its own namespace, with the second pass of
+// sum_groups.cuh. The patched sources
 // are included here, and every block of a grid runs as one host thread per
 // CUDA thread, one block after another. Built and driven by
 // ops/attention_emulation.py.
@@ -27,6 +28,10 @@ namespace convbn {
 
 namespace norm {
 #include "block_norm_bwd.cu"
+}
+
+namespace csr {
+#include "csr_segment.cu"
 }
 
 thread_local std::vector<ptx::EmuCopy> ptx::emu_copies;
@@ -251,4 +256,44 @@ extern "C" int emu_colsum(const void* in, void* part, void* out, int rows,
   EmuRun run;
   return colsum_sequence(run, (const bf16*)in, (float*)part, (float*)out,
                          rows, cols, rows_per_chunk, chunks);
+}
+
+// csr_segment.cu's scalar sum, as ag_csr_scalar_sum_f32 launches it.
+namespace csr {
+
+struct EmuRun {
+  int scalar_chunks(int lanes, int blocks, const float* w, const Plan& plan,
+                    int C, float* part, float* out) {
+    const auto go = [&](auto kernel) {
+      run_grid({(unsigned)blocks, 1, 1}, {256, 1, 1}, kernel);
+      return 0;
+    };
+    switch (lanes) {
+      case 4: return go([&] { csr_scalar_chunk_kernel<4>(w, plan, C, part,
+                                                          out); });
+      case 16: return go([&] { csr_scalar_chunk_kernel<16>(w, plan, C, part,
+                                                            out); });
+      case 32: return go([&] { csr_scalar_chunk_kernel<32>(w, plan, C, part,
+                                                            out); });
+    }
+    return 1;
+  }
+  int scalar_merge(int blocks, const Plan& plan, int M, const float* part,
+                   float* out) {
+    run_grid({(unsigned)blocks, 1, 1}, {256, 1, 1},
+             [&] { csr_scalar_merge_kernel(plan, M, part, out); });
+    return 0;
+  }
+};
+
+}  // namespace csr
+
+extern "C" int emu_csr_scalar_sum(const void* w, const void* plan, int C,
+                                  int M, void* scratch, void* out,
+                                  int lanes) {
+  using namespace csr;
+  EmuRun run;
+  return scalar_sequence(run, (const float*)w,
+                         make_plan((const int*)plan, C, M), C, M,
+                         (float*)scratch, (float*)out, lanes);
 }

@@ -113,7 +113,15 @@ db by absolute error), bit-identical on repeat; fused_attention forward and
 backward also at N = 600 on 2 images x 2 heads against the twins, the same
 way; timed beside the twins and F.scaled_dot_product_attention (after
 F.linear for the qkv op; autograd of the same for the backwards)
-(attention_kernel_phases).
+(attention_kernel_phases). Then rows 9 and 3 alone by device time
+(scalar_normalize_phases): the CSR scalar sum over E = 1M edges into 32
+`style` hubs, 100K artworks and 18 `genre` hubs (f32 against the plain twin
+in f64 at rtol = 1e-4, atol = 1e-3, bit-identical on repeat; the artworks'
+CSR, which takes 4 lanes a chunk, also timed at 32), and the uint8
+normalize at [32, 224, 224, 3], each by the profiler's device time over
+inputs rotated past the L2, with the CUDA-event time, plain, library and
+bound beside (as norm_kernel_phases). Phase 9's profile prints the scalar
+sum's device time and launches a step.
 
  12. resnet serve  ResnetSingleTask(32) and NewMultiModalMultiTask(128, ...)
               at full ResNet50 size with seeded weights, saved as reference
@@ -928,6 +936,90 @@ def csr_kernel_phases() -> dict:
     return results
 
 
+def _csr_copy(csr, **changes):
+    """csr with its own copies of the metadata tensors (and `changes`)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        csr, row_ptr=csr.row_ptr.clone(), dst_sorted=csr.dst_sorted.clone(),
+        counts=csr.counts.clone(), plan=csr.plan.clone(), **changes)
+
+
+def scalar_normalize_phases() -> None:
+    """Phases 3 and 4 for rows 9 and 3 alone, by device time. Row 9, the
+    CSR scalar sum (csrc/csr_segment.cu), over E = 1M edges into the 32
+    `style` hubs ("hub"), the 100K artworks ("rev") and the 18 `genre` hubs
+    ("genre"), as in the hidden convs' backward: f32 against the plain twin
+    in f64 at CSR_RTOL, CSR_ATOL, bit-identical on repeat. Row 3, the uint8
+    normalize (csrc/normalize.cu) at [B, 224, 224, 3] with the ViT
+    statistics. Each timed by _time_line beside its plain version, a
+    library call the port never makes (segment_reduce; addcmul on a f32
+    copy) and its byte bound, the inputs (the edge array with its CSR, the
+    uint8 batch) rotated over copies larger than the L2. Where the port
+    picks 4 lanes a chunk (rev), the same CSR is also timed at 32, the
+    width it would have taken otherwise."""
+    from artgraph_tpu_torch import ops
+    from artgraph_tpu_torch.ops import csr_segment as T
+    from artgraph_tpu_torch.ops.preprocess import norm_coefficients
+
+    rng = np.random.default_rng(SEED + 92)
+    E = GNN_EDGES
+
+    def library(v, csr, lengths):
+        return torch.segment_reduce(v, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+
+    for label, S in (("hub", 32), ("rev", GNN_ARTWORKS), ("genre", 18)):
+        csr = T._csr_from_sorted(np.sort(rng.integers(0, S, E)), S, "cuda")
+        w = torch.from_numpy(rng.random(E).astype(np.float32)).cuda()
+        name = f"csr_scalar_segment_sum {label} S={S} [{E}]"
+        ours, again = (T.scalar_segment_sum_cuda(w, csr) for _ in range(2))
+        torch.cuda.synchronize()
+        if not torch.equal(ours, again):
+            raise AssertionError(f"{name} differs from call to call")
+        max_abs, ratio = _csr_err(ours, T.scalar_segment_sum_plain(
+            w.double(), csr))
+        print(f"check: {name} f32 vs plain in f64: max abs {max_abs:.4g}, "
+              f"worst err/(atol+rtol|ref|) {ratio:.4g}; bit-identical on "
+              f"repeat", flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} disagrees with its plain twin "
+                                 f"beyond rtol={CSR_RTOL}, atol={CSR_ATOL}")
+        # None: a port from before the lane groups (tools/compare_trees.py
+        # runs this phase on an older tree's port)
+        widths = [getattr(csr, "scalar_lanes", None)]
+        if widths[0] not in (None, 32):
+            widths.append(32)
+        for lanes in widths:
+            copies = _copies(4 * E + csr.plan.numel() * 4)
+            changes = {} if lanes == widths[0] else {"scalar_lanes": lanes}
+            sets = [(w.clone(), c, torch.diff(c.row_ptr).long()) for c in
+                    (_csr_copy(csr, **changes) for _ in range(copies))]
+            _time_line(f"{name}" + (f", {lanes} lanes a chunk" if lanes
+                                    else ""),
+                       _rotating(lambda v, c, _: T.scalar_segment_sum_cuda(
+                           v, c), sets),
+                       _rotating(lambda v, c, _: T.scalar_segment_sum_plain(
+                           v, c), sets),
+                       _rotating(library, sets), 4 * (E + 2 * S + 1), copies)
+            del sets
+        del csr, w
+
+    images = torch.from_numpy(rng.integers(0, 256, (B, 224, 224, 3),
+                                           dtype=np.uint8)).cuda()
+    alpha, beta = (torch.tensor(c, device="cuda")
+                   for c in norm_coefficients("vit"))
+    copies = _copies(images.numel())
+    sets = [(images.clone(),) for _ in range(copies)]
+    _time_line(f"normalize_images [{B}, 224, 224, 3] vit", _rotating(
+        lambda x: ops.normalize_images(x, "vit"), sets), _rotating(
+        lambda x: ops.normalize_images_plain(x, "vit"), sets), _rotating(
+        lambda x: torch.addcmul(beta, x.to(torch.float32), alpha), sets),
+        images.numel() * (1 + 4), copies)
+    del sets, images
+    torch.cuda.empty_cache()
+
+
 def _unit_inputs(M: int, K: int, N: int, rng) -> tuple:
     """x [M, K], a, b [K] bf16 (a BatchNorm's apply coefficients), w [N, K]
     f32, and the cotangents dy [M, N] bf16, ds1, ds2 [N] f32, on the card.
@@ -1361,12 +1453,13 @@ def _print_breakdown(label: str, fn, calls: int = 10) -> float:
 
 
 def _profile_steps(step, steps: int, step_ms: float,
-                   label: str = "train") -> None:
+                   label: str = "train") -> dict:
     """Device time by kernel over `steps` profiled steps, and the device idle
     share against the unprofiled step time. Busy time sums the device's
     kernels, memcpys and memsets, read by category from the profiler's
     chrome trace; the user-annotation spans on the device timeline are left
-    out and their time printed beside."""
+    out and their time printed beside. Returns {name: [ms per step,
+    launches in all]}."""
     work, spans = _device_work(step, steps)
     kernels = sorted(((ms, n // steps, name)
                       for name, (ms, n) in work.items()), reverse=True)
@@ -1374,7 +1467,7 @@ def _profile_steps(step, steps: int, step_ms: float,
     if busy <= 0:
         print(f"{label} profile: the profiler saw no device time; idle share "
               "not measured", flush=True)
-        return
+        return work
     dropped = ", ".join(f"{name} {ms:.3f} ms"
                         for name, (ms, _) in spans.items())
     print(f"{label} profile: device busy {busy:.3f} ms per step (kernels, "
@@ -1384,6 +1477,7 @@ def _profile_steps(step, steps: int, step_ms: float,
     for ms, calls, name in kernels[:20]:
         print(f"{label} profile:   {ms:8.3f} ms/step {100 * ms / busy:5.1f}% "
               f"{calls:4d} calls  {name[:110]}", flush=True)
+    return work
 
 
 def train_phase() -> dict:
@@ -1657,7 +1751,14 @@ def gnn_train_phase() -> dict:
           f"{float(np.median(times)):.3f} ms (median of 3), embeddings "
           f"{list(emb.shape)} finite", flush=True)
     model.train()
-    _profile_steps(step, PROFILED_STEPS, step_ms, label="gnn")
+    work = _profile_steps(step, PROFILED_STEPS, step_ms, label="gnn")
+    scalar = {n: v for n, v in work.items() if "csr_scalar" in n}
+    print(f"gnn profile: csr_scalar_segment_sum's kernels "
+          f"{sum(ms for ms, _ in scalar.values()):.4f} ms/step of device "
+          f"time, launches a step: "
+          + (", ".join(f"{n // PROFILED_STEPS} {name[:70]}"
+                       for name, (_, n) in scalar.items()) or "none"),
+          flush=True)
     del model, opt, x, edges, csr
     torch.cuda.empty_cache()
     return counts
@@ -2423,6 +2524,7 @@ def main() -> int:
         norm_kernel_phases()
         kernels = kernel_phases()
         kernels.update(csr_kernel_phases())
+        scalar_normalize_phases()
         kernels.update(conv_bn_kernel_phases())
         kernels.update(attention_kernel_phases())
         launches = serve_phase()

@@ -225,13 +225,52 @@ def emulate_plan(csr, data: np.ndarray, logits: np.ndarray):
     return out
 
 
+def strided_sum(x: np.ndarray, lanes: int) -> float:
+    """csr_segment.cu's strided_sum in f64: lane l of `lanes` adds
+    x[l + lanes k] for k = 0, 1, ... in order (the rounds of 8 loads pad
+    with zeros), then the shuffle tree: lane l += lane l + off for off =
+    lanes / 2 .. 1. Lane 0's sum."""
+    acc = np.zeros(lanes)
+    padded = np.zeros(-(-x.size // (8 * lanes)) * 8 * lanes)
+    padded[:x.size] = x
+    for row in padded.reshape(-1, lanes):
+        acc = acc + row
+    off = lanes // 2
+    while off:
+        acc[:lanes - off] = acc[:lanes - off] + acc[off:]
+        off //= 2
+    return acc[0]
+
+
+def emulate_scalar_plan(csr, w: np.ndarray) -> np.ndarray:
+    """The two passes of csr_segment.cu's scalar sum over the chunk plan,
+    in f64 numpy: a group of csr.scalar_lanes lanes per chunk, then one
+    warp per hub over its partials, each in strided_sum's order."""
+    plan, C, M = csr.plan.numpy(), csr.num_chunks, csr.num_merge
+    edge, seg, slot, merge_seg, merge_ptr = np.split(
+        plan, np.cumsum([C + 1, C, C, M]))
+    out, part = np.zeros(csr.num_segments), np.zeros(csr.num_slots)
+    for c in range(C):
+        dst, r = (out, seg[c]) if slot[c] < 0 else (part, slot[c])
+        dst[r] = strided_sum(w[edge[c]:edge[c + 1]], csr.scalar_lanes)
+    for i, s in enumerate(merge_seg):
+        out[s] = strided_sum(part[merge_ptr[i]:merge_ptr[i + 1]], 32)
+    return out
+
+
 @pytest.mark.parametrize("counts", [[0, 3, 256, 257, 0, 1000, 5],
-                                    [31000, 0, 7], [0, 0], []])
+                                    [31000, 0, 7], [0, 0], [],
+                                    [55556, 2, 0, 300], [3, 10, 0, 7, 40],
+                                    [90, 70, 0, 100]])
 def test_chunk_plan_reduces_like_the_plain_twins(counts):
-    """The plan the CUDA row kernels walk: chunks of at most CHUNK edges
+    """The plan the CUDA kernels walk: chunks of at most CHUNK edges
     that tile each segment's edges in order (one empty chunk per empty
     segment), partial slots exactly for the segments of several chunks. Its
-    two passes, emulated, give the plain twins' sums and softmax parts."""
+    two passes, emulated, give the plain twins' sums and softmax parts; the
+    scalar sum's order (lane-strided, a shuffle tree, then the hubs' slots
+    the same way) gives scalar_segment_sum_plain's sums in f64 and the JAX
+    package's csr_scalar_segment_sum (Pallas, interpret mode) within
+    check_against_jax's bounds."""
     counts = np.asarray(counts, np.int64)
     ids = np.repeat(np.arange(counts.size), counts)
     csr = T._csr_from_sorted(ids, counts.size, "cpu")
@@ -253,6 +292,20 @@ def test_chunk_plan_reduces_like_the_plain_twins(counts):
     plain = T.softmax_aggregate_plain(td, tl, csr)
     for got, want in zip((num, m, den), plain):
         np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=1e-12)
+
+    w = rng.normal(size=ids.size).astype(np.float32)
+    scalar = emulate_scalar_plan(csr, w.astype(np.float64))
+    np.testing.assert_allclose(
+        scalar, T.scalar_segment_sum_plain(torch.from_numpy(w).double(),
+                                           csr).numpy(),
+        rtol=1e-12, atol=1e-12)
+    if ids.size:
+        jcsr = J._csr_from_sorted(ids, counts.size)
+        atol = 1e-3 if counts.max() > T.CHUNK else 1e-4
+        np.testing.assert_allclose(
+            scalar, np.asarray(J.csr_scalar_segment_sum(jnp.asarray(w),
+                                                        jcsr)),
+            rtol=1e-4, atol=atol)
 
 
 def test_metadata_rejects_unsorted_or_out_of_range_ids():

@@ -251,6 +251,20 @@ def test_cuda_normalize_bit_exact(transform):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["resnet", "vit"])
+@pytest.mark.parametrize("shape", [(1, 5, 7, 3), (3, 17, 31, 3)])
+def test_cuda_normalize_bit_exact_with_a_tail(shape, transform):
+    """105 and 4743 elements: whole 4-byte loads, then a tail of 1 and 3
+    elements on the scalar path."""
+    _need_cuda()
+    x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(1)).cuda()
+    ours = normalize_images(x, transform)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, normalize_images_plain(x, transform))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
     _need_cuda()
     for mod in (attention, mlp, preprocess):
@@ -397,6 +411,31 @@ def test_cuda_csr_kernels_match_plain(F, monkeypatch):
         T.segment_sum_cuda(data.double(), csr)
     with pytest.raises(ValueError):         # metadata on another device
         T.segment_sum_cuda(data, csr_case(100, F, seed=F, device="cpu")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [18, 32, 100_000])
+def test_cuda_scalar_sum_at_the_benchmark_shapes(S, monkeypatch):
+    """The scalar sum over E = 1M edges into the `genre` hubs (S = 18,
+    ~55.6K edges each), the `style` hubs (32) and the artworks (100K, ~10
+    each: 4 lanes a chunk): within rtol = 1e-4, atol = 1e-3 of the f64
+    plain twin, bit-identical on repeat, one launch counted per call."""
+    _need_cuda()
+    monkeypatch.setattr(csr_segment, "LAUNCHES_SCALAR", 0)
+    rng = np.random.default_rng(S)
+    E = 1_000_000
+    csr = csr_segment._csr_from_sorted(np.sort(rng.integers(0, S, E)), S,
+                                       "cuda")
+    assert csr.scalar_lanes == (4 if S == 100_000 else 32)
+    w = torch.from_numpy(rng.random(E).astype(np.float32)).cuda()
+    ours = csr_segment.scalar_segment_sum_cuda(w, csr)
+    again = csr_segment.scalar_segment_sum_cuda(w, csr)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again)
+    torch.testing.assert_close(
+        ours.double(), csr_segment.scalar_segment_sum_plain(w.double(), csr),
+        rtol=1e-4, atol=1e-3)
+    assert csr_segment.LAUNCHES_SCALAR == 2
 
 
 @pytest.mark.cuda

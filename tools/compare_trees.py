@@ -2,6 +2,7 @@
 """Time the port's kernels and ViT-B/16 serving from one source tree.
 
     python3 tools/compare_trees.py <tree> [--phases]   # on a machine with a GPU
+    python3 tools/compare_trees.py <tree> --csr-normalize
 
 <tree> is the root of a checkout (this repo, or an older commit unpacked
 with `git archive` into a gitignored directory). The script imports the port
@@ -27,6 +28,14 @@ vit_unfused_serve_phase, vit_unfused_train_phase, attention_module_phase),
 with TF32 off and the checkpoints in a temporary directory, as its main()
 runs them.
 
+With --csr-normalize it runs only two phases of THIS checkout's
+chip_smoke.py against the tree's port (loaded by path, so the measuring
+code is the same for both trees): the device-time sub-phase of rows 9 and 3
+(scalar_normalize_phases: the CSR scalar sum at three E = 1M shapes, the
+uint8 normalize at [32, 224, 224, 3]) and phase 9 (gnn_train_phase, whose
+profile prints the scalar sum's device time a GNN step). They call only
+what every tree since the GNN slice has.
+
 It calls only functions that every tree since the first ResNet slice has
 (the block ops and their `*_cuda` backwards, `gemm_cuda`,
 `fused_qkv_attention_cuda` and its backward, `conv1x1_bn_stats_cuda` and
@@ -40,6 +49,7 @@ import shutil
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,10 +94,31 @@ PHASES = ("serve_phase", "train_phase", "resnet_train_phase",
           "attention_module_phase")
 
 
-def main(tree: str, phases: bool) -> int:
+def csr_normalize(tree: str) -> None:
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here",
+        Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from artgraph_tpu_torch import ops
+
+    print(f"{tree}: port from {ops.__file__}", flush=True)
+    for name in ("scalar_normalize_phases", "gnn_train_phase"):
+        print(f"{tree}: chip_smoke.{name} (this checkout's)", flush=True)
+        getattr(here, name)()
+
+
+def main(tree: str, phases: bool, csr_norm: bool = False) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("compare_trees: needs an NVIDIA GPU")
     sys.path.insert(0, tree)
+    if csr_norm:
+        csr_normalize(tree)
+        return 0
     checkpoints = tempfile.mkdtemp(prefix="compare_trees_ckpt_")
     # read by the port's config when it is first imported
     os.environ["ARTGRAPH_CHECKPOINTS_DIR"] = checkpoints
@@ -221,5 +252,5 @@ def kernels(tree: str) -> None:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    sys.exit(main(next((a for a in args if a != "--phases"), "."),
-                  "--phases" in args))
+    sys.exit(main(next((a for a in args if not a.startswith("--")), "."),
+                  "--phases" in args, "--csr-normalize" in args))
