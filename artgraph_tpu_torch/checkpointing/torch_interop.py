@@ -12,7 +12,8 @@ arrays, params and batch_stats) into that state_dict: Linear kernels
 [in, out] -> [out, in], convs HWIO -> OIHW, BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var. It is numpy-only and re-states
 artgraph_tpu.checkpointing.torch_interop.export_model_state for the eight
-models of `predict` (`vit_to_torch`, `resnet_to_torch`, the heads), which
+models of `predict` and the two projectors (`vit_to_torch`,
+`resnet_to_torch`, the heads, the projectors' bare `encoder` Linear), which
 the port cannot import (that package pulls in jax); the tests hold the two
 equal key for key. `gnn_state_from_flax` does the same for the GNN stage's
 `HeteroSGNN`, whose port keeps the flax names.
@@ -26,8 +27,7 @@ import torch
 from torch import nn
 
 from artgraph_tpu_torch.models import heads
-from artgraph_tpu_torch.models.heads import (RESNET_DIM, TIMM_HEAD_CLASSES,
-                                             VIT_DIM)
+from artgraph_tpu_torch.models.heads import RESNET_DIM, TIMM_HEAD_CLASSES
 
 # model name -> {flax head: torch prefix of its Sequential(Dropout, Linear)}
 _HEADS = {
@@ -43,9 +43,15 @@ _HEADS = {
     "NewMultiModalSingleTaskVit": {"classifier": "classifier"},
     "NewMultiModalMultiTaskViT": {"class_style": "class_style",
                                   "class_genre": "class_genre"},
+    # the projectors carry a bare Linear `encoder` instead
+    "LabelProjector": {},
+    "LabelProjectorVit": {},
 }
 MODEL_NAMES = tuple(_HEADS)
-RESNET_MODELS = MODEL_NAMES[:4]
+PROJECTORS = ("LabelProjector", "LabelProjectorVit")
+RESNET_MODELS = ("ResnetSingleTask", "ResnetMultiTask",
+                 "NewMultiModalSingleTask", "NewMultiModalMultiTask",
+                 "LabelProjector")
 
 # torchvision resnet50 child name -> its index in Sequential(*children[:-1])
 # (children: conv1, bn1, relu, maxpool, layer1..4, avgpool)
@@ -175,13 +181,17 @@ def state_dict_from_flax(model_name: str, variables: dict
     if model_name not in RESNET_MODELS + ("ViTSingleTask",):
         # timm's 1000-class head survives in the reference state_dicts of the
         # models that never call it
-        sd["vit.head.weight"] = np.zeros((TIMM_HEAD_CLASSES, VIT_DIM),
+        width = np.shape(params["vit"]["cls_token"])[-1]
+        sd["vit.head.weight"] = np.zeros((TIMM_HEAD_CLASSES, width),
                                          np.float32)
         sd["vit.head.bias"] = np.zeros((TIMM_HEAD_CLASSES,), np.float32)
     for flax_name, tprefix in _HEADS[model_name].items():
         lin = params[flax_name]["linear"]
         sd[f"{tprefix}.1.weight"] = _linear(lin["kernel"])
         sd[f"{tprefix}.1.bias"] = _f32(lin["bias"])
+    if model_name in PROJECTORS:
+        sd["encoder.weight"] = _linear(params["encoder"]["kernel"])
+        sd["encoder.bias"] = _f32(params["encoder"]["bias"])
     return sd
 
 
@@ -229,7 +239,8 @@ def gnn_state_from_flax(variables: dict) -> dict[str, np.ndarray]:
 def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
                 ) -> nn.Module:
     """The port's module for model_name, with class counts and embedding width
-    read from the head shapes in sd (parameters uninitialised, on `meta`)."""
+    read from the head (or encoder) shapes in sd (parameters uninitialised,
+    on `meta`)."""
     if model_name not in _HEADS:
         raise ValueError(f"unsupported model {model_name!r}; the port has "
                          f"{MODEL_NAMES}")
@@ -238,6 +249,9 @@ def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
     nc = lambda style, genre: {"style": shape[style][0],
                                "genre": shape[genre][0]}
     with torch.device("meta"):
+        if model_name in PROJECTORS:
+            emb_size = sd["encoder.weight"].shape[0]
+            return getattr(heads, model_name)(emb_size, dtype=dtype)
         if model_name == "ResnetSingleTask":
             return heads.ResnetSingleTask(shape["classifier"][0], dtype=dtype)
         if model_name == "ResnetMultiTask":
@@ -256,12 +270,13 @@ def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
         if model_name == "ViTMultiTask":
             return heads.ViTMultiTask(
                 nc("style_classifier", "genre_classifier"), dtype=dtype)
+        vit_dim = sd["vit.cls_token"].shape[-1]
         if model_name == "NewMultiModalSingleTaskVit":
             n, width = shape["classifier"]
-            return heads.NewMultiModalSingleTaskVit(width - VIT_DIM, n,
+            return heads.NewMultiModalSingleTaskVit(width - vit_dim, n,
                                                     dtype=dtype)
         return heads.NewMultiModalMultiTaskViT(
-            shape["class_style"][1] - VIT_DIM,
+            shape["class_style"][1] - vit_dim,
             nc("class_style", "class_genre"), dtype=dtype)
 
 

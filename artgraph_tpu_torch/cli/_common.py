@@ -1,7 +1,9 @@
 """Shared CLI plumbing of the port: the reference's base argparse surface,
-the --device, the single-task loss, checkpoints and the test evaluation.
+the --device, the single- and multi-task losses, checkpoints, the epoch
+loop and the test evaluation.
 
-Port of the part of artgraph_tpu/cli/_common.py that `train_baseline` needs.
+Port of the part of artgraph_tpu/cli/_common.py that the image, projector
+and fusion trainers need.
 Flag names, defaults, checkpoint naming, print formats and the results CSVs
 are the reference's. Added: `--device` (default `cuda`, as `predict`). The
 JAX CLIs' TPU extras (`--data_parallel`, `--resident_data`,
@@ -78,8 +80,7 @@ def single_task_loss(class_weights: Optional[np.ndarray],
                      device: str | torch.device = "cpu"):
     """compute_loss for a single-task head: weighted masked cross-entropy and
     the masked correct count; the class weights live on `device`."""
-    cw = None if class_weights is None else torch.as_tensor(
-        np.asarray(class_weights, np.float32)).to(device)
+    cw = _on_device(class_weights, device)
 
     def compute(outputs, batch):
         labels, mask = batch[-2], batch[-1]
@@ -87,6 +88,37 @@ def single_task_loss(class_weights: Optional[np.ndarray],
         return loss, accuracy_metrics(outputs, labels, mask)
 
     return compute
+
+
+def multi_task_loss(weights_style: Optional[np.ndarray],
+                    weights_genre: Optional[np.ndarray], w_style: float,
+                    w_genre: float, device: str | torch.device = "cpu"):
+    """w_style * CE_style + w_genre * CE_genre over outputs [style, genre]
+    and labels [B, 2] (0.5/0.5 in the fusion trainer, ref:
+    train_new_multimodal_multitask.py:79-81); metrics style_correct and
+    genre_correct."""
+    cw_s = _on_device(weights_style, device)
+    cw_g = _on_device(weights_genre, device)
+
+    def compute(outputs, batch):
+        labels, mask = batch[-2], batch[-1]
+        style_labels, genre_labels = labels[:, 0], labels[:, 1]
+        loss = (w_style * cross_entropy(outputs[0], style_labels, cw_s, mask)
+                + w_genre * cross_entropy(outputs[1], genre_labels, cw_g,
+                                          mask))
+        metrics = accuracy_metrics(outputs[0], style_labels, mask, "style_")
+        metrics.update(accuracy_metrics(outputs[1], genre_labels, mask,
+                                        "genre_"))
+        return loss, metrics
+
+    return compute
+
+
+def _on_device(class_weights: Optional[np.ndarray],
+               device: str | torch.device) -> Optional[torch.Tensor]:
+    if class_weights is None:
+        return None
+    return torch.as_tensor(np.asarray(class_weights, np.float32)).to(device)
 
 
 def save_checkpoint(model: torch.nn.Module, path: str) -> None:
@@ -101,14 +133,40 @@ def reload_state(trainer: Trainer, path: str) -> None:
     trainer.model.load_state_dict(sd, strict=True)
 
 
+def run_epoch_loop(args, train_fn, valid_fn) -> None:
+    """The reference epoch loop: all --epochs run, train_fn() then
+    valid_fn(); early stopping only selects the saved checkpoint (ref:
+    train_baseline.py:133-137). The JAX loop's other arguments (trainer,
+    state, loaders, early stopping, the epoch) serve its --resume and
+    --tracking branches, which the port does not have."""
+    for _ in range(args.epochs):
+        train_fn()
+        valid_fn()
+
+
 def evaluate_single_task(trainer: Trainer, loader, num_classes: int,
-                         results_dir: Optional[str] = None) -> float:
-    """Test-split accuracy; with results_dir also the reference CSVs."""
+                         results_dir: Optional[str] = None,
+                         output_index: Optional[int] = None,
+                         suffix: str = "") -> float:
+    """Test-split accuracy of one task; with results_dir also the reference
+    CSVs, `results{suffix}.csv` etc. For a multitask model, output_index
+    picks its task's logits and suffix ('_style' or '_genre') the column of
+    the [n, 2] labels."""
     _, collected = trainer.eval_epoch(loader, collect_outputs=True)
-    scores = np.concatenate([out for out, _ in collected])
-    # labels are the last non-mask batch component
-    y_true = np.concatenate([rest[-1] for _, rest in collected])
-    summary = summarize(y_true, scores, num_classes)
+    task_col = {"_style": 0, "_genre": 1}.get(suffix)
+    logits, labels = [], []
+    for out, rest in collected:
+        logits.append(out if output_index is None else out[output_index])
+        lab = rest[-1]   # labels are the last non-mask batch component
+        if lab.ndim == 2:
+            if task_col is None:
+                raise ValueError(
+                    f"multitask labels need suffix '_style' or '_genre' to "
+                    f"select a column (got suffix={suffix!r})")
+            lab = lab[:, task_col]
+        labels.append(lab)
+    summary = summarize(np.concatenate(labels), np.concatenate(logits),
+                        num_classes)
     if results_dir:
-        write_results(results_dir, summary)
+        write_results(results_dir, summary, suffix=suffix)
     return summary["accuracy"]

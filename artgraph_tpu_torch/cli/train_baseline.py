@@ -27,7 +27,7 @@ import torch
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
     evaluate_single_task, get_base_arguments, make_loaders, reload_state,
-    resolve_device, save_checkpoint, single_task_loss)
+    resolve_device, run_epoch_loop, save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
 from artgraph_tpu_torch.models import ResnetSingleTask, ViTSingleTask
 from artgraph_tpu_torch.train import EarlyStopping
@@ -70,15 +70,17 @@ def main(argv=None):
                                checkpoint_path=checkpoint_name,
                                save_fn=save_checkpoint)
 
-    # the reference epoch loop: all --epochs run; early stopping only selects
-    # the saved checkpoint (ref: train_baseline.py:133-137)
-    for _ in range(args.epochs):
+    def train():
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}; train accuracy: {m["correct"]}')
+
+    def valid():
         m = trainer.eval_epoch(loaders['valid'])
         early_stop(m['loss'], trainer.model)
         print(f'Validation loss: {m["loss"]}; '
               f'validation accuracy: {m["correct"]}')
+
+    run_epoch_loop(args, train, valid)
 
     # test(): the model from the best checkpoint
     # (ref: train_baseline.py:102-128)

@@ -4,8 +4,9 @@ A copy of the constants the port needs from artgraph_tpu/config.py (the
 reference's src/config.py paths plus the per-script literals), kept here so
 that nothing of the port imports the JAX package. The path constants take
 the same `ARTGRAPH_*` environment overrides, read when this module is first
-imported. The projections and results paths join when the stages that
-read them are ported.
+imported. The CLIs read the path constants when they run, not as default
+arguments bound at import, so a caller (or a test) may point them elsewhere
+by setting the module attributes.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ DATASET_DIR = os.environ.get("ARTGRAPH_DATASET_DIR", "../dataset")
 EMBEDDINGS_DIR = os.environ.get(
     "ARTGRAPH_EMBEDDINGS_DIR", os.path.join(DATASET_DIR, "train", "embeddings")
 )
+PROJECTIONS_DIR = os.environ.get("ARTGRAPH_PROJECTIONS_DIR", "../proj")
 CHECKPOINTS_DIR = os.environ.get("ARTGRAPH_CHECKPOINTS_DIR", "../checkpoints")
 
 # --- Task constants (ref: train_baseline.py:27-30 et al.).
@@ -39,3 +41,6 @@ NORM_STATS = {
 # Global seed of every reference trainer (ref: train_baseline.py:10
 # torch.manual_seed(1)).
 GLOBAL_SEED = 1
+
+# Projector split seed (ref: src/utils.py:215-221 random_state=11).
+PROJECTION_SPLIT_SEED = 11

@@ -1,13 +1,17 @@
 """Map-style image datasets over the ArtGraph manifests.
 
-Port of artgraph_tpu/data/datasets.py, the single-task part: `_ImageDataset`
-and `ArtGraphSingleTask` (ref: src/data/data.py:81-102). Items are (uint8
-NHWC image, int label); `get_batch` assembles a whole batch with one label
-gather. Normalization runs on the device (ops/preprocess.py).
+Port of artgraph_tpu/data/datasets.py without the multitask image-only and
+ContextNet datasets: `_ImageDataset`, `ArtGraphSingleTask` (ref:
+src/data/data.py:81-102), the fusion and projector datasets of the pipeline
+(ref: src/data/data_kg.py:82-180) and `Subset`. Items are (uint8 NHWC image,
+..., label(s)); `get_batch` assembles a whole batch with one gather per
+component, the same arrays as the JAX package's. Normalization runs on the
+device (ops/preprocess.py).
 """
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
 import numpy as np
 import pandas as pd
@@ -61,3 +65,113 @@ class ArtGraphSingleTask(_ImageDataset):
     def get_batch(self, indices):
         idx = np.asarray(indices, dtype=np.int64)
         return self._images_batch(idx), self._col_i32(1)[idx]
+
+
+class MultiModalArtgraphSingleTask(_ImageDataset):
+    """(image, embedding, label) items with three embedding-indexing modes
+    (ref: src/data/data_kg.py:82-108):
+
+      * type=='train' and emb_type=='artwork'  -> embeddings[row idx]
+      * type=='train' and emb_type!='artwork'  -> embeddings[label id]
+      * type!='train' (valid/test, projected)  -> embeddings[row idx]
+    """
+
+    def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
+                 embeddings: np.ndarray, type: str = "train",
+                 emb_type: str = "artwork", transform_type: str = "resnet"):
+        if "image" not in df_image_label.columns:
+            raise ValueError("the manifest needs an 'image' column")
+        super().__init__(image_dir, df_image_label, transform_type)
+        self.embeddings = np.asarray(embeddings, dtype=np.float32)
+        self.by_label = type == "train" and emb_type != "artwork"
+
+    def __getitem__(self, idx: int):
+        label_id = int(self.dataset.iloc[idx, 1])
+        row = label_id if self.by_label else idx
+        return self._image(idx), self.embeddings[row], label_id
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        labels = self._col_i32(1)[idx]
+        emb = self.embeddings[labels if self.by_label else idx]
+        return self._images_batch(idx), emb, labels
+
+
+class LabelProjectionDataset(_ImageDataset):
+    """(image, embedding) regression pairs for the projector
+    (ref: src/data/data_kg.py:110-129). df columns ['image', 'style',
+    'genre']; emb_type=='artwork' indexes by row, otherwise by the label in
+    column 1."""
+
+    def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
+                 embeddings: np.ndarray, emb_type: str,
+                 transform_type: str = "resnet"):
+        super().__init__(image_dir, df_image_label, transform_type)
+        self.embeddings = np.asarray(embeddings, dtype=np.float32)
+        self.by_label = emb_type != "artwork"
+
+    def __getitem__(self, idx: int):
+        row = int(self.dataset.iloc[idx, 1]) if self.by_label else idx
+        return self._image(idx), self.embeddings[row]
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        rows = self._col_i32(1)[idx] if self.by_label else idx
+        return self._images_batch(idx), self.embeddings[rows]
+
+
+class NewMultiModalArtgraphMultiTask(_ImageDataset):
+    """(image, emb_style, emb_genre, [style, genre]) items
+    (ref: src/data/data_kg.py:131-180). Training feeds the TRUE KG
+    embeddings (by row for emb_type=='artwork', else by each task's label
+    id); valid/test feed the PROJECTED ones by row."""
+
+    def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
+                 embedding_style: np.ndarray, embedding_genre: np.ndarray,
+                 type: str = "train", emb_type: str = "artwork",
+                 transform_type: str = "resnet"):
+        if not {"image", "style", "genre"} <= set(df_image_label.columns):
+            raise ValueError("the manifest needs 'image', 'style' and "
+                             "'genre' columns")
+        super().__init__(image_dir, df_image_label, transform_type)
+        self.embedding_style = np.asarray(embedding_style, dtype=np.float32)
+        self.embedding_genre = np.asarray(embedding_genre, dtype=np.float32)
+        self.by_label = type == "train" and emb_type != "artwork"
+
+    def __getitem__(self, idx: int):
+        style_id = int(self.dataset.iloc[idx, 1])
+        genre_id = int(self.dataset.iloc[idx, 2])
+        rows = (style_id, genre_id) if self.by_label else (idx, idx)
+        return (self._image(idx), self.embedding_style[rows[0]],
+                self.embedding_genre[rows[1]], [style_id, genre_id])
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        styles, genres = self._col_i32(1)[idx], self._col_i32(2)[idx]
+        rows = (styles, genres) if self.by_label else (idx, idx)
+        return (self._images_batch(idx), self.embedding_style[rows[0]],
+                self.embedding_genre[rows[1]],
+                np.stack((styles, genres), axis=1))
+
+
+class Subset:
+    """Index-remapped view over a dataset (torch.utils.data.Subset analog,
+    used by the seeded projector split, ref: src/utils.py:215-221); nests."""
+
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[int(self.indices[idx])]
+
+    def get_batch(self, indices):
+        return self.dataset.get_batch(
+            self.indices[np.asarray(indices, dtype=np.int64)])
+
+    @property
+    def transform_type(self) -> str:
+        return self.dataset.transform_type

@@ -1,7 +1,9 @@
-"""The port's models: the ViT-B/16 and ResNet50 trunks and the eight
-classifier and fusion models of `predict`; the hetero-GNN of the
-KG-embedding stage is `models.gnn`, imported by name."""
-from artgraph_tpu_torch.models.heads import (NewMultiModalMultiTask,
+"""The port's models: the ViT-B/16 and ResNet50 trunks, the eight
+classifier and fusion models of `predict` and the two projectors; the
+hetero-GNN of the KG-embedding stage is `models.gnn`, imported by name."""
+from artgraph_tpu_torch.models.heads import (LabelProjector,
+                                             LabelProjectorVit,
+                                             NewMultiModalMultiTask,
                                              NewMultiModalMultiTaskViT,
                                              NewMultiModalSingleTask,
                                              NewMultiModalSingleTaskVit,
@@ -14,4 +16,4 @@ __all__ = ["ViT", "ResNet50", "MixedBatchNorm", "ViTSingleTask",
            "ViTMultiTask", "NewMultiModalSingleTaskVit",
            "NewMultiModalMultiTaskViT", "ResnetSingleTask", "ResnetMultiTask",
            "NewMultiModalSingleTask", "NewMultiModalMultiTask",
-           "init_random_"]
+           "LabelProjector", "LabelProjectorVit", "init_random_"]

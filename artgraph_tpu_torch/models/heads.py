@@ -1,9 +1,10 @@
-"""The eight ViT and ResNet50 classifier and fusion models of `predict`,
-with the reference's keys.
+"""The eight ViT and ResNet50 classifier and fusion models of `predict` and
+the two visual -> KG-embedding projectors, with the reference's keys.
 
 Port of artgraph_tpu/models/heads.py (ResnetSingleTask, ResnetMultiTask,
 ViTSingleTask, ViTMultiTask, NewMultiModalSingleTask, NewMultiModalMultiTask,
-NewMultiModalSingleTaskVit, NewMultiModalMultiTaskViT). Module nesting
+NewMultiModalSingleTaskVit, NewMultiModalMultiTaskViT, LabelProjector,
+LabelProjectorVit). Module nesting
 reproduces the reference state_dict exactly (artgraph_tpu/checkpointing/
 torch_interop.py `_MODEL_SPECS`):
 
@@ -14,7 +15,11 @@ torch_interop.py `_MODEL_SPECS`):
   * ViTSingleTask replaces timm's `vit.head` with Sequential(Dropout, Linear),
     so its classifier keys are `vit.head.1.*`;
   * the other three ViT models keep timm's unused 1000-class `vit.head` and
-    carry their own Sequential(Dropout, Linear) heads.
+    carry their own Sequential(Dropout, Linear) heads;
+  * the projectors are the trunk (ResNet as `resnet`, ViT as `vit` with
+    timm's unused head) and a bare Linear `encoder` onto the embedding
+    width, computed in f32 on the f32 feature (the JAX package's Dense with
+    dtype f32).
 
 The heads' Dropout is active in train(). Logits are f32: the heads run in
 f32 on the f32 feature (ResNet's pooled 2048-d one, ViT's CLS token), and
@@ -28,7 +33,6 @@ from torch import nn
 from artgraph_tpu_torch.models.resnet import ResNet50
 from artgraph_tpu_torch.models.vit import ViT
 
-VIT_DIM = 768
 RESNET_DIM = 2048
 TIMM_HEAD_CLASSES = 1000
 
@@ -39,7 +43,8 @@ def _head(in_dim: int, num_out: int, dropout: float) -> nn.Sequential:
 
 def _vit_with_timm_head(dtype: torch.dtype) -> ViT:
     vit = ViT(dtype=dtype)
-    vit.head = nn.Linear(VIT_DIM, TIMM_HEAD_CLASSES)  # present, never called
+    # present, never called
+    vit.head = nn.Linear(vit.embed_dim, TIMM_HEAD_CLASSES)
     return vit
 
 
@@ -117,8 +122,9 @@ class ViTMultiTask(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.vit = _vit_with_timm_head(dtype)
-        self.style_classifier = _head(VIT_DIM, num_classes["style"], dropout)
-        self.genre_classifier = _head(VIT_DIM, num_classes["genre"], dropout)
+        dim = self.vit.embed_dim
+        self.style_classifier = _head(dim, num_classes["style"], dropout)
+        self.genre_classifier = _head(dim, num_classes["genre"], dropout)
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         feat = self.vit(img)
@@ -130,7 +136,8 @@ class NewMultiModalSingleTaskVit(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.vit = _vit_with_timm_head(dtype)
-        self.classifier = _head(VIT_DIM + emb_size, num_class, dropout)
+        self.classifier = _head(self.vit.embed_dim + emb_size, num_class,
+                                dropout)
 
     def forward(self, img: torch.Tensor,
                 embedding: torch.Tensor) -> torch.Tensor:
@@ -142,13 +149,32 @@ class NewMultiModalMultiTaskViT(nn.Module):
                  dropout: float = 0.4, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.vit = _vit_with_timm_head(dtype)
-        self.class_style = _head(VIT_DIM + emb_size, num_classes["style"],
-                                 dropout)
-        self.class_genre = _head(VIT_DIM + emb_size, num_classes["genre"],
-                                 dropout)
+        dim = self.vit.embed_dim + emb_size
+        self.class_style = _head(dim, num_classes["style"], dropout)
+        self.class_genre = _head(dim, num_classes["genre"], dropout)
 
     def forward(self, img: torch.Tensor, embedding_style: torch.Tensor,
                 embedding_genre: torch.Tensor) -> list[torch.Tensor]:
         feat = self.vit(img)
         return [self.class_style(_cat_f32(feat, embedding_style)),
                 self.class_genre(_cat_f32(feat, embedding_genre))]
+
+
+class LabelProjector(nn.Module):
+    def __init__(self, emb_size: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        self.encoder = nn.Linear(RESNET_DIM, emb_size)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        return self.encoder(self.resnet(img).to(torch.float32))
+
+
+class LabelProjectorVit(nn.Module):
+    def __init__(self, emb_size: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.vit = _vit_with_timm_head(dtype)
+        self.encoder = nn.Linear(self.vit.embed_dim, emb_size)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        return self.encoder(self.vit(img).to(torch.float32))

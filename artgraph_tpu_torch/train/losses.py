@@ -1,7 +1,8 @@
 """Cross-entropy and NLL with torch-criterion semantics over masked batches.
 
-Port of artgraph_tpu/train/losses.py:cross_entropy and nll_loss (without the
-data-mesh psum scope, and nll_loss without the mask no caller passes).
+Port of artgraph_tpu/train/losses.py:cross_entropy, nll_loss and smooth_l1
+(without the data-mesh psum scope, and nll_loss without the mask no caller
+passes).
 torch.nn.CrossEntropyLoss with class weights divides by the SUM OF SAMPLE
 WEIGHTS, not the batch size; padded rows of the static-shape final batch
 carry mask 0 and drop out of both sums. The softmax runs in f32 (f64 inputs
@@ -37,3 +38,20 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     log_probs = log_probs.to(torch.promote_types(log_probs.dtype,
                                                  torch.float32))
     return -log_probs.gather(-1, labels.long()[:, None]).mean()
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              mask: Optional[torch.Tensor] = None,
+              beta: float = 1.0) -> torch.Tensor:
+    """torch.nn.SmoothL1Loss (Huber with `beta`, the mean over elements) in
+    f32 (f64 inputs stay f64); with mask [B] the mean over the valid rows'
+    elements."""
+    dt = torch.promote_types(pred.dtype, torch.float32)
+    diff = (pred.to(dt) - target.to(dt)).abs()
+    per_elem = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                           diff - 0.5 * beta)
+    if mask is None:
+        return per_elem.mean()
+    w = mask.to(dt).reshape((-1,) + (1,) * (per_elem.dim() - 1)) \
+        .expand_as(per_elem)
+    return (per_elem * w).sum() / w.sum().clamp_min(1e-12)

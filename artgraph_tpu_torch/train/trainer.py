@@ -1,15 +1,18 @@
 """Single-device trainer for the image models.
 
 Port of artgraph_tpu/train/trainer.py (`Trainer`, `accuracy_metrics`, `adam`,
-`sgd_momentum`) without its mesh, resident-data and epoch-scan branches, for
-image-only models (the model takes the normalized images). The loss is a
-function, as in the JAX trainer:
+`sgd_momentum`) without its mesh, resident-data and epoch-scan branches. The
+model's arguments and the loss are functions, as in the JAX trainer:
 
+  forward_inputs(images, batch) -> the model's positional arguments
   compute_loss(outputs, batch) -> (scalar loss, metrics dict)
 
-Each step: the host batch (uint8 NHWC images, labels, f32 mask) moves to the
-device, the normalize kernel runs (ops/preprocess.py), then the model, the
-loss, `backward()` (the kernels' backward on cuda) and the optimizer step.
+where `images` are the normalized images and `batch` the device batch (the
+default passes the images alone; the fusion trainers add the embeddings).
+Each step: the host batch (uint8 NHWC images, any f32 embeddings, labels,
+f32 mask) moves to the device, the normalize kernel runs
+(ops/preprocess.py), then the model, the loss, `backward()` (the kernels'
+backward on cuda) and the optimizer step.
 A ragged batch (the host's mask has padded rows) runs under
 `bn_batch_mask`, so the BatchNorm statistics of a model that has them cover
 its valid rows only, as the reference's smaller unpadded final batch does; a
@@ -41,11 +44,18 @@ Batch = Tuple[np.ndarray, ...]
 
 
 def accuracy_metrics(logits: torch.Tensor, labels: torch.Tensor,
-                     mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Masked correct-prediction count (the reference's accuracy numerator)."""
+                     mask: torch.Tensor, prefix: str = ""
+                     ) -> Dict[str, torch.Tensor]:
+    """Masked correct-prediction count (the reference's accuracy
+    numerator), keyed `{prefix}correct`."""
     correct = ((logits.argmax(-1) == labels).to(torch.float32)
                * mask.to(torch.float32)).sum()
-    return {"correct": correct}
+    return {f"{prefix}correct": correct}
+
+
+def image_only(images: torch.Tensor, batch) -> tuple:
+    """The default forward_inputs: the model takes the images alone."""
+    return (images,)
 
 
 class Trainer:
@@ -55,7 +65,8 @@ class Trainer:
                  compute_loss: Callable,
                  transform_type: str = "resnet",
                  device: str | torch.device = "cuda",
-                 seed: int = config.GLOBAL_SEED):
+                 seed: int = config.GLOBAL_SEED,
+                 forward_inputs: Callable = image_only):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -68,6 +79,7 @@ class Trainer:
         self.model = model.to(self.device)
         self.optimizer = optimizer(self.model.parameters())
         self.compute_loss = compute_loss
+        self.forward_inputs = forward_inputs
         self.transform_type = transform_type
         self.host_step = 0
 
@@ -76,7 +88,8 @@ class Trainer:
                      for b in batch)
 
     def _outputs(self, batch: Tuple[torch.Tensor, ...]):
-        return self.model(normalize_images(batch[0], self.transform_type))
+        images = normalize_images(batch[0], self.transform_type)
+        return self.model(*self.forward_inputs(images, batch))
 
     def train_step(self, batch: Tuple[torch.Tensor, ...],
                    ragged: bool = False):
@@ -135,7 +148,8 @@ class Trainer:
                    collect_outputs: bool = False):
         """Mean loss and metrics over the valid rows; with collect_outputs
         also [(outputs, non-image batch components)] per batch, cut to the
-        valid rows, as numpy."""
+        valid rows, as numpy (a list of outputs, as the multitask models
+        return, element by element)."""
         self.model.eval()
         totals: Dict[str, torch.Tensor] = {}
         examples = 0.0
@@ -149,9 +163,11 @@ class Trainer:
             examples += n
             if collect_outputs:
                 valid = int(n)
-                collected.append((outputs[:valid].cpu().numpy(),
-                                  tuple(np.asarray(b)[:valid]
-                                        for b in batch[1:-1])))
+                trim = lambda o: o[:valid].cpu().numpy()
+                collected.append((
+                    [trim(o) for o in outputs]
+                    if isinstance(outputs, (list, tuple)) else trim(outputs),
+                    tuple(np.asarray(b)[:valid] for b in batch[1:-1])))
         out = self._read(totals, examples)
         return (out, collected) if collect_outputs else out
 

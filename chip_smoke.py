@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's ViT-B/16 serving and training paths, its
 KG-embedding stage (the hetero-GAT of train_gnn_embeddings), its ResNet50
-serving and training paths, and the unfused ViT-B/16 trunk
-(ViT(fuse_qkv=False)) and the standalone Attention module once on one
-NVIDIA GPU.
+serving and training paths, the unfused ViT-B/16 trunk (ViT(fuse_qkv=False))
+and the standalone Attention module, the training of the fusion model
+NewMultiModalMultiTaskViT, and the four pipeline stages through their CLIs
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It imports nothing of JAX or of the JAX package; PIL only in the ViT and
-ResNet CLI phases (data decode), pandas there and with the KG container of
-the GNN phases. Phases, each printing its lines; any failure raises and exits
+It imports nothing of JAX or of the JAX package; PIL only in the CLI phases
+(data decode), pandas there and with the KG container of the GNN phases. Phases, each printing its lines; any failure raises and exits
 non-zero:
 
   1. device   the card (nvidia-smi name and power limit), torch/CUDA versions;
@@ -173,6 +173,34 @@ sum's device time and launches a step.
               gradients against the f32 plain path on the CPU at relative L2
               <= TRAIN_GRAD_REL_L2 (the K third of db_qkv by absolute error);
               ms per call.
+ 19. multimodal train  the reference's best model,
+              NewMultiModalMultiTaskViT(128, {style: 32, genre: 18}) at full
+              ViT-B/16 width, seeded random weights, dropout 0.4, adam(3e-4),
+              multi_task_loss(None, None, 0.5, 0.5), batch 32 of uint8 images
+              and two f32 [32, 128] embeddings, through the Trainer with
+              forward_inputs (images, emb_style, emb_genre): as phase 6, 2
+              warm-up and 8 timed steps (12 forward and 12 backward launches
+              of each block kernel a step, 1 normalize), losses finite and
+              falling, img/s, peak memory, 2 profiled steps, and img/s and
+              device ms a step beside phase 6's; then one step on 4 images at
+              dropout 0 against the f32 plain path on the CPU: the loss, both
+              heads' logits and gradients and the trunk gradient at relative
+              L2 <= TRAIN_GRAD_REL_L2, each block's K third of db_qkv by
+              absolute error.
+ 20. pipeline cli  the four stages through the CLIs with --device cuda at
+              full model width, on a synthetic image tree
+              (tests/_make_synth.py) and a KG written here:
+              train_gnn_embeddings; train_projector (ResNet50,
+              ARTGRAPH_CONVBN=1: the unit's launches on the full batches
+              only) and train_projector --architecture vit into a directory
+              of its own; generate_projections (files [N, 128], row-aligned,
+              within E2E_REL_L2 of a direct forward of the reloaded
+              projector on the card); train_new_multimodal_multitask
+              --architecture vit on the train table tiled to the image rows
+              and the projections (results_style.csv, results_genre.csv);
+              train_new_multimodal (ResNet50, gate open) on the same files.
+              Each stage's lines, its launches of every kernel, and its
+              checkpoint reloaded strict through load_reference_checkpoint.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1480,8 +1508,60 @@ def _profile_steps(step, steps: int, step_ms: float,
     return work
 
 
-def train_phase() -> dict:
-    """Phase 6: ViT-B/16 training steps through the Trainer on cuda."""
+VIT_STEP_LAUNCHES = {"fused_block_attention": 12, "fused_block_mlp": 12,
+                     "fused_block_attention_bwd": 12,
+                     "fused_block_mlp_bwd": 12, "normalize_images": 1}
+
+
+def _vit_train_run(label: str, trainer, batch, per_step: dict
+                   ) -> tuple[dict, float, float | None]:
+    """TRAIN_WARMUP + TRAIN_STEPS steps of a ViT-B/16 model on one host
+    batch through the Trainer on cuda, the counters zeroed just before the
+    timed steps: `per_step` launches a step of each kernel it names, every
+    other kernel 0; losses finite and falling; then PROFILED_STEPS profiled
+    steps. Returns (the launches of per_step's kernels, img/s, device busy
+    ms a step or None)."""
+    trainer.model.train()
+
+    def step():
+        return trainer.train_step(trainer.to_device(batch))[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _all_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update({k: n * TRAIN_STEPS for k, n in per_step.items()})
+    if counts != expect:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{expect}")
+    counts = {k: counts[k] for k in per_step}
+    losses = torch.stack(losses).tolist()
+    img_s = TRAIN_STEPS * B / seconds
+    step_ms = 1e3 * seconds / TRAIN_STEPS
+    print(f"{label} bf16, adam(3e-4), dropout 0.4, batch {B} on cuda: "
+          f"{TRAIN_STEPS} steps in {seconds:.3f} s, {img_s:.1f} img/s, "
+          f"{step_ms:.2f} ms/step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated); launches {counts} (every other kernel "
+          f"0); losses {[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses not finite and falling: "
+                             f"{losses}")
+    work = _profile_steps(step, PROFILED_STEPS, step_ms,
+                          label=label.split(":")[0])
+    busy = sum(ms for ms, _ in work.values())
+    return counts, img_s, busy if busy > 0 else None
+
+
+def train_phase() -> tuple[dict, dict]:
+    """Phase 6: ViT-B/16 training steps through the Trainer on cuda;
+    (launches, {"img_s", "busy_ms"}) for phase 19's comparison."""
     from artgraph_tpu_torch.cli._common import single_task_loss
     from artgraph_tpu_torch.models import ViTSingleTask, init_random_
     from artgraph_tpu_torch.train import Trainer, adam
@@ -1494,37 +1574,12 @@ def train_phase() -> dict:
     batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
              rng.integers(0, 32, B).astype(np.int32),
              np.ones(B, np.float32))
-    trainer.model.train()
-
-    def step():
-        return trainer.train_step(trainer.to_device(batch))[0]
-
-    losses = [step() for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    losses += [step() for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _read_counts()
-    expect = {k: 12 * TRAIN_STEPS for k in counts}
-    expect["normalize_images"] = TRAIN_STEPS
-    if counts != expect:
-        raise AssertionError(f"train: launch counts {counts}, expected "
-                             f"{expect}")
-    losses = torch.stack(losses).tolist()
-    print(f"train: ViTSingleTask(32) ViT-B/16 bf16, adam(3e-4), dropout 0.4, "
-          f"batch {B} on cuda: {TRAIN_STEPS} steps in {seconds:.3f} s, "
-          f"{TRAIN_STEPS * B / seconds:.1f} img/s, "
-          f"{1e3 * seconds / TRAIN_STEPS:.2f} ms/step; launches {counts}; "
-          f"losses {[round(v, 4) for v in losses]}", flush=True)
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"train: losses not finite and falling: "
-                             f"{losses}")
-    _profile_steps(step, PROFILED_STEPS, 1e3 * seconds / TRAIN_STEPS)
+    counts, img_s, busy = _vit_train_run(
+        "train: ViTSingleTask(32) ViT-B/16", trainer, batch,
+        VIT_STEP_LAUNCHES)
     del trainer, model
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"img_s": img_s, "busy_ms": busy}
 
 
 def grad_phase(unfused: bool = False) -> None:
@@ -1576,15 +1631,21 @@ def grad_phase(unfused: bool = False) -> None:
         raise AssertionError(f"{label}: rel L2 {rel} > {TRAIN_GRAD_REL_L2}")
 
 
+def _load_synth():
+    """tests/_make_synth.py, loaded by path (tests/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        "_make_synth", REPO / "tests" / "_make_synth.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    return synth
+
+
 def cli_phase(checkpoints_dir: Path) -> None:
     """Phase 8: cli.train_baseline --architecture vit on cuda."""
     from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
     from artgraph_tpu_torch.cli import train_baseline
 
-    spec = importlib.util.spec_from_file_location(
-        "_make_synth", REPO / "tests" / "_make_synth.py")
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
+    synth = _load_synth()
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         counts = synth.make_image_tree(root)
@@ -2264,10 +2325,7 @@ def resnet_cli_phase(checkpoints_dir: Path) -> None:
     from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
     from artgraph_tpu_torch.cli import train_baseline
 
-    spec = importlib.util.spec_from_file_location(
-        "_make_synth", REPO / "tests" / "_make_synth.py")
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
+    synth = _load_synth()
     batch = 10
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -2400,42 +2458,14 @@ def vit_unfused_train_phase() -> dict:
     batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
              rng.integers(0, 32, B).astype(np.int32),
              np.ones(B, np.float32))
-    trainer.model.train()
-
-    def step():
-        return trainer.train_step(trainer.to_device(batch))[0]
-
-    losses = [step() for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    losses += [step() for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _all_counts()
-    expect = dict.fromkeys(counts, 0)
-    expect.update(fused_attention=12 * TRAIN_STEPS,
-                  fused_attention_bwd=12 * TRAIN_STEPS,
-                  normalize_images=TRAIN_STEPS)
-    if counts != expect:
-        raise AssertionError(f"vit unfused train: launch counts {counts}, "
-                             f"expected {expect}")
-    losses = torch.stack(losses).tolist()
-    print(f"vit unfused train: ViTSingleTask(32) with ViT(fuse_qkv=False), "
-          f"bf16, adam(3e-4), dropout 0.4, batch {B} on cuda: {TRAIN_STEPS} "
-          f"steps in {seconds:.3f} s, {TRAIN_STEPS * B / seconds:.1f} img/s, "
-          f"{1e3 * seconds / TRAIN_STEPS:.2f} ms/step; launches "
-          f"{ {k: n for k, n in counts.items() if n} } (every other kernel "
-          f"0); losses {[round(v, 4) for v in losses]}", flush=True)
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"vit unfused train: losses not finite and "
-                             f"falling: {losses}")
-    _profile_steps(step, PROFILED_STEPS, 1e3 * seconds / TRAIN_STEPS,
-                   label="vit unfused train")
+    counts, _, _ = _vit_train_run(
+        "vit unfused train: ViTSingleTask(32) with ViT(fuse_qkv=False),",
+        trainer, batch, {"fused_attention": 12, "fused_attention_bwd": 12,
+                         "normalize_images": 1})
     del trainer, model
     torch.cuda.empty_cache()
     grad_phase(unfused=True)
-    return {k: counts[k] for k in (*_mha_counters(), "normalize_images")}
+    return counts
 
 
 def attention_module_phase() -> dict:
@@ -2510,6 +2540,356 @@ def attention_module_phase() -> dict:
     return {k: counts[k] for k in _mha_counters()}
 
 
+def _fusion_batch(rng, n: int) -> tuple:
+    """A host batch of the fusion trainer: (uint8 images, f32 style and genre
+    embeddings, labels [n, 2], mask), from rng."""
+    from artgraph_tpu_torch import config
+
+    return (rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+            rng.normal(size=(n, config.EMB_SIZE)).astype(np.float32),
+            rng.normal(size=(n, config.EMB_SIZE)).astype(np.float32),
+            np.stack([rng.integers(0, config.NUM_CLASSES["style"], n),
+                      rng.integers(0, config.NUM_CLASSES["genre"], n)], 1)
+            .astype(np.int32),
+            np.ones(n, np.float32))
+
+
+def _fusion_grad_check(src) -> None:
+    """Phase 19's gradient check: one step of src's weights on 4 images at
+    dropout 0, bf16 kernels on cuda against the f32 plain path on the CPU:
+    the loss, both heads' logits, each head's gradient and the trunk
+    gradient at relative L2 <= TRAIN_GRAD_REL_L2; each block's K third of
+    db_qkv (zero in exact arithmetic) by absolute error (_k_third)."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.models import NewMultiModalMultiTaskViT
+    from artgraph_tpu_torch.ops import normalize_images
+
+    batch = _fusion_batch(np.random.default_rng(SEED + 91), 4)
+    runs = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = NewMultiModalMultiTaskViT(config.EMB_SIZE,
+                                          config.NUM_CLASSES, dropout=0.0,
+                                          dtype=dtype)
+        model.load_state_dict(src.state_dict())
+        model = model.to(device).train()
+        img, emb_s, emb_g, labels, mask = (torch.from_numpy(b).to(device)
+                                           for b in batch)
+        logits = model(normalize_images(img, "vit"), emb_s, emb_g)
+        loss, _ = multi_task_loss(None, None, 0.5, 0.5)(
+            logits, (img, emb_s, emb_g, labels, mask))
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if not n.startswith("vit.head.")}
+        if any(g is None or not torch.isfinite(g).all()
+               for g in grads.values()):
+            raise AssertionError(f"multimodal grads: a parameter on {device} "
+                                 f"has no finite gradient")
+        runs[device] = {
+            "loss": loss.detach().reshape(1),
+            "style logits": logits[0].detach(),
+            "genre logits": logits[1].detach(),
+            **{n: g for n, g in grads.items()}}
+    f64 = {d: {k: v.to("cpu", torch.float64) for k, v in r.items()}
+           for d, r in runs.items()}
+    ours, ref = f64["cuda"], f64["cpu"]
+    k_worst = 0.0
+    for name in [n for n in ref if n.endswith("attn.qkv.bias")]:
+        k_err, ours[name], ref[name] = _k_third(f"multimodal {name}",
+                                                ours[name], ref[name])
+        k_worst = max(k_worst, k_err)
+    groups = {k: [k] for k in ("loss", "style logits", "genre logits")}
+    for head in ("class_style", "class_genre"):
+        groups[head] = [n for n in ref if n.startswith(head)]
+    groups["trunk"] = [n for n in ref if n.startswith("vit.")]
+    cat = lambda d, ns: torch.cat([d[n].flatten() for n in ns])
+    rels = {g: ((cat(ours, ns) - cat(ref, ns)).norm()
+                / cat(ref, ns).norm()).item() for g, ns in groups.items()}
+    print(f"multimodal grads: one step on 4 images (dropout 0), bf16 kernels "
+          f"on cuda vs f32 plain on the CPU, rel L2: "
+          f"{', '.join(f'{g} {r:.4g}' for g, r in rels.items())} (bound "
+          f"{TRAIN_GRAD_REL_L2}; {len(groups['trunk'])} trunk tensors); "
+          f"worst db_qkv K third max abs {k_worst:.4g}", flush=True)
+    if not all(r <= TRAIN_GRAD_REL_L2 for r in rels.values()):
+        raise AssertionError(f"multimodal grads: {rels} beyond "
+                             f"{TRAIN_GRAD_REL_L2}")
+
+
+def multimodal_train_phase(vit_train: dict) -> dict:
+    """Phase 19: the reference's best model, NewMultiModalMultiTaskViT at
+    full ViT-B/16 width, trained through the Trainer with forward_inputs
+    (the images and both embeddings) and the 0.5/0.5 multi-task loss, as
+    train_new_multimodal_multitask does; its img/s and device ms a step
+    beside phase 6's (vit_train); then the one-step gradient check."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import (NewMultiModalMultiTaskViT,
+                                           init_random_)
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    src = init_random_(
+        NewMultiModalMultiTaskViT(config.EMB_SIZE, config.NUM_CLASSES,
+                                  dropout=0.4),
+        torch.Generator().manual_seed(SEED + 90))
+    model = NewMultiModalMultiTaskViT(config.EMB_SIZE, config.NUM_CLASSES,
+                                      dropout=0.4)
+    model.load_state_dict(src.state_dict())
+    trainer = Trainer(model, adam(3e-4),
+                      multi_task_loss(None, None, 0.5, 0.5, "cuda"),
+                      transform_type="vit", device="cuda",
+                      forward_inputs=image_and_embeddings)
+    batch = _fusion_batch(np.random.default_rng(SEED + 90), B)
+    counts, img_s, busy = _vit_train_run(
+        "multimodal train: NewMultiModalMultiTaskViT(128, style 32, genre "
+        "18) ViT-B/16,", trainer, batch, VIT_STEP_LAUNCHES)
+    del trainer, model
+    torch.cuda.empty_cache()
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.3f} ms"
+    ratio = (f"{busy / vit_train['busy_ms']:.4f}x" if busy and
+             vit_train["busy_ms"] else "not measured")
+    print(f"multimodal train: against phase 6 in this run: {img_s:.1f} "
+          f"against {vit_train['img_s']:.1f} img/s; device busy "
+          f"{fmt(busy)} against {fmt(vit_train['busy_ms'])} a step "
+          f"({ratio})", flush=True)
+    _fusion_grad_check(src)
+    return counts
+
+
+def _run_cli(label: str, main, argv: list) -> tuple:
+    """Run a CLI's main(argv) with the counters zeroed, its prints echoed
+    under label; (its return value, its output, every kernel's launches)."""
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = main(argv)
+    seconds = time.perf_counter() - t0
+    counts = {**_all_counts(), **_read_counts(_csr_counters)}
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"pipeline cli: {label}: {line}")
+    print(f"pipeline cli: {label}: {seconds:.1f} s, launches "
+          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+    return ret, text, counts
+
+
+def _expect_launches(label: str, counts: dict, expect: dict) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update(expect)
+    if counts != want:
+        raise AssertionError(f"pipeline cli: {label}: launches {counts}, "
+                             f"expected {want}")
+
+
+def _expect_lines(label: str, text: str, *wants: str) -> None:
+    for want in wants:
+        if want not in text:
+            raise AssertionError(f"pipeline cli: {label}: no line with "
+                                 f"{want!r}")
+
+
+def pipeline_cli_phase() -> dict:
+    """Phase 20: the four pipeline stages through the port's CLIs on cuda,
+    at full model width, on a synthetic image tree and KG; returns every
+    kernel's launches over the five runs."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli import (generate_projections,
+                                        train_gnn_embeddings,
+                                        train_new_multimodal,
+                                        train_new_multimodal_multitask,
+                                        train_projector)
+    from artgraph_tpu_torch.cli.predict import infer
+    from artgraph_tpu_torch.data.embeddings import (load_embedding,
+                                                    save_embedding)
+    from artgraph_tpu_torch.data.factories import split_indices
+    from artgraph_tpu_torch.data.manifest import prepare_raw_dataset
+    from artgraph_tpu_torch.data.transforms import decode_resize_uint8
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    batch = 8
+    blocks = lambda fwd, bwd: {"fused_block_attention": 12 * fwd,
+                               "fused_block_mlp": 12 * fwd,
+                               "fused_block_attention_bwd": 12 * bwd,
+                               "fused_block_mlp_bwd": 12 * bwd}
+    nb = lambda n: -(-n // batch)          # batches of n rows
+    saved = {k: getattr(config, k) for k in (
+        "DATASET_DIR", "IMAGE_DIR", "EMBEDDINGS_DIR", "PROJECTIONS_DIR")}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = _load_synth().make_image_tree(root)
+        kg = _write_kg(root / "kg", SEED + 60)
+        ds, img = str(root / "dataset"), str(root / "images")
+        data = ["--dataset_path", ds, "--image_path", img, "--device", "cuda",
+                "--num_workers", "4", "--batch", str(batch), "--epochs", "1"]
+        config.EMBEDDINGS_DIR = os.path.join(ds, "train", "embeddings")
+        config.PROJECTIONS_DIR = str(root / "proj")
+        config.IMAGE_DIR = img
+        try:
+            # 1. KG embeddings, the train table tiled to the image rows
+            config.DATASET_DIR = str(root / "kg")
+            _, text, c = _run_cli(
+                "1 train_gnn_embeddings", train_gnn_embeddings.main,
+                ["--device", "cuda", "--epochs", "3", "--label", "style"])
+            add(c)
+            _expect_lines("1", text, "style_test_accuracy", "Saved.")
+            if not (c["csr_attention_aggregate"] and c["csr_segment_sum"]
+                    and c["csr_scalar_segment_sum"]):
+                raise AssertionError(f"pipeline cli: 1: CSR launches {c}")
+            emb = load_embedding(os.path.join(
+                config.EMBEDDINGS_DIR, "test_gnn_artwork_style_embs.pt"))
+            if emb.shape != (kg["artwork"], 128):
+                raise AssertionError(f"pipeline cli: 1: embeddings "
+                                     f"{emb.shape}")
+            table = np.resize(emb, (counts["train"], emb.shape[1]))
+            for name in ("gnn_style_embs_graph.pt", "gnn_genre_embs_graph.pt"):
+                save_embedding(os.path.join(config.EMBEDDINGS_DIR, name),
+                               table)
+            config.DATASET_DIR = ds
+
+            # 2. the ResNet50 projector, the unit on its full batches
+            seed = config.PROJECTION_SPLIT_SEED
+            n_train, n_drop = (len(i) for i in
+                               split_indices(counts["train"], 0.2, seed))
+            n_valid, n_test = (len(i) for i in
+                               split_indices(n_drop, 0.5, seed))
+            proj_args = ["--node_embedding", "gnn_style_embs_graph.pt",
+                         "--emb_type", "artwork"]
+            with _conv_bn_gate(True):
+                loss, text, c = _run_cli(
+                    "2 train_projector", train_projector.main,
+                    data + ["--exp", "smoke", *proj_args])
+            add(c)
+            _expect_lines("2", text, "Train loss: ", "Validation loss: ",
+                          f"Test loss: {loss}")
+            full = n_train // batch
+            _expect_launches("2", c, {
+                "conv1x1_bn_stats": RESNET_UNITS * full,
+                "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                "normalize_images": nb(n_train) + nb(n_valid) + nb(n_test)})
+            ckpt = root / "proj" / "smoke_checkpoint_projector.pt"
+            projector = load_reference_checkpoint("LabelProjector", str(ckpt),
+                                                  "cuda")
+
+            # 2b. the ViT projector, into a directory of its own
+            config.PROJECTIONS_DIR = str(root / "proj_vit")
+            loss, text, c = _run_cli(
+                "2b train_projector --architecture vit", train_projector.main,
+                data + ["--exp", "smoke_vit", "--architecture", "vit",
+                        *proj_args])
+            add(c)
+            config.PROJECTIONS_DIR = str(root / "proj")
+            _expect_lines("2b", text, f"Test loss: {loss}")
+            evals = nb(n_valid) + nb(n_test)
+            _expect_launches("2b", c, {
+                **blocks(nb(n_train) + evals, nb(n_train)),
+                "normalize_images": nb(n_train) + evals})
+            load_reference_checkpoint(
+                "LabelProjectorVit",
+                str(root / "proj_vit" / "smoke_vit_checkpoint_projector.pt"),
+                "cuda")
+
+            # 3. projections of valid and test, the ResNet projector only
+            _, text, c = _run_cli("3 generate_projections",
+                                  generate_projections.main,
+                                  ["--device", "cuda"])
+            add(c)
+            _expect_lines("3", text, "Generating projections for validation",
+                          "Generating projections for test")
+            _expect_launches("3", c, {"normalize_images": 2})
+            worst = 0.0
+            for split in ("validation", "test"):
+                proj = load_embedding(os.path.join(ds, split, "embeddings",
+                                                   ckpt.name))
+                names = prepare_raw_dataset(ds, split)["image"]
+                if proj.shape != (counts[split], 128) or \
+                        not np.isfinite(proj).all():
+                    raise AssertionError(f"pipeline cli: 3: {split} "
+                                         f"{proj.shape}")
+                images = torch.from_numpy(np.stack([
+                    decode_resize_uint8(os.path.join(img, n))
+                    for n in names])).cuda()
+                with torch.inference_mode():
+                    direct = infer(projector, images,
+                                   transform_type="resnet").cpu().double()
+                ref = torch.from_numpy(proj).double()
+                worst = max(worst, ((ref - direct).norm()
+                                    / direct.norm()).item())
+            print(f"pipeline cli: 3: the projection files are row-aligned "
+                  f"[N, 128], rel L2 {worst:.4g} from a direct forward of "
+                  f"the reloaded projector (bound {E2E_REL_L2})", flush=True)
+            if not worst <= E2E_REL_L2:
+                raise AssertionError(f"pipeline cli: 3: rel L2 {worst}")
+
+            # 4. the best model on the true and projected embeddings
+            files = []
+            for task in ("style", "genre"):
+                files += [f"--emb_train_{task}", f"gnn_{task}_embs_graph.pt",
+                          f"--emb_valid_{task}", ckpt.name,
+                          f"--emb_test_{task}", ckpt.name]
+            results = root / "results"
+            (style_acc, genre_acc), text, c = _run_cli(
+                "4 train_new_multimodal_multitask",
+                train_new_multimodal_multitask.main,
+                data + ["--architecture", "vit", "--emb_type", "artwork",
+                        "--results_dir", str(results), *files])
+            add(c)
+            _expect_lines("4", text, "Train loss: ", "Validation loss: ",
+                          f"Test style accuracy: {style_acc}; test genre "
+                          f"accuracy: {genre_acc}")
+            evals = nb(counts["validation"]) + 2 * nb(counts["test"])
+            _expect_launches("4", c, {
+                **blocks(nb(counts["train"]) + evals, nb(counts["train"])),
+                "normalize_images": nb(counts["train"]) + evals})
+            for name in ("results_style.csv", "results_genre.csv"):
+                if not (results / name).exists():
+                    raise AssertionError(f"pipeline cli: 4: no {name}")
+            load_reference_checkpoint(
+                "NewMultiModalMultiTaskViT",
+                os.path.join(config.CHECKPOINTS_DIR,
+                             "new-multimodal_multi-task_checkpoint.pt"),
+                "cuda")
+
+            # 5. the single-task fusion model (ResNet50) on the same files
+            with _conv_bn_gate(True):
+                acc, text, c = _run_cli(
+                    "5 train_new_multimodal", train_new_multimodal.main,
+                    data + ["--label", "genre", "--emb_type", "artwork",
+                            "--emb_train", "gnn_genre_embs_graph.pt",
+                            "--emb_valid", ckpt.name,
+                            "--emb_test", ckpt.name])
+            add(c)
+            _expect_lines("5", text, "Train loss: ", "validation accuracy: ",
+                          f"Test accuracy: {acc}")
+            full = counts["train"] // batch
+            _expect_launches("5", c, {
+                "conv1x1_bn_stats": RESNET_UNITS * full,
+                "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                "normalize_images": nb(counts["train"])
+                + nb(counts["validation"]) + nb(counts["test"])})
+            load_reference_checkpoint(
+                "NewMultiModalSingleTask",
+                os.path.join(config.CHECKPOINTS_DIR,
+                             "genre_new-multimodal_single-task_checkpoint.pt"),
+                "cuda")
+        finally:
+            for k, v in saved.items():
+                setattr(config, k, v)
+    print(f"pipeline cli: the four stages on cuda on {counts} synthetic "
+          f"images and a {kg['artwork']}-artwork KG: every checkpoint "
+          f"reloaded strict; test accuracy style {style_acc}, genre "
+          f"{genre_acc} (multitask), genre {acc} (single task); launches "
+          f"{ {k: n for k, n in total.items() if n} }", flush=True)
+    return total
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -2528,7 +2908,8 @@ def main() -> int:
         kernels.update(conv_bn_kernel_phases())
         kernels.update(attention_kernel_phases())
         launches = serve_phase()
-        for k, n in train_phase().items():
+        counts, vit_train = train_phase()
+        for k, n in counts.items():
             launches[k] += n
         grad_phase()
         cli_phase(checkpoints_dir)
@@ -2542,7 +2923,9 @@ def main() -> int:
         resnet_grad_phase()
         resnet_cli_phase(checkpoints_dir)
         for phase in (vit_unfused_serve_phase, vit_unfused_train_phase,
-                      attention_module_phase):
+                      attention_module_phase,
+                      lambda: multimodal_train_phase(vit_train),
+                      pipeline_cli_phase):
             for k, n in phase().items():
                 launches[k] = launches.get(k, 0) + n
     finally:

@@ -661,3 +661,53 @@ def test_cuda_attention_modules_reach_every_parameter(monkeypatch):
         assert torch.isfinite(p.grad).all(), name
     assert (attention.LAUNCHES, attention.LAUNCHES_BWD, mlp.LAUNCHES,
             mlp.LAUNCHES_BWD) == (0, 0, 0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_fusion_training_step_launches_the_block_kernels(monkeypatch):
+    """One Trainer step of NewMultiModalMultiTaskViT on a 2-block trunk on
+    the card, with forward_inputs (images, both embeddings) and the 0.5/0.5
+    multi-task loss, as train_new_multimodal_multitask runs it: 1 normalize
+    and, a block, 1 forward and 1 backward launch of each block kernel;
+    the loss and every trained parameter's update finite."""
+    _need_cuda()
+    import functools
+
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import ViT, heads, init_random_
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    monkeypatch.setattr(heads, "ViT", functools.partial(
+        ViT, img_size=32, patch_size=16, embed_dim=128, depth=2,
+        num_heads=2))
+    nc = {"style": 32, "genre": 18}
+    model = init_random_(heads.NewMultiModalMultiTaskViT(128, nc),
+                         torch.Generator().manual_seed(1))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(model, adam(3e-4), multi_task_loss(None, None, 0.5, 0.5,
+                                                         "cuda"),
+                      transform_type="vit", device="cuda",
+                      forward_inputs=image_and_embeddings)
+    rng = np.random.default_rng(2)
+    batch = (rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             rng.normal(size=(4, 128)).astype(np.float32),
+             rng.normal(size=(4, 128)).astype(np.float32),
+             np.stack([rng.integers(0, 32, 4), rng.integers(0, 18, 4)], 1)
+             .astype(np.int32), np.ones(4, np.float32))
+    for mod in (attention, mlp, preprocess):
+        monkeypatch.setattr(mod, "LAUNCHES", 0)
+    for mod in (attention, mlp):
+        monkeypatch.setattr(mod, "LAUNCHES_BWD", 0)
+    m = trainer.train_epoch([batch])
+    torch.cuda.synchronize()
+    assert (preprocess.LAUNCHES, attention.LAUNCHES, mlp.LAUNCHES,
+            attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD) == (1, 2, 2, 2, 2)
+    assert np.isfinite(m["loss"]) and set(m) >= {"style_correct",
+                                                 "genre_correct"}
+    for n, p in model.named_parameters():
+        if n.startswith("vit.head."):         # timm's head, never called
+            continue
+        assert torch.isfinite(p).all() and not torch.equal(
+            p.detach().cpu(), before[n]), n
