@@ -2,8 +2,9 @@
 carried over.
 
 The port's modules use the reference state_dict keys (timm ViT names, the
-torchvision ResNet50 trunk wrapped in Sequential(*children[:-1]), plus the
-wrapper heads of artgraph_tpu/checkpointing/torch_interop.py `_MODEL_SPECS`),
+torchvision ResNet50 trunk wrapped in Sequential(*children[:-1]), or with
+torchvision's own names in the MultiModal models, plus the wrapper heads of
+artgraph_tpu/checkpointing/torch_interop.py `_MODEL_SPECS`),
 so a reference .pt loads with `load_state_dict(strict=True)` and no key map,
 and `save_reference_checkpoint` writes one (the trainers' best checkpoint).
 
@@ -11,9 +12,10 @@ and `save_reference_checkpoint` writes one (the trainers' best checkpoint).
 arrays, params and batch_stats) into that state_dict: Linear kernels
 [in, out] -> [out, in], convs HWIO -> OIHW, BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var. It is numpy-only and re-states
-artgraph_tpu.checkpointing.torch_interop.export_model_state for the eight
-models of `predict` and the two projectors (`vit_to_torch`,
-`resnet_to_torch`, the heads, the projectors' bare `encoder` Linear), which
+artgraph_tpu.checkpointing.torch_interop.export_model_state for the
+fourteen models of the reference (`vit_to_torch`, `resnet_to_torch`, the
+three head kinds: a bare Linear, Sequential(Dropout, Linear) and the
+MultiModal models' tanh encoder), which
 the port cannot import (that package pulls in jax); the tests hold the two
 equal key for key. `gnn_state_from_flax` does the same for the GNN stage's
 `HeteroSGNN`, whose port keeps the flax names.
@@ -29,29 +31,53 @@ from torch import nn
 from artgraph_tpu_torch.models import heads
 from artgraph_tpu_torch.models.heads import RESNET_DIM, TIMM_HEAD_CLASSES
 
-# model name -> {flax head: torch prefix of its Sequential(Dropout, Linear)}
+# model name -> {flax module: (torch prefix, kind)}; kind "linear" is a bare
+# Linear (`encoder.weight`), "seq_linear" a Sequential(Dropout, Linear)
+# (`classifier.1.weight`), "tanh_encoder" the MultiModal models'
+# Sequential(Linear, Tanh, Linear, Tanh) (`encoder.0.*`, `encoder.2.*`)
 _HEADS = {
-    "ResnetSingleTask": {"classifier": "classifier"},
-    "ResnetMultiTask": {"style_classifier": "style_classifier",
-                        "genre_classifier": "genre_classifier"},
-    "NewMultiModalSingleTask": {"classifier": "classifier"},
-    "NewMultiModalMultiTask": {"class_style": "class_style",
-                               "class_genre": "class_genre"},
-    "ViTSingleTask": {"head": "vit.head"},
-    "ViTMultiTask": {"style_classifier": "style_classifier",
-                     "genre_classifier": "genre_classifier"},
-    "NewMultiModalSingleTaskVit": {"classifier": "classifier"},
-    "NewMultiModalMultiTaskViT": {"class_style": "class_style",
-                                  "class_genre": "class_genre"},
-    # the projectors carry a bare Linear `encoder` instead
-    "LabelProjector": {},
-    "LabelProjectorVit": {},
+    "ResnetSingleTask": {"classifier": ("classifier", "seq_linear")},
+    "ResnetMultiTask": {
+        "style_classifier": ("style_classifier", "seq_linear"),
+        "genre_classifier": ("genre_classifier", "seq_linear")},
+    "ContextNetSingleTask": {"classifier": ("classifier", "linear"),
+                             "encoder": ("encoder", "linear")},
+    "ContextNetlMultiTask": {"class_style": ("class_style", "linear"),
+                             "class_genre": ("class_genre", "linear"),
+                             "encoder": ("encoder", "linear")},
+    "MultiModalSingleTask": {"classifier": ("classifier", "seq_linear"),
+                             "encoder": ("encoder", "tanh_encoder")},
+    "MultiModalMultiTask": {"class_style": ("class_style", "seq_linear"),
+                            "class_genre": ("class_genre", "seq_linear"),
+                            "encoder": ("encoder", "tanh_encoder")},
+    "NewMultiModalSingleTask": {"classifier": ("classifier", "seq_linear")},
+    "NewMultiModalMultiTask": {
+        "class_style": ("class_style", "seq_linear"),
+        "class_genre": ("class_genre", "seq_linear")},
+    "ViTSingleTask": {"head": ("vit.head", "seq_linear")},
+    "ViTMultiTask": {
+        "style_classifier": ("style_classifier", "seq_linear"),
+        "genre_classifier": ("genre_classifier", "seq_linear")},
+    "NewMultiModalSingleTaskVit": {
+        "classifier": ("classifier", "seq_linear")},
+    "NewMultiModalMultiTaskViT": {
+        "class_style": ("class_style", "seq_linear"),
+        "class_genre": ("class_genre", "seq_linear")},
+    "LabelProjector": {"encoder": ("encoder", "linear")},
+    "LabelProjectorVit": {"encoder": ("encoder", "linear")},
 }
 MODEL_NAMES = tuple(_HEADS)
 PROJECTORS = ("LabelProjector", "LabelProjectorVit")
 RESNET_MODELS = ("ResnetSingleTask", "ResnetMultiTask",
+                 "ContextNetSingleTask", "ContextNetlMultiTask",
+                 "MultiModalSingleTask", "MultiModalMultiTask",
                  "NewMultiModalSingleTask", "NewMultiModalMultiTask",
                  "LabelProjector")
+# the models whose trunk keeps torchvision's child names (resnet.conv1.*)
+NAMED_TRUNK = ("MultiModalSingleTask", "MultiModalMultiTask")
+# the suffix of each head kind's last Linear, whose [out, in] shape gives
+# build_model the class counts and the embedding width
+_LAST_LINEAR = {"linear": "", "seq_linear": ".1", "tanh_encoder": ".2"}
 
 # torchvision resnet50 child name -> its index in Sequential(*children[:-1])
 # (children: conv1, bn1, relu, maxpool, layer1..4, avgpool)
@@ -175,7 +201,8 @@ def state_dict_from_flax(model_name: str, variables: dict
     params = variables["params"]
     if model_name in RESNET_MODELS:
         sd = resnet_state_from_flax(
-            params["resnet"], variables["batch_stats"]["resnet"])
+            params["resnet"], variables["batch_stats"]["resnet"],
+            seq=model_name not in NAMED_TRUNK)
     else:
         sd = vit_state_from_flax(params["vit"], "vit")
     if model_name not in RESNET_MODELS + ("ViTSingleTask",):
@@ -185,14 +212,24 @@ def state_dict_from_flax(model_name: str, variables: dict
         sd["vit.head.weight"] = np.zeros((TIMM_HEAD_CLASSES, width),
                                          np.float32)
         sd["vit.head.bias"] = np.zeros((TIMM_HEAD_CLASSES,), np.float32)
-    for flax_name, tprefix in _HEADS[model_name].items():
-        lin = params[flax_name]["linear"]
-        sd[f"{tprefix}.1.weight"] = _linear(lin["kernel"])
-        sd[f"{tprefix}.1.bias"] = _f32(lin["bias"])
-    if model_name in PROJECTORS:
-        sd["encoder.weight"] = _linear(params["encoder"]["kernel"])
-        sd["encoder.bias"] = _f32(params["encoder"]["bias"])
+    for flax_name, (tprefix, kind) in _HEADS[model_name].items():
+        sd.update(_head_state(params[flax_name], tprefix, kind))
     return sd
+
+
+def _head_state(p: dict, tprefix: str, kind: str) -> dict[str, np.ndarray]:
+    """One head's flax params -> its state_dict entries under tprefix."""
+    if kind == "linear":
+        denses = {"": p}
+    elif kind == "seq_linear":
+        denses = {".1": p["linear"]}
+    else:                                   # tanh_encoder
+        denses = {".0": p["fc1"], ".2": p["fc2"]}
+    out = {}
+    for sub, dense in denses.items():
+        out[f"{tprefix}{sub}.weight"] = _linear(dense["kernel"])
+        out[f"{tprefix}{sub}.bias"] = _f32(dense["bias"])
+    return out
 
 
 def _flat(tree: dict, prefix: str) -> dict[str, np.ndarray]:
@@ -244,19 +281,27 @@ def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16
     if model_name not in _HEADS:
         raise ValueError(f"unsupported model {model_name!r}; the port has "
                          f"{MODEL_NAMES}")
-    shape = {tprefix: tuple(sd[f"{tprefix}.1.weight"].shape)
-             for tprefix in _HEADS[model_name].values()}
+    shape = {tprefix: tuple(sd[f"{tprefix}{_LAST_LINEAR[kind]}.weight"]
+                            .shape)
+             for tprefix, kind in _HEADS[model_name].values()}
     nc = lambda style, genre: {"style": shape[style][0],
                                "genre": shape[genre][0]}
     with torch.device("meta"):
         if model_name in PROJECTORS:
-            emb_size = sd["encoder.weight"].shape[0]
-            return getattr(heads, model_name)(emb_size, dtype=dtype)
+            return getattr(heads, model_name)(shape["encoder"][0],
+                                              dtype=dtype)
         if model_name == "ResnetSingleTask":
             return heads.ResnetSingleTask(shape["classifier"][0], dtype=dtype)
         if model_name == "ResnetMultiTask":
             return heads.ResnetMultiTask(
                 nc("style_classifier", "genre_classifier"), dtype=dtype)
+        if model_name in ("ContextNetSingleTask", "MultiModalSingleTask"):
+            return getattr(heads, model_name)(
+                shape["encoder"][0], shape["classifier"][0], dtype=dtype)
+        if model_name in ("ContextNetlMultiTask", "MultiModalMultiTask"):
+            return getattr(heads, model_name)(
+                shape["encoder"][0], nc("class_style", "class_genre"),
+                dtype=dtype)
         if model_name == "NewMultiModalSingleTask":
             n, width = shape["classifier"]
             return heads.NewMultiModalSingleTask(width - RESNET_DIM, n,

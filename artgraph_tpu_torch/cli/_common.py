@@ -1,21 +1,23 @@
 """Shared CLI plumbing of the port: the reference's base argparse surface,
-the --device, the single- and multi-task losses, checkpoints, the epoch
-loop and the test evaluation.
+the --device, the single- and multi-task losses, the context trainers'
+joint loss, checkpoints, the epoch loop and the test evaluation.
 
-Port of the part of artgraph_tpu/cli/_common.py that the image, projector
-and fusion trainers need.
+Port of the part of artgraph_tpu/cli/_common.py that the image, context,
+projector and fusion trainers need.
 Flag names, defaults, checkpoint naming, print formats and the results CSVs
-are the reference's. Added: `--device` (default `cuda`, as `predict`). The
-JAX CLIs' TPU extras (`--data_parallel`, `--resident_data`,
-`--no_epoch_scan`, `--image_cache`, `--init_checkpoint`, `--resume`) and
-MLflow tracking (`-t/--tracking`) need modules the port does not have yet
-(ROADMAP.md §1); the port's parser does not accept them.
+are the reference's. Added: `--device` (default `cuda`, as `predict`).
+Refused, because they need modules the port does not have yet (ROADMAP.md
+§1): the JAX CLIs' `--resume` and `--init_checkpoint` (checkpoint and
+warm-start plumbing), `--image_cache`, `--resident_data` and
+`--no_epoch_scan` (the decoded cache and device-resident data),
+`--data_parallel` (the data mesh) and `-t/--tracking` (MLflow); the port's
+parser does not accept them.
 """
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -114,6 +116,30 @@ def multi_task_loss(weights_style: Optional[np.ndarray],
     return compute
 
 
+def joint_loss(class_loss, encoder_criterion, lamb: float):
+    """The ContextNet / MultiModal train loss over (images, embeddings,
+    labels, mask) batches and (logits, graph_proj) outputs:
+    lamb * class_loss + (1 - lamb) * encoder_criterion(graph_proj,
+    embeddings) over the valid rows (ref: train_baseline_context.py:75-81);
+    the metrics are class_loss's."""
+
+    def compute(outputs, batch):
+        out, graph_proj = outputs
+        class_value, metrics = class_loss(out, batch)
+        encoder_value = encoder_criterion(graph_proj, batch[1],
+                                          mask=batch[-1])
+        return lamb * class_value + (1 - lamb) * encoder_value, metrics
+
+    return compute
+
+
+def logits_loss(class_loss):
+    """The context trainers' eval loss: class_loss on the logits of
+    (logits, graph_proj), over image-only (images, labels, mask) batches
+    (ref: train_baseline_context.py:98-105)."""
+    return lambda outputs, batch: class_loss(outputs[0], batch)
+
+
 def _on_device(class_weights: Optional[np.ndarray],
                device: str | torch.device) -> Optional[torch.Tensor]:
     if class_weights is None:
@@ -146,17 +172,23 @@ def run_epoch_loop(args, train_fn, valid_fn) -> None:
 
 def evaluate_single_task(trainer: Trainer, loader, num_classes: int,
                          results_dir: Optional[str] = None,
-                         output_index: Optional[int] = None,
+                         output_index: Union[int, Tuple[int, ...],
+                                             None] = None,
                          suffix: str = "") -> float:
     """Test-split accuracy of one task; with results_dir also the reference
-    CSVs, `results{suffix}.csv` etc. For a multitask model, output_index
-    picks its task's logits and suffix ('_style' or '_genre') the column of
-    the [n, 2] labels."""
+    CSVs, `results{suffix}.csv` etc. output_index picks the task's logits
+    out of the model's outputs: an index, or a path of indices into nested
+    ones ((0, 1): the genre logits of ([style, genre], graph_proj)); suffix
+    ('_style' or '_genre') picks the column of [n, 2] labels."""
     _, collected = trainer.eval_epoch(loader, collect_outputs=True)
     task_col = {"_style": 0, "_genre": 1}.get(suffix)
+    path = () if output_index is None else (
+        output_index if isinstance(output_index, tuple) else (output_index,))
     logits, labels = [], []
     for out, rest in collected:
-        logits.append(out if output_index is None else out[output_index])
+        for i in path:
+            out = out[i]
+        logits.append(out)
         lab = rest[-1]   # labels are the last non-mask batch component
         if lab.ndim == 2:
             if task_col is None:

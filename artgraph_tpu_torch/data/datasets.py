@@ -1,9 +1,9 @@
 """Map-style image datasets over the ArtGraph manifests.
 
-Port of artgraph_tpu/data/datasets.py without the multitask image-only and
-ContextNet datasets: `_ImageDataset`, `ArtGraphSingleTask` (ref:
-src/data/data.py:81-102), the fusion and projector datasets of the pipeline
-(ref: src/data/data_kg.py:82-180) and `Subset`. Items are (uint8 NHWC image,
+Port of artgraph_tpu/data/datasets.py: `_ImageDataset`, the image-only
+`ArtGraphSingleTask` and `ArtGraphMultiTask` (ref: src/data/data.py:53-102),
+the ContextNet / MultiModal, fusion and projector datasets (ref:
+src/data/data_kg.py:58-180) and `Subset`. Items are (uint8 NHWC image,
 ..., label(s)); `get_batch` assembles a whole batch with one gather per
 component, the same arrays as the JAX package's. Normalization runs on the
 device (ops/preprocess.py).
@@ -49,14 +49,24 @@ class _ImageDataset:
                 self.dataset.iloc[:, col].to_numpy(np.int32)
         return arr
 
+    def _labels_2(self, idx: np.ndarray) -> np.ndarray:
+        """[len(idx), 2] int32: columns 1 and 2 (style, genre)."""
+        return np.stack((self._col_i32(1)[idx], self._col_i32(2)[idx]),
+                        axis=1)
+
+
+def _require_columns(df: pd.DataFrame, *names: str) -> None:
+    if not set(names) <= set(df.columns):
+        raise ValueError(f"the manifest needs the columns {names}, has "
+                         f"{tuple(df.columns)}")
+
 
 class ArtGraphSingleTask(_ImageDataset):
     """(image, label) items; df columns ['image', <label>], in that order."""
 
     def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
                  transform_type: str = "resnet"):
-        if "image" not in df_image_label.columns:
-            raise ValueError("the manifest needs an 'image' column")
+        _require_columns(df_image_label, "image")
         super().__init__(image_dir, df_image_label, transform_type)
 
     def __getitem__(self, idx: int):
@@ -65,6 +75,24 @@ class ArtGraphSingleTask(_ImageDataset):
     def get_batch(self, indices):
         idx = np.asarray(indices, dtype=np.int64)
         return self._images_batch(idx), self._col_i32(1)[idx]
+
+
+class ArtGraphMultiTask(_ImageDataset):
+    """(image, [style, genre]) items; df columns ['image', 'style',
+    'genre'], in that order. A batch's labels are [B, 2] int32."""
+
+    def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
+                 transform_type: str = "resnet"):
+        _require_columns(df_image_label, "image", "style", "genre")
+        super().__init__(image_dir, df_image_label, transform_type)
+
+    def __getitem__(self, idx: int):
+        return self._image(idx), [int(self.dataset.iloc[idx, 1]),
+                                  int(self.dataset.iloc[idx, 2])]
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        return self._images_batch(idx), self._labels_2(idx)
 
 
 class MultiModalArtgraphSingleTask(_ImageDataset):
@@ -79,8 +107,7 @@ class MultiModalArtgraphSingleTask(_ImageDataset):
     def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
                  embeddings: np.ndarray, type: str = "train",
                  emb_type: str = "artwork", transform_type: str = "resnet"):
-        if "image" not in df_image_label.columns:
-            raise ValueError("the manifest needs an 'image' column")
+        _require_columns(df_image_label, "image")
         super().__init__(image_dir, df_image_label, transform_type)
         self.embeddings = np.asarray(embeddings, dtype=np.float32)
         self.by_label = type == "train" and emb_type != "artwork"
@@ -95,6 +122,33 @@ class MultiModalArtgraphSingleTask(_ImageDataset):
         labels = self._col_i32(1)[idx]
         emb = self.embeddings[labels if self.by_label else idx]
         return self._images_batch(idx), emb, labels
+
+
+class MultiModalArtgraphMultiTask(_ImageDataset):
+    """(image, embedding, [style, genre]) items of the ContextNet and
+    MultiModal multitask trainers (ref: src/data/data_kg.py:58-79): the
+    embeddings by row, so the table must have a row per manifest row."""
+
+    def __init__(self, image_dir: str, df_image_label: pd.DataFrame,
+                 embeddings: np.ndarray, transform_type: str = "resnet"):
+        _require_columns(df_image_label, "image", "style", "genre")
+        embeddings = np.asarray(embeddings, dtype=np.float32)
+        if len(df_image_label) != embeddings.shape[0]:
+            raise ValueError(
+                f"the embedding table has {embeddings.shape[0]} rows for "
+                f"{len(df_image_label)} manifest rows")
+        super().__init__(image_dir, df_image_label, transform_type)
+        self.embeddings = embeddings
+
+    def __getitem__(self, idx: int):
+        return (self._image(idx), self.embeddings[idx],
+                [int(self.dataset.iloc[idx, 1]),
+                 int(self.dataset.iloc[idx, 2])])
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        return (self._images_batch(idx), self.embeddings[idx],
+                self._labels_2(idx))
 
 
 class LabelProjectionDataset(_ImageDataset):
@@ -130,9 +184,7 @@ class NewMultiModalArtgraphMultiTask(_ImageDataset):
                  embedding_style: np.ndarray, embedding_genre: np.ndarray,
                  type: str = "train", emb_type: str = "artwork",
                  transform_type: str = "resnet"):
-        if not {"image", "style", "genre"} <= set(df_image_label.columns):
-            raise ValueError("the manifest needs 'image', 'style' and "
-                             "'genre' columns")
+        _require_columns(df_image_label, "image", "style", "genre")
         super().__init__(image_dir, df_image_label, transform_type)
         self.embedding_style = np.asarray(embedding_style, dtype=np.float32)
         self.embedding_genre = np.asarray(embedding_genre, dtype=np.float32)

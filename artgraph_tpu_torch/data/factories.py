@@ -1,10 +1,10 @@
 """Dataset factories and class weights for the image trainers and the
 fusion pipeline.
 
-Port of artgraph_tpu/data/factories.py: load_dataset (single-task mode),
-load_dataset_new_multimodal, load_dataset_multitask_new_multimodal,
-load_dataset_projection and get_class_weights (ref: src/utils.py:51-81,
-120-223, 268-274). The projector's seeded 80/10/10 split is
+Port of artgraph_tpu/data/factories.py: load_dataset,
+load_dataset_multimodal, load_dataset_new_multimodal,
+load_dataset_multitask_new_multimodal, load_dataset_projection and
+get_class_weights (ref: src/utils.py:51-223, 268-274). The projector's seeded 80/10/10 split is
 scikit-learn's `train_test_split(..., random_state=11)` restated with numpy
 (`split_indices`), since the GPU host has no scikit-learn.
 """
@@ -17,8 +17,10 @@ from typing import Dict
 import numpy as np
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.data.datasets import (ArtGraphSingleTask,
+from artgraph_tpu_torch.data.datasets import (ArtGraphMultiTask,
+                                              ArtGraphSingleTask,
                                               LabelProjectionDataset,
+                                              MultiModalArtgraphMultiTask,
                                               MultiModalArtgraphSingleTask,
                                               NewMultiModalArtgraphMultiTask,
                                               Subset)
@@ -28,20 +30,49 @@ from artgraph_tpu_torch.data.manifest import prepare_raw_dataset
 SPLITS = ("train", "validation", "test")
 
 
+def _image_only(mode: str, label: str | None):
+    """(dataset class, manifest columns) of an image-only split."""
+    if mode == "single_task":
+        if label not in ("style", "genre"):
+            raise ValueError(f"unknown label {label!r}")
+        return ArtGraphSingleTask, ["image", label]
+    if mode == "multi_task":
+        return ArtGraphMultiTask, ["image", "style", "genre"]
+    raise ValueError(f"unknown mode {mode!r} (single_task|multi_task)")
+
+
 def load_dataset(base_dir: str, image_dir: str, mode: str, label: str = None,
                  transform_type: str = "resnet"):
-    """(train, valid, test) image datasets for one label."""
-    if mode != "single_task":
-        raise NotImplementedError(
-            f"load_dataset(mode={mode!r}): the port has the single-task mode "
-            f"only; the multitask trainers are queued in ROADMAP.md §1")
-    if label not in ("style", "genre"):
-        raise ValueError(f"unknown label {label!r}")
+    """(train, valid, test) image datasets: one label's (single_task) or
+    both labels' [B, 2] (multi_task), ref: src/utils.py:51-81."""
+    cls, cols = _image_only(mode, label)
     return tuple(
-        ArtGraphSingleTask(image_dir,
-                           prepare_raw_dataset(base_dir, type=split)[
-                               ["image", label]], transform_type)
+        cls(image_dir, prepare_raw_dataset(base_dir, type=split)[cols],
+            transform_type)
         for split in SPLITS)
+
+
+def load_dataset_multimodal(base_dir: str, image_dir: str, mode: str,
+                            label: str = None, emb_type: str = None,
+                            emb_train: str = None):
+    """The ContextNet / MultiModal datasets (ref: src/utils.py:83-118): the
+    train split gives (image, embedding, label(s)) from
+    <base>/train/embeddings/<emb_train>; valid and test are image-only,
+    since the logits need no embedding. All three use the ResNet
+    transform."""
+    if emb_type not in ("artwork", "genre", "style"):
+        raise ValueError(f"unknown emb_type {emb_type!r}")
+    cls, cols = _image_only(mode, label)
+    raw = {split: prepare_raw_dataset(base_dir, type=split)[cols]
+           for split in SPLITS}
+    embeddings = _split_embedding(base_dir, "train", emb_train)
+    train = (MultiModalArtgraphSingleTask(image_dir, raw["train"], embeddings,
+                                          emb_type=emb_type)
+             if mode == "single_task"
+             else MultiModalArtgraphMultiTask(image_dir, raw["train"],
+                                              embeddings))
+    return (train, cls(image_dir, raw["validation"]),
+            cls(image_dir, raw["test"]))
 
 
 def _split_embedding(base_dir: str, split: str, name: str) -> np.ndarray:

@@ -1,8 +1,14 @@
-"""The port's models: the ViT-B/16 and ResNet50 trunks, the eight
-classifier and fusion models of `predict` and the two projectors; the
-hetero-GNN of the KG-embedding stage is `models.gnn`, imported by name."""
-from artgraph_tpu_torch.models.heads import (LabelProjector,
+"""The port's models: the ViT-B/16 and ResNet50 trunks, the classifier,
+fusion and context (ContextNet, MultiModal) models and the two projectors;
+the hetero-GNN of the KG-embedding stage is `models.gnn`, imported by
+name."""
+from artgraph_tpu_torch.models.heads import (ContextNetlMultiTask,
+                                             ContextNetMultiTask,
+                                             ContextNetSingleTask,
+                                             LabelProjector,
                                              LabelProjectorVit,
+                                             MultiModalMultiTask,
+                                             MultiModalSingleTask,
                                              NewMultiModalMultiTask,
                                              NewMultiModalMultiTaskViT,
                                              NewMultiModalSingleTask,
@@ -16,4 +22,7 @@ __all__ = ["ViT", "ResNet50", "MixedBatchNorm", "ViTSingleTask",
            "ViTMultiTask", "NewMultiModalSingleTaskVit",
            "NewMultiModalMultiTaskViT", "ResnetSingleTask", "ResnetMultiTask",
            "NewMultiModalSingleTask", "NewMultiModalMultiTask",
-           "LabelProjector", "LabelProjectorVit", "init_random_"]
+           "ContextNetSingleTask", "ContextNetlMultiTask",
+           "ContextNetMultiTask", "MultiModalSingleTask",
+           "MultiModalMultiTask", "LabelProjector", "LabelProjectorVit",
+           "init_random_"]

@@ -1,10 +1,12 @@
-"""The eight ViT and ResNet50 classifier and fusion models of `predict` and
-the two visual -> KG-embedding projectors, with the reference's keys.
+"""Every classifier, fusion and context model of the reference and the two
+visual -> KG-embedding projectors, with the reference's keys.
 
 Port of artgraph_tpu/models/heads.py (ResnetSingleTask, ResnetMultiTask,
-ViTSingleTask, ViTMultiTask, NewMultiModalSingleTask, NewMultiModalMultiTask,
-NewMultiModalSingleTaskVit, NewMultiModalMultiTaskViT, LabelProjector,
-LabelProjectorVit). Module nesting
+ViTSingleTask, ViTMultiTask, ContextNetSingleTask, ContextNetlMultiTask,
+MultiModalSingleTask, MultiModalMultiTask, NewMultiModalSingleTask,
+NewMultiModalMultiTask, NewMultiModalSingleTaskVit,
+NewMultiModalMultiTaskViT, LabelProjector, LabelProjectorVit). Module
+nesting
 reproduces the reference state_dict exactly (artgraph_tpu/checkpointing/
 torch_interop.py `_MODEL_SPECS`):
 
@@ -19,11 +21,21 @@ torch_interop.py `_MODEL_SPECS`):
   * the projectors are the trunk (ResNet as `resnet`, ViT as `vit` with
     timm's unused head) and a bare Linear `encoder` onto the embedding
     width, computed in f32 on the f32 feature (the JAX package's Dense with
-    dtype f32).
+    dtype f32);
+  * ContextNet (Garcia et al.; ref: src/models/models_kg.py:7-61) puts bare
+    Linears `classifier` (or `class_style`, `class_genre`) and `encoder` on
+    the indexed trunk, no dropout;
+  * MultiModal ("sansaro", Castellano et al.; ref: models_kg.py:63-137)
+    keeps torchvision's named trunk keys (`resnet.conv1.weight`: its fc is
+    an Identity, ResNet50(named=True)), a `_TanhEncoder` `encoder`
+    (`encoder.0.*`, `encoder.2.*`) onto the embedding width, and
+    Sequential(Dropout(0.2), Linear) heads on cat([feature, projection]).
 
-The heads' Dropout is active in train(). Logits are f32: the heads run in
-f32 on the f32 feature (ResNet's pooled 2048-d one, ViT's CLS token), and
-the fusion models concatenate that feature with the f32 embedding first.
+The context models return (logits, graph_proj) or ([style, genre],
+graph_proj), as the JAX ones. The heads' Dropout is active in train().
+Logits are f32: the heads run in f32 on the f32 feature (ResNet's pooled
+2048-d one, ViT's CLS token), and the fusion models concatenate that
+feature with the f32 embedding first.
 """
 from __future__ import annotations
 
@@ -75,6 +87,88 @@ class ResnetMultiTask(nn.Module):
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         feat = self.resnet(img)
         return [self.style_classifier(feat), self.genre_classifier(feat)]
+
+
+class ContextNetSingleTask(nn.Module):
+    def __init__(self, emb_size: int, num_class: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        self.classifier = nn.Linear(RESNET_DIM, num_class)
+        self.encoder = nn.Linear(RESNET_DIM, emb_size)
+
+    def forward(self, img: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        feat = self.resnet(img)
+        return self.classifier(feat), self.encoder(feat)
+
+
+class ContextNetlMultiTask(nn.Module):
+    """The reference's spelling; ContextNetMultiTask is an alias."""
+
+    def __init__(self, emb_size: int, num_classes: dict[str, int],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype)
+        self.encoder = nn.Linear(RESNET_DIM, emb_size)
+        self.class_style = nn.Linear(RESNET_DIM, num_classes["style"])
+        self.class_genre = nn.Linear(RESNET_DIM, num_classes["genre"])
+
+    def forward(self, img: torch.Tensor
+                ) -> tuple[list[torch.Tensor], torch.Tensor]:
+        feat = self.resnet(img)
+        return ([self.class_style(feat), self.class_genre(feat)],
+                self.encoder(feat))
+
+
+ContextNetMultiTask = ContextNetlMultiTask
+
+# the MultiModal heads' dropout, fixed in the reference (models_kg.py:63-137)
+MULTIMODAL_DROPOUT = 0.2
+
+
+class _TanhEncoder(nn.Sequential):
+    """Linear -> tanh -> Linear -> tanh onto the embedding width."""
+
+    def __init__(self, in_dim: int, emb_size: int):
+        super().__init__(nn.Linear(in_dim, emb_size), nn.Tanh(),
+                         nn.Linear(emb_size, emb_size), nn.Tanh())
+
+
+class MultiModalSingleTask(nn.Module):
+    def __init__(self, emb_size: int, num_class: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype, named=True)
+        self.encoder = _TanhEncoder(RESNET_DIM, emb_size)
+        self.classifier = _head(RESNET_DIM + emb_size, num_class,
+                                MULTIMODAL_DROPOUT)
+
+    def forward(self, img: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        feat = self.resnet(img)
+        graph_proj = self.encoder(feat)
+        return self.classifier(torch.cat([feat, graph_proj], 1)), graph_proj
+
+
+class MultiModalMultiTask(nn.Module):
+    def __init__(self, emb_size: int, num_classes: dict[str, int],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.resnet = ResNet50(dtype=dtype, named=True)
+        self.encoder = _TanhEncoder(RESNET_DIM, emb_size)
+        dim = RESNET_DIM + emb_size
+        self.class_style = _head(dim, num_classes["style"],
+                                 MULTIMODAL_DROPOUT)
+        self.class_genre = _head(dim, num_classes["genre"],
+                                 MULTIMODAL_DROPOUT)
+
+    def forward(self, img: torch.Tensor
+                ) -> tuple[list[torch.Tensor], torch.Tensor]:
+        feat = self.resnet(img)
+        graph_proj = self.encoder(feat)
+        concat = torch.cat([feat, graph_proj], 1)
+        return [self.class_style(concat), self.class_genre(concat)], graph_proj
 
 
 class NewMultiModalSingleTask(nn.Module):

@@ -34,13 +34,19 @@ the unit's plain twin runs.
 `nn.Sequential(*children[:-1])` of torchvision's resnet50 (`0` conv1, `1`
 bn1, `2` relu, `3` maxpool, `4`-`7` layer1-4), so `resnet.0.weight`,
 `resnet.4.0.conv1.weight`, `resnet.4.0.downsample.1.running_var`, ... come
-out with no key map.
+out with no key map. With `named=True` the same modules carry torchvision's
+child names instead (`conv1`, `bn1`, `relu`, `maxpool`, `layer1`-`layer4`),
+the keys of the reference's MultiModal ("sansaro") trunk, torchvision's
+resnet50 with `fc = Identity` (`resnet.conv1.weight`,
+`resnet.layer1.0.conv1.weight`); the forward, the Bottlenecks and the fused
+unit's gate are the same in both layouts.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import os
+from collections import OrderedDict
 from typing import Sequence
 
 import torch
@@ -50,6 +56,9 @@ from torch import nn
 from artgraph_tpu_torch.ops.conv_bn import conv1x1_bn_stats
 
 RESNET_WIDTHS = (64, 128, 256, 512)
+# torchvision resnet50's children before avgpool and fc, in order
+TORCHVISION_CHILDREN = ("conv1", "bn1", "relu", "maxpool", "layer1",
+                        "layer2", "layer3", "layer4")
 _F32 = torch.float32
 
 
@@ -221,10 +230,11 @@ class Bottleneck(nn.Module):
 
 class ResNet50(nn.Sequential):
     """The trunk producing the f32 pooled feature [B, 2048] (fc stripped, as
-    the reference consumes it). Input: NHWC float images."""
+    the reference consumes it). Input: NHWC float images. Children indexed
+    `0`-`7`, or with `named` torchvision's names (TORCHVISION_CHILDREN)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, named: bool = False):
         layers, inplanes = [], 64
         for stage, (blocks, width) in enumerate(zip(stage_sizes,
                                                     RESNET_WIDTHS)):
@@ -234,9 +244,13 @@ class ResNet50(nn.Sequential):
             blocks_ += [Bottleneck(inplanes, width, dtype=dtype)
                         for _ in range(blocks - 1)]
             layers.append(nn.Sequential(*blocks_))
-        super().__init__(nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-                         MixedBatchNorm(64, apply_dtype=dtype), nn.ReLU(),
-                         nn.MaxPool2d(3, stride=2, padding=1), *layers)
+        children = [nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
+                    MixedBatchNorm(64, apply_dtype=dtype), nn.ReLU(),
+                    nn.MaxPool2d(3, stride=2, padding=1), *layers]
+        if named:
+            super().__init__(OrderedDict(zip(TORCHVISION_CHILDREN, children)))
+        else:
+            super().__init__(*children)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Cross-entropy and NLL with torch-criterion semantics over masked batches.
 
-Port of artgraph_tpu/train/losses.py:cross_entropy, nll_loss and smooth_l1
-(without the data-mesh psum scope, and nll_loss without the mask no caller
+Port of artgraph_tpu/train/losses.py:cross_entropy, nll_loss, smooth_l1
+and mse (without the data-mesh psum scope, and nll_loss without the mask no caller
 passes).
 torch.nn.CrossEntropyLoss with class weights divides by the SUM OF SAMPLE
 WEIGHTS, not the batch size; padded rows of the static-shape final batch
@@ -50,8 +50,23 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     diff = (pred.to(dt) - target.to(dt)).abs()
     per_elem = torch.where(diff < beta, 0.5 * diff * diff / beta,
                            diff - 0.5 * beta)
+    return _mean_over_rows(per_elem, mask)
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch.nn.MSELoss (the mean of the squared error over elements) in f32
+    (f64 inputs stay f64); with mask [B] the mean over the valid rows'
+    elements."""
+    dt = torch.promote_types(pred.dtype, torch.float32)
+    return _mean_over_rows((pred.to(dt) - target.to(dt)).square(), mask)
+
+
+def _mean_over_rows(per_elem: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of per_elem [B, ...], or with mask [B] of its valid rows."""
     if mask is None:
         return per_elem.mean()
-    w = mask.to(dt).reshape((-1,) + (1,) * (per_elem.dim() - 1)) \
-        .expand_as(per_elem)
+    w = mask.to(per_elem.dtype).reshape(
+        (-1,) + (1,) * (per_elem.dim() - 1)).expand_as(per_elem)
     return (per_elem * w).sum() / w.sum().clamp_min(1e-12)

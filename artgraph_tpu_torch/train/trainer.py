@@ -6,9 +6,14 @@ model's arguments and the loss are functions, as in the JAX trainer:
 
   forward_inputs(images, batch) -> the model's positional arguments
   compute_loss(outputs, batch) -> (scalar loss, metrics dict)
+  eval_compute_loss(outputs, batch), the same in eval_epoch (default
+    compute_loss)
 
 where `images` are the normalized images and `batch` the device batch (the
 default passes the images alone; the fusion trainers add the embeddings).
+The ContextNet / MultiModal trainers train on (image, embedding, label)
+batches and evaluate on image-only ones, with a loss of their own for
+each.
 Each step: the host batch (uint8 NHWC images, any f32 embeddings, labels,
 f32 mask) moves to the device, the normalize kernel runs
 (ops/preprocess.py), then the model, the loss, `backward()` (the kernels'
@@ -31,7 +36,7 @@ masks are not the JAX package's (another generator).
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +71,8 @@ class Trainer:
                  transform_type: str = "resnet",
                  device: str | torch.device = "cuda",
                  seed: int = config.GLOBAL_SEED,
-                 forward_inputs: Callable = image_only):
+                 forward_inputs: Callable = image_only,
+                 eval_compute_loss: Optional[Callable] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -79,6 +85,7 @@ class Trainer:
         self.model = model.to(self.device)
         self.optimizer = optimizer(self.model.parameters())
         self.compute_loss = compute_loss
+        self.eval_compute_loss = eval_compute_loss or compute_loss
         self.forward_inputs = forward_inputs
         self.transform_type = transform_type
         self.host_step = 0
@@ -146,10 +153,11 @@ class Trainer:
     @torch.no_grad()
     def eval_epoch(self, loader: Iterable[Batch],
                    collect_outputs: bool = False):
-        """Mean loss and metrics over the valid rows; with collect_outputs
-        also [(outputs, non-image batch components)] per batch, cut to the
-        valid rows, as numpy (a list of outputs, as the multitask models
-        return, element by element)."""
+        """Mean loss and metrics (eval_compute_loss) over the valid rows;
+        with collect_outputs also [(outputs, non-image batch components)]
+        per batch, every tensor of the outputs (a tensor, or nested lists
+        and tuples of them, as the multitask and context models return) cut
+        to the valid rows, as numpy."""
         self.model.eval()
         totals: Dict[str, torch.Tensor] = {}
         examples = 0.0
@@ -158,18 +166,24 @@ class Trainer:
             n = float(np.asarray(batch[-1]).sum())
             dev = self.to_device(batch)
             outputs = self._outputs(dev)
-            loss, metrics = self.compute_loss(outputs, dev)
+            loss, metrics = self.eval_compute_loss(outputs, dev)
             self._accumulate(totals, loss, metrics, n)
             examples += n
             if collect_outputs:
                 valid = int(n)
-                trim = lambda o: o[:valid].cpu().numpy()
                 collected.append((
-                    [trim(o) for o in outputs]
-                    if isinstance(outputs, (list, tuple)) else trim(outputs),
+                    _rows_to_numpy(outputs, valid),
                     tuple(np.asarray(b)[:valid] for b in batch[1:-1])))
         out = self._read(totals, examples)
         return (out, collected) if collect_outputs else out
+
+
+def _rows_to_numpy(outputs, n: int):
+    """Every tensor of a tree of lists and tuples cut to its first n rows,
+    as numpy; the tree's structure kept."""
+    if isinstance(outputs, (list, tuple)):
+        return type(outputs)(_rows_to_numpy(o, n) for o in outputs)
+    return outputs[:n].cpu().numpy()
 
 
 # --------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 KG-embedding stage (the hetero-GAT of train_gnn_embeddings), its ResNet50
 serving and training paths, the unfused ViT-B/16 trunk (ViT(fuse_qkv=False))
 and the standalone Attention module, the training of the fusion model
-NewMultiModalMultiTaskViT, and the four pipeline stages through their CLIs
-once on one NVIDIA GPU.
+NewMultiModalMultiTaskViT, the four pipeline stages through their CLIs, the
+ContextNet and MultiModal context models' training and the three baseline
+CLIs once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -201,6 +202,32 @@ sum's device time and launches a step.
               train_new_multimodal (ResNet50, gate open) on the same files.
               Each stage's lines, its launches of every kernel, and its
               checkpoint reloaded strict through load_reference_checkpoint.
+ 21. context train  ContextNetSingleTask(128, 18) (sgd_momentum(3e-4),
+              SmoothL1, lamb 0.9) and MultiModalMultiTask(128, {style: 32,
+              genre: 18}) (adam(3e-4), MSE, lamb 0.6, head dropout 0.2) at
+              full ResNet50 size, seeded weights, the joint loss of
+              train_baseline_context{,_multitask}, batch 32 of uint8 images
+              and an f32 [32, 128] embedding, ARTGRAPH_CONVBN=1: as phase
+              13, 2 warm-up and 8 timed steps (32 forward and 32 backward
+              unit launches and 1 normalize a step), losses finite and
+              falling, img/s, 2 profiled steps, and img/s and device ms a
+              step beside phase 13's gated ResnetSingleTask; one step on 4
+              images (head dropout 0) as phase 14: each unit launch against
+              its plain twin, and the loss, logits, graph_proj, head and
+              trunk gradients and BN statistics' updates against the
+              unfused f32 CPU path at phase 14's bound; one ragged step (no
+              unit launch); the model saved as a reference .pt and reloaded
+              strict (named `resnet.conv1.*` trunk keys for MultiModal,
+              indexed `resnet.0.*` for ContextNet).
+ 22. baseline cli  train_baseline_multitask --architecture resnet (gate
+              open) and --architecture vit, train_baseline_context --net
+              context-net and --net multi-modal, and
+              train_baseline_context_multitask --net multi-modal, with
+              --device cuda, 1 epoch at --batch 10 (the last batch ragged)
+              on a synthetic image tree (tests/_make_synth.py) with a train
+              embedding table written beside it: each run's lines, every
+              kernel's launches (the unit on the full train batches only),
+              its checkpoint reloaded strict and its results CSVs.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1513,14 +1540,15 @@ VIT_STEP_LAUNCHES = {"fused_block_attention": 12, "fused_block_mlp": 12,
                      "fused_block_mlp_bwd": 12, "normalize_images": 1}
 
 
-def _vit_train_run(label: str, trainer, batch, per_step: dict
-                   ) -> tuple[dict, float, float | None]:
-    """TRAIN_WARMUP + TRAIN_STEPS steps of a ViT-B/16 model on one host
-    batch through the Trainer on cuda, the counters zeroed just before the
-    timed steps: `per_step` launches a step of each kernel it names, every
-    other kernel 0; losses finite and falling; then PROFILED_STEPS profiled
-    steps. Returns (the launches of per_step's kernels, img/s, device busy
-    ms a step or None)."""
+def _train_run(label: str, trainer, batch, per_step: dict,
+               recipe: str = "adam(3e-4), dropout 0.4"
+               ) -> tuple[dict, float, float | None]:
+    """TRAIN_WARMUP + TRAIN_STEPS steps of a model on one host batch through
+    the Trainer on cuda, the counters zeroed just before the timed steps:
+    `per_step` launches a step of each kernel it names, every other kernel
+    0; losses finite and falling; then PROFILED_STEPS profiled steps.
+    Returns (the launches of per_step's kernels, img/s, device busy ms a
+    step or None)."""
     trainer.model.train()
 
     def step():
@@ -1544,7 +1572,7 @@ def _vit_train_run(label: str, trainer, batch, per_step: dict
     losses = torch.stack(losses).tolist()
     img_s = TRAIN_STEPS * B / seconds
     step_ms = 1e3 * seconds / TRAIN_STEPS
-    print(f"{label} bf16, adam(3e-4), dropout 0.4, batch {B} on cuda: "
+    print(f"{label} bf16, {recipe}, batch {B} on cuda: "
           f"{TRAIN_STEPS} steps in {seconds:.3f} s, {img_s:.1f} img/s, "
           f"{step_ms:.2f} ms/step; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
@@ -1574,7 +1602,7 @@ def train_phase() -> tuple[dict, dict]:
     batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
              rng.integers(0, 32, B).astype(np.int32),
              np.ones(B, np.float32))
-    counts, img_s, busy = _vit_train_run(
+    counts, img_s, busy = _train_run(
         "train: ViTSingleTask(32) ViT-B/16", trainer, batch,
         VIT_STEP_LAUNCHES)
     del trainer, model
@@ -2066,9 +2094,10 @@ def _conv_bn_gate(on: bool):
             os.environ["ARTGRAPH_CONVBN"] = saved
 
 
-def _resnet_train_steps(gate: bool) -> tuple[dict, float]:
+def _resnet_train_steps(gate: bool) -> tuple[dict, float, float | None]:
     """TRAIN_WARMUP + TRAIN_STEPS Adam steps of ResnetSingleTask(32) at
-    batch 32 on cuda, the fused unit's gate as given; (counts, img/s)."""
+    batch 32 on cuda, the fused unit's gate as given; (counts, img/s,
+    device busy ms a step or None)."""
     from artgraph_tpu_torch.cli._common import single_task_loss
     from artgraph_tpu_torch.models import ResnetSingleTask
     from artgraph_tpu_torch.train import Trainer, adam
@@ -2117,20 +2146,24 @@ def _resnet_train_steps(gate: bool) -> tuple[dict, float]:
                                  f"falling: {losses}")
         # the step is host-bound: the device time by gate is the comparison
         # that the launches do not blur
-        _profile_steps(step, PROFILED_STEPS, 1e3 * seconds / TRAIN_STEPS,
-                       label=f"resnet gate {label}")
+        work = _profile_steps(step, PROFILED_STEPS,
+                              1e3 * seconds / TRAIN_STEPS,
+                              label=f"resnet gate {label}")
+    busy = sum(ms for ms, _ in work.values())
     del trainer, model
     torch.cuda.empty_cache()
-    return counts, img_s
+    return counts, img_s, busy if busy > 0 else None
 
 
-def resnet_train_phase() -> dict:
-    """Phase 13: ResNet50 training with the fused unit, then without."""
-    counts, on = _resnet_train_steps(gate=True)
-    _, off = _resnet_train_steps(gate=False)
+def resnet_train_phase() -> tuple[dict, dict]:
+    """Phase 13: ResNet50 training with the fused unit, then without;
+    (launches, {"img_s", "busy_ms"} of the gate-on run) for phase 21's
+    comparison."""
+    counts, on, busy = _resnet_train_steps(gate=True)
+    _, off, _ = _resnet_train_steps(gate=False)
     print(f"resnet train: gate on {on:.1f} img/s against gate off {off:.1f} "
           f"img/s ({on / off:.4f}x)", flush=True)
-    return counts
+    return counts, {"img_s": on, "busy_ms": busy}
 
 
 def _bn_updates(model, before: dict) -> torch.Tensor:
@@ -2181,43 +2214,85 @@ def _units_held_to_plain(worst: dict):
         U.conv1x1_bn_stats_cuda, U.conv1x1_bn_stats_bwd_cuda = fwd, bwd
 
 
-def _resnet_step(src, device: str, dtype: torch.dtype, gate: bool, images,
-                 labels, held: dict | None = None) -> dict:
-    """One train-mode forward and backward of a copy of `src` (dropout 0)
-    on `device` in `dtype` with the fused unit's gate as given: the loss,
-    the logits, the trunk and head gradients and the BN statistics'
-    updates, in f64 on the CPU; and the unit's launches. With `held`, each
-    launch of the unit is held against its plain twin (_units_held_to_plain).
-    """
-    from artgraph_tpu_torch.models import ResnetSingleTask
+def _resnet_step(src, build, loss_of, device: str, dtype: torch.dtype,
+                 gate: bool, images, held: dict | None = None) -> dict:
+    """One train-mode forward and backward of a copy of `src`, build(dtype)
+    with dropout 0, on `device` in `dtype` with the fused unit's gate as
+    given. loss_of(outputs, device) -> (loss, {name: output tensor}).
+    Returns the loss, those outputs, the trunk (`resnet.*`) and head (the
+    rest) gradients and the BN statistics' updates, in f64 on the CPU; and
+    the unit's launches. With `held`, each launch of the unit is held
+    against its plain twin (_units_held_to_plain)."""
     from artgraph_tpu_torch.ops import normalize_images
-    from artgraph_tpu_torch.train import cross_entropy
 
     before = {n: b.double().clone() for n, b in src.named_buffers()
               if "running" in n}
-    model = ResnetSingleTask(32, dropout=0.0, dtype=dtype)
+    model = build(dtype)
     model.load_state_dict(src.state_dict())
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
     model = model.to(device).train()
     _zero_counts()
     check = (_units_held_to_plain(held) if held is not None
              else contextlib.nullcontext())
     with _conv_bn_gate(gate), check:
-        logits = model(normalize_images(images.to(device), "resnet"))
-        loss = cross_entropy(logits, labels.to(device))
+        loss, outputs = loss_of(
+            model(normalize_images(images.to(device), "resnet")), device)
         loss.backward()
     grads = {n: p.grad for n, p in model.named_parameters()}
     if any(g is None or not torch.isfinite(g).all() for g in grads.values()):
         raise AssertionError(f"resnet grads: a parameter on {device} has no "
                              f"finite gradient")
-    cat = lambda pre: torch.cat([g.to("cpu", torch.float64).flatten()
-                                 for n, g in grads.items()
-                                 if n.startswith(pre)])
+    cat = lambda trunk: torch.cat([g.to("cpu", torch.float64).flatten()
+                                   for n, g in grads.items()
+                                   if n.startswith("resnet.") == trunk])
     return {"loss": loss.detach().double().cpu().reshape(1),
-            "logits": logits.detach().double().cpu(),
-            "trunk gradient": cat("resnet."),
-            "head gradient": cat("classifier."),
+            **{k: v.detach().double().cpu() for k, v in outputs.items()},
+            "trunk gradient": cat(True),
+            "head gradient": cat(False),
             "BN statistics' updates": _bn_updates(model, before),
             "units": _read_counts(_conv_bn_counters)}
+
+
+def _hold_step(label: str, src, build, loss_of, images, n_img: int,
+               quantities: tuple) -> None:
+    """One step of src's weights on n_img images: the unit in bf16 on the
+    card, each of its 32 + 32 launches held against the plain twin on its
+    own inputs, against the unfused f32 path on the CPU; each quantity at
+    relative L2 <= max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR x the unfused
+    bf16 CPU path's own distance from the f32 one) (resnet_grad_phase)."""
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    held: dict = {}
+    card = _resnet_step(src, build, loss_of, "cuda", torch.bfloat16, True,
+                        images, held)
+    ref = _resnet_step(src, build, loss_of, "cpu", torch.float32, False,
+                       images)
+    floor = _resnet_step(src, build, loss_of, "cpu", torch.bfloat16, False,
+                         images)
+    calls = (held.get("forward calls"), held.get("backward calls"))
+    if card["units"] != dict.fromkeys(card["units"], RESNET_UNITS) or \
+            calls != (RESNET_UNITS, RESNET_UNITS):
+        raise AssertionError(f"{label}: unit launches {card['units']}, "
+                             f"held to the plain twin {held}, expected "
+                             f"{RESNET_UNITS} each")
+    print(f"{label}: the step's unit launches, each against its plain "
+          f"twin on its own inputs on the card (y, dx: worst err/(atol+rtol"
+          f"|ref|) at rtol {KERNEL_TOL}, atol {KERNEL_TOL} x mean|ref|, "
+          f"limit 1; s1, s2, dw, da, db: worst rel L2, limit {GRAD_REL_L2}; "
+          f"da, db without the prologue exactly 0): "
+          f"{ {k: round(v, 6) for k, v in held.items()} }", flush=True)
+    parts = []
+    for q in quantities:
+        got, base = rel(card[q], ref[q]), rel(floor[q], ref[q])
+        bound = max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * base)
+        parts.append(f"{q} {got:.4g} (unfused bf16 on the CPU {base:.4g}, "
+                     f"bound {bound:.4g})")
+        if not got <= bound:
+            raise AssertionError(f"{label}: {q} rel L2 {got} > {bound}")
+    print(f"{label}: one step on {n_img} images, ResNet50, the unit in "
+          f"bf16 on cuda ({card['units']}) vs unfused f32 on the CPU, rel "
+          f"L2: {'; '.join(parts)}", flush=True)
 
 
 def resnet_grad_phase() -> None:
@@ -2250,35 +2325,16 @@ def resnet_grad_phase() -> None:
     labels = torch.from_numpy(rng.integers(0, 32, n_img))
     src = _seeded_resnet_(ResnetSingleTask(32), SEED + 91)
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
-    held: dict = {}
-    card = _resnet_step(src, "cuda", torch.bfloat16, True, images, labels,
-                        held)
-    ref = _resnet_step(src, "cpu", torch.float32, False, images, labels)
-    floor = _resnet_step(src, "cpu", torch.bfloat16, False, images, labels)
-    calls = (held.get("forward calls"), held.get("backward calls"))
-    if card["units"] != dict.fromkeys(card["units"], RESNET_UNITS) or \
-            calls != (RESNET_UNITS, RESNET_UNITS):
-        raise AssertionError(f"resnet grads: unit launches {card['units']}, "
-                             f"held to the plain twin {held}, expected "
-                             f"{RESNET_UNITS} each")
-    print(f"resnet grads: the step's unit launches, each against its plain "
-          f"twin on its own inputs on the card (y, dx: worst err/(atol+rtol"
-          f"|ref|) at rtol {KERNEL_TOL}, atol {KERNEL_TOL} x mean|ref|, "
-          f"limit 1; s1, s2, dw, da, db: worst rel L2, limit {GRAD_REL_L2}; "
-          f"da, db without the prologue exactly 0): "
-          f"{ {k: round(v, 6) for k, v in held.items()} }", flush=True)
-    parts = []
-    for q in ("loss", "logits", "head gradient", "trunk gradient",
-              "BN statistics' updates"):
-        got, base = rel(card[q], ref[q]), rel(floor[q], ref[q])
-        bound = max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * base)
-        parts.append(f"{q} {got:.4g} (unfused bf16 on the CPU {base:.4g}, "
-                     f"bound {bound:.4g})")
-        if not got <= bound:
-            raise AssertionError(f"resnet grads: {q} rel L2 {got} > {bound}")
-    print(f"resnet grads: one step on {n_img} images, ResNet50, the unit in "
-          f"bf16 on cuda ({card['units']}) vs unfused f32 on the CPU, rel "
-          f"L2: {'; '.join(parts)}", flush=True)
+
+    def loss_of(logits, device):
+        return (cross_entropy(logits, labels.to(device)),
+                {"logits": logits})
+
+    _hold_step("resnet grads", src,
+               lambda dt: ResnetSingleTask(32, dropout=0.0, dtype=dt),
+               loss_of, images, n_img,
+               ("loss", "logits", "head gradient", "trunk gradient",
+                "BN statistics' updates"))
 
     # a ragged batch: the last half of the rows are padding
     valid = n_img // 2
@@ -2458,7 +2514,7 @@ def vit_unfused_train_phase() -> dict:
     batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
              rng.integers(0, 32, B).astype(np.int32),
              np.ones(B, np.float32))
-    counts, _, _ = _vit_train_run(
+    counts, _, _ = _train_run(
         "vit unfused train: ViTSingleTask(32) with ViT(fuse_qkv=False),",
         trainer, batch, {"fused_attention": 12, "fused_attention_bwd": 12,
                          "normalize_images": 1})
@@ -2641,7 +2697,7 @@ def multimodal_train_phase(vit_train: dict) -> dict:
                       transform_type="vit", device="cuda",
                       forward_inputs=image_and_embeddings)
     batch = _fusion_batch(np.random.default_rng(SEED + 90), B)
-    counts, img_s, busy = _vit_train_run(
+    counts, img_s, busy = _train_run(
         "multimodal train: NewMultiModalMultiTaskViT(128, style 32, genre "
         "18) ViT-B/16,", trainer, batch, VIT_STEP_LAUNCHES)
     del trainer, model
@@ -2657,9 +2713,11 @@ def multimodal_train_phase(vit_train: dict) -> dict:
     return counts
 
 
-def _run_cli(label: str, main, argv: list) -> tuple:
+def _run_cli(label: str, main, argv: list, phase: str = "pipeline cli"
+             ) -> tuple:
     """Run a CLI's main(argv) with the counters zeroed, its prints echoed
-    under label; (its return value, its output, every kernel's launches)."""
+    under phase and label; (its return value, its output, every kernel's
+    launches)."""
     out = io.StringIO()
     _zero_counts()
     t0 = time.perf_counter()
@@ -2669,24 +2727,26 @@ def _run_cli(label: str, main, argv: list) -> tuple:
     counts = {**_all_counts(), **_read_counts(_csr_counters)}
     text = out.getvalue()
     for line in text.splitlines():
-        print(f"pipeline cli: {label}: {line}")
-    print(f"pipeline cli: {label}: {seconds:.1f} s, launches "
+        print(f"{phase}: {label}: {line}")
+    print(f"{phase}: {label}: {seconds:.1f} s, launches "
           f"{ {k: n for k, n in counts.items() if n} }", flush=True)
     return ret, text, counts
 
 
-def _expect_launches(label: str, counts: dict, expect: dict) -> None:
+def _expect_launches(label: str, counts: dict, expect: dict,
+                     phase: str = "pipeline cli") -> None:
     want = dict.fromkeys(counts, 0)
     want.update(expect)
     if counts != want:
-        raise AssertionError(f"pipeline cli: {label}: launches {counts}, "
+        raise AssertionError(f"{phase}: {label}: launches {counts}, "
                              f"expected {want}")
 
 
-def _expect_lines(label: str, text: str, *wants: str) -> None:
+def _expect_lines(label: str, text: str, *wants: str,
+                  phase: str = "pipeline cli") -> None:
     for want in wants:
         if want not in text:
-            raise AssertionError(f"pipeline cli: {label}: no line with "
+            raise AssertionError(f"{phase}: {label}: no line with "
                                  f"{want!r}")
 
 
@@ -2890,6 +2950,251 @@ def pipeline_cli_phase() -> dict:
     return total
 
 
+RESNET_STEP_LAUNCHES = {"conv1x1_bn_stats": RESNET_UNITS,
+                        "conv1x1_bn_stats_bwd": RESNET_UNITS,
+                        "normalize_images": 1}
+
+
+def _context_nets() -> tuple:
+    """Phase 21's two context models, each (name, build(dtype), optimizer
+    factory, recipe text, the CLI's train loss, its eval loss, labels of
+    n rows from rng), as train_baseline_context{,_multitask} build them."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import (joint_loss, logits_loss,
+                                                multi_task_loss,
+                                                single_task_loss)
+    from artgraph_tpu_torch.models import (ContextNetSingleTask,
+                                           MultiModalMultiTask)
+    from artgraph_tpu_torch.train import adam, mse, sgd_momentum, smooth_l1
+
+    nc = config.NUM_CLASSES
+    single = single_task_loss(None, "cuda")
+    multi = multi_task_loss(None, None, 0.5, 0.5, "cuda")
+    return (
+        ("ContextNetSingleTask",
+         lambda dt: ContextNetSingleTask(config.EMB_SIZE, nc["genre"],
+                                         dtype=dt),
+         sgd_momentum(3e-4), "sgd_momentum(3e-4), smooth_l1, lamb 0.9",
+         joint_loss(single, smooth_l1, 0.9), logits_loss(single),
+         lambda rng, n: rng.integers(0, nc["genre"], n).astype(np.int32)),
+        ("MultiModalMultiTask",
+         lambda dt: MultiModalMultiTask(config.EMB_SIZE, nc, dtype=dt),
+         adam(3e-4), "adam(3e-4), mse, lamb 0.6, head dropout 0.2",
+         joint_loss(multi, mse, 0.6), logits_loss(multi),
+         lambda rng, n: np.stack([rng.integers(0, nc["style"], n),
+                                  rng.integers(0, nc["genre"], n)], 1)
+         .astype(np.int32)),
+    )
+
+
+def context_train_phase(resnet_train: dict) -> dict:
+    """Phase 21: ContextNetSingleTask and MultiModalMultiTask at full
+    ResNet50 size through the Trainer on cuda with the joint loss of their
+    CLIs and the fused unit's gate open: 2 warm-up and 8 timed steps (32
+    forward and 32 backward unit launches and 1 normalize a step), img/s
+    and device ms beside phase 13's gated ResnetSingleTask (resnet_train);
+    one step on 4 images (head dropout 0) against the unfused f32 path on
+    the CPU at phase 14's bound; one ragged step (no unit launch); the model
+    saved as a reference .pt and reloaded strict. Returns the launches of
+    the timed steps."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import (load_reference_checkpoint,
+                                                  save_reference_checkpoint)
+    from artgraph_tpu_torch.train import Trainer
+
+    total: dict = {}
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.3f} ms"
+    for i, (name, build, optimizer, recipe, train_loss, eval_loss,
+            labels_of) in enumerate(_context_nets()):
+        seed = SEED + 100 + 10 * i
+        src = _seeded_resnet_(build(torch.bfloat16), seed)
+        model = build(torch.bfloat16)
+        model.load_state_dict(src.state_dict())
+        trainer = Trainer(model, optimizer, train_loss,
+                          eval_compute_loss=eval_loss,
+                          transform_type="resnet", device="cuda")
+        rng = np.random.default_rng(seed)
+        batch = (rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
+                 rng.normal(size=(B, config.EMB_SIZE)).astype(np.float32),
+                 labels_of(rng, B), np.ones(B, np.float32))
+        with _conv_bn_gate(True):
+            counts, img_s, busy = _train_run(
+                f"context train: {name} ResNet50,", trainer, batch,
+                RESNET_STEP_LAUNCHES, recipe)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        ratio = (f"{busy / resnet_train['busy_ms']:.4f}x" if busy and
+                 resnet_train["busy_ms"] else "not measured")
+        print(f"context train: {name} against phase 13's ResnetSingleTask "
+              f"(gate on) in this run: {img_s:.1f} against "
+              f"{resnet_train['img_s']:.1f} img/s; device busy {fmt(busy)} "
+              f"against {fmt(resnet_train['busy_ms'])} a step ({ratio})",
+              flush=True)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # one step on 4 images, head dropout 0, against f32 on the CPU
+        n_img = 4
+        one = tuple(b[:n_img] for b in batch)
+
+        def loss_of(outputs, device):
+            dev = tuple(torch.from_numpy(np.asarray(b)).to(device)
+                        for b in one)
+            loss, _ = train_loss(outputs, dev)
+            logits, graph_proj = outputs
+            named = ({"logits": logits} if torch.is_tensor(logits) else
+                     {"style logits": logits[0], "genre logits": logits[1]})
+            return loss, {**named, "graph_proj": graph_proj}
+
+        outs = (("logits",) if name.startswith("ContextNet")
+                else ("style logits", "genre logits"))
+        _hold_step(f"context grads: {name}", src, build, loss_of,
+                   torch.from_numpy(one[0]), n_img,
+                   ("loss", *outs, "graph_proj", "head gradient",
+                    "trunk gradient", "BN statistics' updates"))
+
+        # a ragged step: the unit stays off
+        mask = np.zeros(n_img, np.float32)
+        mask[:n_img // 2] = 1.0
+        model = build(torch.bfloat16)
+        model.load_state_dict(src.state_dict())
+        trainer = Trainer(model, optimizer, train_loss,
+                          transform_type="resnet", device="cuda")
+        _zero_counts()
+        with _conv_bn_gate(True):
+            loss, _ = trainer.train_step(
+                trainer.to_device((*one[:3], mask)), ragged=True)
+        units = _read_counts(_conv_bn_counters)
+        if any(units.values()) or not torch.isfinite(loss):
+            raise AssertionError(f"context ragged step: {name}: unit "
+                                 f"launches {units}, loss {loss}")
+        print(f"context grads: {name}: one ragged step ({n_img // 2} of "
+              f"{n_img} rows valid) on cuda, gate open: unit launches "
+              f"{units}, loss {loss.item():.4f}", flush=True)
+
+        # the reference .pt: indexed trunk keys for ContextNet, torchvision's
+        # names for MultiModal, reloaded strict
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}.pt")
+            save_reference_checkpoint(src, path)
+            loaded = load_reference_checkpoint(name, path, "cuda")
+        sd, got = src.state_dict(), loaded.state_dict()
+        key = ("resnet.conv1.weight" if name.startswith("MultiModal")
+               else "resnet.0.weight")
+        if key not in got or sorted(got) != sorted(sd) or any(
+                not torch.equal(got[k].cpu().to(v.dtype), v)
+                for k, v in sd.items()):
+            raise AssertionError(f"context train: {name}: the reloaded .pt "
+                                 f"differs (keys {sorted(got)[:3]})")
+        print(f"context train: {name}: reference .pt of {len(got)} tensors "
+              f"({key}, ...) reloaded strict on cuda, equal", flush=True)
+        del loaded, src
+        torch.cuda.empty_cache()
+    return total
+
+
+def baseline_cli_phase() -> dict:
+    """Phase 22: train_baseline_multitask (ResNet50 with the unit's gate
+    open, and ViT-B/16), train_baseline_context (context-net, multi-modal)
+    and train_baseline_context_multitask (multi-modal) on cuda, 1 epoch at
+    --batch 10 on a synthetic image tree with a train embedding table
+    beside it: each run's lines, every kernel's launches (the unit on the
+    full train batches only), its checkpoint reloaded strict and its CSVs.
+    Returns every kernel's launches over the five runs."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli import (train_baseline_context,
+                                        train_baseline_context_multitask,
+                                        train_baseline_multitask)
+    from artgraph_tpu_torch.data.embeddings import save_embedding
+
+    total: dict = {}
+    batch = 10
+    nb = lambda n: -(-n // batch)
+    multi = ["Train loss: ", "train style accuracy: ",
+             "validation genre accuracy ", "Test style accuracy: "]
+    single = ["Train loss: ", "validation accuracy: ", "Test accuracy: "]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = _load_synth().make_image_tree(root)
+        ds, img = root / "dataset", root / "images"
+        save_embedding(str(ds / "train" / "embeddings" / "emb.pt"),
+                       np.random.default_rng(SEED + 120).normal(
+                           size=(counts["train"], config.EMB_SIZE))
+                       .astype(np.float32))
+        full, n_train = counts["train"] // batch, nb(counts["train"])
+        if counts["train"] % batch == 0:
+            raise AssertionError("baseline cli: the last batch is not ragged")
+        units = {"conv1x1_bn_stats": RESNET_UNITS * full,
+                 "conv1x1_bn_stats_bwd": RESNET_UNITS * full}
+        blocks = lambda fwd, bwd: {"fused_block_attention": 12 * fwd,
+                                   "fused_block_mlp": 12 * fwd,
+                                   "fused_block_attention_bwd": 12 * bwd,
+                                   "fused_block_mlp_bwd": 12 * bwd}
+        emb = ["--emb_train", "emb.pt"]
+        evals = {1: nb(counts["validation"]) + nb(counts["test"]),
+                 2: nb(counts["validation"]) + 2 * nb(counts["test"])}
+        runs = (
+            ("multitask resnet", train_baseline_multitask.main,
+             ["--architecture", "resnet"], multi, "ResnetMultiTask",
+             "resnet_baseline_single-task_checkpoint.pt", 2,
+             {**units, "normalize_images": n_train + evals[2]}),
+            ("multitask vit", train_baseline_multitask.main,
+             ["--architecture", "vit"], multi, "ViTMultiTask",
+             "vit_baseline_single-task_checkpoint.pt", 2,
+             {**blocks(n_train + evals[2], n_train),
+              "normalize_images": n_train + evals[2]}),
+            ("context context-net", train_baseline_context.main,
+             ["--net", "context-net", "--label", "genre", *emb], single,
+             "ContextNetSingleTask",
+             "genre_context-net_single-task_checkpoint.pt", 1,
+             {**units, "normalize_images": n_train + evals[1]}),
+            ("context multi-modal", train_baseline_context.main,
+             ["--net", "multi-modal", "--label", "style", *emb], single,
+             "MultiModalSingleTask",
+             "style_multi-modal_single-task_checkpoint.pt", 1,
+             {**units, "normalize_images": n_train + evals[1]}),
+            ("context multitask multi-modal",
+             train_baseline_context_multitask.main,
+             ["--net", "multi-modal", *emb], multi, "MultiModalMultiTask",
+             "multi-modal_multi-task_checkpoint.pt", 2,
+             {**units, "normalize_images": n_train + evals[2]}),
+        )
+        for label, main, extra, lines, model_name, ckpt, tasks, expect \
+                in runs:
+            results = root / f"results_{label.replace(' ', '_')}"
+            with _conv_bn_gate(True):
+                ret, text, c = _run_cli(
+                    label, main,
+                    ["--dataset_path", str(ds), "--image_path", str(img),
+                     "--device", "cuda", "--num_workers", "4", "--epochs",
+                     "1", "--batch", str(batch), "--results_dir",
+                     str(results), *extra], phase="baseline cli")
+            for k, n in c.items():
+                total[k] = total.get(k, 0) + n
+            _expect_lines(label, text, *lines, phase="baseline cli")
+            _expect_launches(label, c, expect, phase="baseline cli")
+            accs = ret if isinstance(ret, tuple) else (ret,)
+            names = (["results_style.csv", "results_genre.csv"] if tasks == 2
+                     else ["results.csv"])
+            if len(accs) != tasks or not all(0.0 <= a <= 1.0 for a in accs) \
+                    or not all((results / n).exists() for n in names):
+                raise AssertionError(
+                    f"baseline cli: {label}: accuracies {accs}, CSVs "
+                    f"{sorted(os.listdir(results))}")
+            model = load_reference_checkpoint(
+                model_name, os.path.join(config.CHECKPOINTS_DIR, ckpt),
+                "cuda")
+            print(f"baseline cli: {label}: {ckpt} reloaded strict as "
+                  f"{model_name} ({len(model.state_dict())} tensors); "
+                  f"{', '.join(names)} written; test accuracy {accs}",
+                  flush=True)
+            del model
+    print(f"baseline cli: the three trainers on cuda on {counts} synthetic "
+          f"images: launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -2918,14 +3223,17 @@ def main() -> int:
         gnn_cli_phase()
         launches["normalize_images"] += \
             resnet_serve_phase()["normalize_images"]
-        for k, n in resnet_train_phase().items():
+        counts, resnet_train = resnet_train_phase()
+        for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
         resnet_grad_phase()
         resnet_cli_phase(checkpoints_dir)
         for phase in (vit_unfused_serve_phase, vit_unfused_train_phase,
                       attention_module_phase,
                       lambda: multimodal_train_phase(vit_train),
-                      pipeline_cli_phase):
+                      pipeline_cli_phase,
+                      lambda: context_train_phase(resnet_train),
+                      baseline_cli_phase):
             for k, n in phase().items():
                 launches[k] = launches.get(k, 0) + n
     finally:

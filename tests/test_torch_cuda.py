@@ -711,3 +711,71 @@ def test_cuda_fusion_training_step_launches_the_block_kernels(monkeypatch):
             continue
         assert torch.isfinite(p).all() and not torch.equal(
             p.detach().cpu(), before[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_context_training_step_matches_the_plain_path(monkeypatch):
+    """One Trainer step of MultiModalMultiTask (a ResNet50 of stage sizes
+    (1, 1, 1, 1) at full widths, bf16, 64x64 images, batch 8, head dropout
+    0) on the card with train_baseline_context_multitask's joint loss (the
+    0.5/0.5 class loss, MSE, lamb 0.6), the fused unit's gate open: 1
+    normalize and 2 forward and 2 backward unit launches a bottleneck; the
+    step's loss, logits and graph_proj within relative L2 5e-2 of the same
+    step on the plain path (the gate closed: cuDNN and eager BatchNorm, no
+    unit launch); every parameter updated and finite on both."""
+    _need_cuda()
+    import functools
+
+    from artgraph_tpu_torch.cli._common import joint_loss, multi_task_loss
+    from artgraph_tpu_torch.models import ResNet50, heads, init_random_
+    from artgraph_tpu_torch.train import Trainer, adam, mse
+
+    stages = (1, 1, 1, 1)
+    monkeypatch.setattr(heads, "ResNet50",
+                        functools.partial(ResNet50, stage_sizes=stages))
+    nc = {"style": 32, "genre": 18}
+    src = init_random_(heads.MultiModalMultiTask(128, nc),
+                       torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    batch = (rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+             rng.normal(size=(8, 128)).astype(np.float32),
+             np.stack([rng.integers(0, 32, 8), rng.integers(0, 18, 8)], 1)
+             .astype(np.int32), np.ones(8, np.float32))
+    train_loss = joint_loss(multi_task_loss(None, None, 0.5, 0.5, "cuda"),
+                            mse, 0.6)
+    runs = {}
+    for gate in (True, False):
+        if gate:
+            monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
+        else:
+            monkeypatch.delenv("ARTGRAPH_CONVBN")
+        model = heads.MultiModalMultiTask(128, nc)
+        model.load_state_dict(src.state_dict())
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        seen = []
+
+        def compute(outputs, b):
+            seen.append([t.detach().float().cpu() for t in
+                         (*outputs[0], outputs[1])])
+            return train_loss(outputs, b)
+
+        trainer = Trainer(model, adam(3e-4), compute, device="cuda")
+        for mod in (conv_bn, preprocess):
+            monkeypatch.setattr(mod, "LAUNCHES", 0)
+        monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
+        loss, _ = trainer.train_step(trainer.to_device(batch))
+        torch.cuda.synchronize()
+        units = 2 * len(stages) if gate else 0
+        assert (conv_bn.LAUNCHES, conv_bn.LAUNCHES_BWD, preprocess.LAUNCHES) \
+            == (units, units, 1), gate
+        assert torch.isfinite(loss)
+        for n, p in model.named_parameters():
+            assert torch.isfinite(p).all() and not torch.equal(
+                p.detach().cpu(), src.state_dict()[n]), (gate, n)
+        runs[gate] = [loss.double().cpu().reshape(1), *seen[0]]
+    for name, ours, plain in zip(("loss", "style", "genre", "graph_proj"),
+                                 runs[True], runs[False]):
+        rel = (ours.double() - plain.double()).norm() / plain.double().norm()
+        assert rel <= 5e-2, (name, float(rel))

@@ -16,8 +16,10 @@ and train_new_multimodal) against the JAX package, on the CPU.
     results_style*.csv and results_genre*.csv; train_new_multimodal's early
     stopping fed the negative validation accuracy; a ViT projector in a
     directory of its own;
-  * the parsers refuse the JAX CLIs' TPU extras, and the default --device
-    cuda raises without a card.
+  * the parsers of these four CLIs and of train_baseline_multitask,
+    train_baseline_context and train_baseline_context_multitask refuse the
+    JAX CLIs' TPU extras, and their default --device cuda raises without a
+    card.
 """
 import functools
 import os
@@ -41,7 +43,11 @@ from artgraph_tpu.models.resnet import ResNet50 as JaxResNet50
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.checkpointing import (load_reference_checkpoint,
                                               save_reference_checkpoint)
-from artgraph_tpu_torch.cli import (generate_projections, train_gnn_embeddings,
+from artgraph_tpu_torch.cli import (generate_projections,
+                                    train_baseline_context,
+                                    train_baseline_context_multitask,
+                                    train_baseline_multitask,
+                                    train_gnn_embeddings,
                                     train_new_multimodal,
                                     train_new_multimodal_multitask,
                                     train_projector)
@@ -306,6 +312,9 @@ CLIS = {
     "generate_projections": generate_projections.main,
     "train_new_multimodal": train_new_multimodal.main,
     "train_new_multimodal_multitask": train_new_multimodal_multitask.main,
+    "train_baseline_multitask": train_baseline_multitask.main,
+    "train_baseline_context": train_baseline_context.main,
+    "train_baseline_context_multitask": train_baseline_context_multitask.main,
 }
 
 

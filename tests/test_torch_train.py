@@ -282,8 +282,20 @@ def test_datasets_and_class_weights_match_jax(synthetic_dataset):
     np.testing.assert_array_equal(
         get_class_weights(ours[0], 4, "style"),
         jax_weights(ref[0], 4, "style"))
-    with pytest.raises(NotImplementedError):
-        load_dataset(*args, mode="multi_task")
+    # the multitask mode (the refusal before the multitask trainers came):
+    # [B, 2] labels and each task's class weights, as the JAX package's
+    ours = load_dataset(*args, mode="multi_task")
+    ref = jax_load_dataset(*args, mode="multi_task")
+    for o, r in zip(ours, ref):
+        pd.testing.assert_frame_equal(o.dataset, r.dataset)
+        for a, b in zip(o.get_batch(np.array([2, 0])),
+                        r.get_batch(np.array([2, 0]))):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    for task, n in (("style", 4), ("genre", 3)):
+        np.testing.assert_array_equal(get_class_weights(ours[0], n, task),
+                                      jax_weights(ref[0], n, task))
+    with pytest.raises(ValueError, match="mode"):
+        load_dataset(*args, mode="three_task")
 
 
 def test_early_stopping_matches_jax():

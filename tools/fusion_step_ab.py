@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 6 step (ViTSingleTask(32)) against its phase 19
 step (NewMultiModalMultiTaskViT(128, style 32, genre 18)) on one card, in
-turns: where the fusion step's extra time goes.
+turns: where the fusion step's extra time goes. With --context, phase 13's
+gated ResnetSingleTask(32) step (A) against phase 21's ContextNetSingleTask
+(B) and MultiModalMultiTask (C) steps, ARTGRAPH_CONVBN=1.
 
-    python3 tools/fusion_step_ab.py          # from the root of a checkout
+    python3 tools/fusion_step_ab.py [--context]   # from a checkout's root
 
 Both models at full ViT-B/16 width with chip_smoke.py's seeds, batches (32
 images), Trainer, adam(3e-4) and dropout 0.4, after 2 warm-up steps each.
 Each round runs windows of 8 steps in the order A B Ad Bd Bd Ad B A, where
 A is the ViT step and B the fusion step as the phases run them (the host
 batch copied to the card inside each step) and Ad, Bd the same steps on a
-batch already on the card (no H2D). For each window: ms a step by the host
+batch already on the card (no H2D); with --context A B C Ad Bd Cd, then
+the same reversed. For each window: ms a step by the host
 clock ending in a synchronize. Then, for each model, one torch.profiler
 session of 4 steps: the device's busy ms a step (kernels, memcpys and
 memsets) and the host ops with the most self CPU time a step, and their
 sum. Prints the card as nvidia-smi names it; needs CUDA.
 """
+import os
 import statistics
 import subprocess
 import sys
@@ -62,7 +66,39 @@ def _trainers():
                                            cs.B))}
 
 
-def main() -> int:
+def _context_trainers():
+    """{label: (trainer, host batch)} for A (phase 13's gated
+    ResnetSingleTask), B and C (phase 21's context models), with the
+    phases' seeds."""
+    import chip_smoke as cs
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import single_task_loss
+    from artgraph_tpu_torch.models import ResnetSingleTask
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    rng = np.random.default_rng(cs.SEED + 81)
+    out = {"A": (Trainer(cs._seeded_resnet_(ResnetSingleTask(32, dropout=0.4),
+                                            cs.SEED + 80),
+                         adam(3e-4), single_task_loss(None),
+                         transform_type="resnet", device="cuda"),
+                 (rng.integers(0, 256, (cs.B, 224, 224, 3), dtype=np.uint8),
+                  rng.integers(0, 32, cs.B).astype(np.int32),
+                  np.ones(cs.B, np.float32)))}
+    for i, (label, (_, build, optimizer, _, train_loss, _, labels_of)) in \
+            enumerate(zip("BC", cs._context_nets())):
+        seed = cs.SEED + 100 + 10 * i
+        rng = np.random.default_rng(seed)
+        out[label] = (
+            Trainer(cs._seeded_resnet_(build(torch.bfloat16), seed),
+                    optimizer, train_loss, transform_type="resnet",
+                    device="cuda"),
+            (rng.integers(0, 256, (cs.B, 224, 224, 3), dtype=np.uint8),
+             rng.normal(size=(cs.B, config.EMB_SIZE)).astype(np.float32),
+             labels_of(rng, cs.B), np.ones(cs.B, np.float32)))
+    return out
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("fusion_step_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -74,8 +110,16 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--context" in argv:
+        os.environ["ARTGRAPH_CONVBN"] = "1"
+        trainers = _context_trainers()
+    else:
+        trainers = _trainers()
+    labels = list(trainers)
+    order = labels + [label + "d" for label in labels]
+    order += order[::-1]
     steps = {}
-    for label, (trainer, batch) in _trainers().items():
+    for label, (trainer, batch) in trainers.items():
         trainer.model.train()
         on_card = trainer.to_device(batch)
         steps[label] = lambda t=trainer, b=batch: t.train_step(t.to_device(b))
@@ -87,7 +131,7 @@ def main() -> int:
 
     ms = {k: [] for k in steps}
     for _ in range(ROUNDS):
-        for label in ("A", "B", "Ad", "Bd", "Bd", "Ad", "B", "A"):
+        for label in order:
             t0 = time.perf_counter()
             for _ in range(STEPS):
                 steps[label]()
@@ -100,7 +144,7 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    for label in ("A", "B"):
+    for label in labels:
         work, _ = cs._device_work(steps[label], PROFILED)
         busy = sum(v for v, _ in work.values())
         with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -120,4 +164,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
