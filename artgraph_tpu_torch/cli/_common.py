@@ -5,18 +5,20 @@ joint loss, checkpoints, the epoch loop and the test evaluation.
 Port of the part of artgraph_tpu/cli/_common.py that the image, context,
 projector and fusion trainers need.
 Flag names, defaults, checkpoint naming, print formats and the results CSVs
-are the reference's. Added: `--device` (default `cuda`, as `predict`).
+are the reference's. Added: `--device` (default `cuda`, as `predict`), and
+the JAX CLIs' `--image_cache` (data/cache.py), `--resident_data`
+(data/resident.py) and `--no_epoch_scan` (the resident loader's per-batch
+stream instead of its epoch matrices), on `cuda` and on the CPU alike.
 Refused, because they need modules the port does not have yet (ROADMAP.md
 §1): the JAX CLIs' `--resume` and `--init_checkpoint` (checkpoint and
-warm-start plumbing), `--image_cache`, `--resident_data` and
-`--no_epoch_scan` (the decoded cache and device-resident data),
-`--data_parallel` (the data mesh) and `-t/--tracking` (MLflow); the port's
-parser does not accept them.
+warm-start plumbing), `--data_parallel` (the data mesh) and `-t/--tracking`
+(MLflow); the port's parser does not accept them.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -24,7 +26,10 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.checkpointing import save_reference_checkpoint
-from artgraph_tpu_torch.data.loader import prepare_dataloader
+from artgraph_tpu_torch.data.cache import wrap_with_cache
+from artgraph_tpu_torch.data.loader import DataLoader, prepare_dataloader
+from artgraph_tpu_torch.data.resident import (ResidentCapacityError,
+                                              ResidentLoader)
 from artgraph_tpu_torch.metrics import summarize, write_results
 from artgraph_tpu_torch.train import cross_entropy
 from artgraph_tpu_torch.train.trainer import Trainer, accuracy_metrics
@@ -53,6 +58,20 @@ def get_base_arguments() -> argparse.ArgumentParser:
                         help='If set, emit reference-schema results CSVs here.')
     parser.add_argument('--device', type=str, default='cuda',
                         help='Torch device to train on (cuda, cuda:N or cpu).')
+    parser.add_argument('--image_cache', type=str, default=None,
+                        help='Directory for the decoded-uint8 image cache '
+                             '(first epoch decodes once; later epochs read '
+                             'at memory bandwidth).')
+    parser.add_argument('--resident_data', action='store_true',
+                        help='Keep the decoded dataset resident in device '
+                             'memory and gather batches on device (zero bulk '
+                             'H2D per step). Needs the uint8 dataset + '
+                             'embeddings to fit in device memory '
+                             '(~150KB/image).')
+    parser.add_argument('--no_epoch_scan', action='store_true',
+                        help='With --resident_data, keep per-batch step '
+                             'dispatch instead of running the epoch from '
+                             'its uploaded index and mask matrices.')
     return parser
 
 
@@ -70,12 +89,36 @@ def resolve_device(name: str) -> torch.device:
 
 
 def make_loaders(datasets: Dict, batch_size: int, num_workers: int,
-                 seed: int = config.GLOBAL_SEED):
+                 seed: int = config.GLOBAL_SEED, cache_dir: str = None,
+                 resident: bool = False, epoch_scan: bool = True,
+                 device: str | torch.device = "cuda"):
     """Reference loader kwargs (ref: train_baseline.py:23-25): shuffled,
-    no drop_last; the last batch padded with a mask."""
-    return prepare_dataloader(datasets, batch_size=batch_size, shuffle=True,
-                              drop_last=False, num_workers=num_workers,
-                              seed=seed)
+    no drop_last; the last batch padded with a mask.
+
+    `cache_dir` routes every split's images through the decoded cache.
+    `resident=True` keeps each split on `device` (data/resident.py); a
+    split that exceeds the device-memory budget WARNS and keeps the host
+    DataLoader, as the JAX package's capacity rule does: its batches still
+    train on the device."""
+    if cache_dir:
+        datasets = {name: wrap_with_cache(ds, cache_dir, name)
+                    for name, ds in datasets.items()}
+    host_kwargs = dict(batch_size=batch_size, shuffle=True, drop_last=False,
+                       num_workers=num_workers, seed=seed)
+    if not resident:
+        return prepare_dataloader(datasets, **host_kwargs)
+    loaders = {}
+    for name, ds in datasets.items():
+        try:
+            loaders[name] = ResidentLoader(
+                ds, batch_size=batch_size, shuffle=True, drop_last=False,
+                seed=seed, epoch_scan=epoch_scan, device=device)
+        except ResidentCapacityError as e:
+            warnings.warn(f"--resident_data: split {name!r} exceeds the "
+                          f"device memory budget ({e}); using the host "
+                          f"loader")
+            loaders[name] = DataLoader(ds, **host_kwargs)
+    return loaders
 
 
 def single_task_loss(class_weights: Optional[np.ndarray],

@@ -50,7 +50,9 @@ def main(argv=None):
         mode='single_task', label=args.label, transform_type=args.architecture)
     loaders = make_loaders({'train': dataset_train, 'valid': dataset_valid,
                             'test': dataset_test}, args.batch,
-                           args.num_workers)
+                            args.num_workers, cache_dir=args.image_cache,
+                            resident=args.resident_data,
+                            epoch_scan=not args.no_epoch_scan, device=device)
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init

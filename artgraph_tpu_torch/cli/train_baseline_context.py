@@ -70,7 +70,9 @@ def main(argv=None):
         emb_train=args.emb_train)
     loaders = make_loaders({'train': dataset_train, 'valid': dataset_valid,
                             'test': dataset_test}, args.batch,
-                           args.num_workers)
+                            args.num_workers, cache_dir=args.image_cache,
+                            resident=args.resident_data,
+                            epoch_scan=not args.no_epoch_scan, device=device)
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init

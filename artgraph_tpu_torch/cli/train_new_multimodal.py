@@ -66,7 +66,9 @@ def main(argv=None):
         emb_valid=args.emb_valid, emb_test=args.emb_test)
     loaders = make_loaders({'train': dataset_train, 'valid': dataset_valid,
                             'test': dataset_test}, args.batch,
-                           args.num_workers)
+                            args.num_workers, cache_dir=args.image_cache,
+                            resident=args.resident_data,
+                            epoch_scan=not args.no_epoch_scan, device=device)
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init

@@ -59,7 +59,9 @@ def main(argv=None):
         node_embedding=args.node_embedding, emb_type=args.emb_type)
     loaders = make_loaders({'train': dataset_train, 'valid': dataset_valid,
                             'test': dataset_test}, args.batch,
-                           args.num_workers)
+                            args.num_workers, cache_dir=args.image_cache,
+                            resident=args.resident_data,
+                            epoch_scan=not args.no_epoch_scan, device=device)
 
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
     model = (LabelProjector if args.architecture == 'resnet'

@@ -5,8 +5,9 @@ Port of artgraph_tpu/data/datasets.py: `_ImageDataset`, the image-only
 the ContextNet / MultiModal, fusion and projector datasets (ref:
 src/data/data_kg.py:58-180) and `Subset`. Items are (uint8 NHWC image,
 ..., label(s)); `get_batch` assembles a whole batch with one gather per
-component, the same arrays as the JAX package's. Normalization runs on the
-device (ops/preprocess.py).
+component, the same arrays as the JAX package's; with a complete decoded
+cache (data/cache.py) the images are one slice of its memmap. Normalization
+runs on the device (ops/preprocess.py).
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ class _ImageDataset:
             os.path.join(self.image_dir, self.dataset.iloc[idx, 0]))
 
     def _images_batch(self, idx: np.ndarray) -> np.ndarray:
+        cache = getattr(self, "_decoded_cache", None)
+        if cache is not None and cache.valid[idx].all():
+            return cache.data[idx]   # one gather from the memmap (a copy)
         return np.stack([self._image(int(i)) for i in idx])
 
     def _col_i32(self, col: int) -> np.ndarray:

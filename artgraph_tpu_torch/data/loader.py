@@ -5,10 +5,13 @@ thread pool decodes batches ahead of consumption (JPEG decode and PIL resize
 release the interpreter lock), and every batch has the same shape: the final
 ragged batch is padded to `batch_size` and an f32 validity mask is appended,
 so a step sees one shape per epoch and the losses and metrics weight rows by
-the mask. Batches are numpy arrays; the Trainer moves them to the device.
+the mask. Batches are numpy arrays; the Trainer moves them to the device,
+one batch ahead, through `pipeline`.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Tuple
 
@@ -115,3 +118,46 @@ def prepare_dataloader(datasets: Dict[str, object], batch_size: int,
                              drop_last=drop_last, num_workers=num_workers,
                              seed=seed)
             for name, ds in datasets.items()}
+
+
+def pipeline(iterator, size: int = 2):
+    """Run `iterator` in a background thread, up to `size` items ahead of
+    the consumer (port of the JAX package's `pipeline`): whatever work each
+    item takes (batch assembly, a copy to the device) overlaps the
+    consumer's. An exception in the thread is raised to the consumer; a
+    consumer that stops early stops the thread and waits for it."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    done, stop, err = object(), threading.Event(), []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+        except BaseException as e:   # raised again in the consumer
+            err.append(e)
+        finally:
+            put(done)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()

@@ -1,8 +1,8 @@
 """Single-device trainer for the image models.
 
 Port of artgraph_tpu/train/trainer.py (`Trainer`, `accuracy_metrics`, `adam`,
-`sgd_momentum`) without its mesh, resident-data and epoch-scan branches. The
-model's arguments and the loss are functions, as in the JAX trainer:
+`sgd_momentum`) without its mesh branches. The model's arguments and the
+loss are functions, as in the JAX trainer:
 
   forward_inputs(images, batch) -> the model's positional arguments
   compute_loss(outputs, batch) -> (scalar loss, metrics dict)
@@ -14,38 +14,73 @@ default passes the images alone; the fusion trainers add the embeddings).
 The ContextNet / MultiModal trainers train on (image, embedding, label)
 batches and evaluate on image-only ones, with a loss of their own for
 each.
-Each step: the host batch (uint8 NHWC images, any f32 embeddings, labels,
-f32 mask) moves to the device, the normalize kernel runs
-(ops/preprocess.py), then the model, the loss, `backward()` (the kernels'
-backward on cuda) and the optimizer step.
-A ragged batch (the host's mask has padded rows) runs under
-`bn_batch_mask`, so the BatchNorm statistics of a model that has them cover
-its valid rows only, as the reference's smaller unpadded final batch does; a
-full batch runs unmasked, and only there can the fused conv + BN-statistics
-unit run. A model without BatchNorm (ViT) never reads the mask. The
-host decides from the numpy mask it already holds: no device sync.
-Metrics accumulate on the device and the host reads them once per
-epoch: the loss total weighted by each batch's valid count, as the reference
+Each step: the batch (uint8 NHWC images, any f32 embeddings, labels, f32
+mask) on the device, the normalize kernel (ops/preprocess.py), the model,
+the loss, `backward()` (the kernels' backward on cuda) and the optimizer
+step. A ragged batch (the mask has padded rows) of a model with BatchNorm
+runs under `bn_batch_mask`, so its statistics cover the valid rows only, as
+the reference's smaller unpadded final batch does; a full batch runs
+unmasked, and only there can the fused conv + BN-statistics unit run. A
+model without BatchNorm (ViT) never reads the mask. The host decides from
+the valid count it already holds: no device sync.
+Metrics accumulate on the device and the host reads them once per epoch:
+the loss total weighted by each batch's valid count, as the reference
 accumulates `loss.item() * n` (ref: train_baseline.py:68-70), and the other
 metrics (masked correct counts) summed.
 
+The fast paths of the JAX trainer, on cuda:
+
+  * one program a step: as the JAX step is one XLA program, every full
+    training batch (and a padded ragged one of a model without BatchNorm)
+    runs as one CUDA graph replay: normalize, forward, loss, backward, the
+    optimizer step and the metric totals. A graph is captured per key
+    (train or eval, the batch's shapes and dtypes, the ARTGRAPH_CONVBN
+    gate) after one eager step on a side stream, which is that batch's own
+    step and creates the optimizer's state, the kernels' library and its
+    once-per-process attributes and the cuBLAS and cuDNN handles. The
+    inputs are static buffers the batch is copied into, the gradients live
+    in the graph's pool, and Adam runs capturable and fused (adam()).
+    The eager steps on cuda are those warm-ups, a BatchNorm model's ragged
+    tail, and `train_step` called directly; a failed capture or replay
+    raises. Evaluation has graphs of its own (eval mode, no gradients).
+    The launch counters (ops/launches.py) gain the captured step's counts
+    at each replay;
+  * the next host batch is assembled into pinned buffers and copied on a
+    side stream by a background thread while the current one runs
+    (`_prefetched`); on the CPU the thread only assembles;
+  * a `ResidentLoader` (data/resident.py) runs an epoch from its index and
+    mask matrices, one upload each: the gather from the resident data is
+    inside the captured step, and each step copies its row of the matrices
+    into the graph's static buffers, device to device. With
+    `epoch_scan=False` the loader's per-batch `device_iter()` feeds the
+    same graphed step instead.
+Off cuda every step runs eagerly, through the same code.
+
 Random state is explicit: the trainer seeds its device's generator, which
-nn.Dropout draws from, with `seed` (GLOBAL_SEED in the CLIs). The dropout
-masks are not the JAX package's (another generator).
+nn.Dropout draws from, with `seed` (GLOBAL_SEED in the CLIs); a graph
+replay advances it as the eager step would. The dropout masks are not the
+JAX package's (another generator).
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import warnings
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from artgraph_tpu_torch import config
+from artgraph_tpu_torch.data.loader import pipeline
 from artgraph_tpu_torch.models.resnet import bn_batch_mask
-from artgraph_tpu_torch.ops import normalize_images
+from artgraph_tpu_torch.ops import launches, normalize_images
 
 Batch = Tuple[np.ndarray, ...]
+
+# Adam(capturable=True) warns on each eager step; the eager steps here are
+# the documented ones (the warm-ups, ragged tails, train_step)
+_CAPTURABLE_EAGER = "This instance was constructed with capturable=True"
 
 
 def accuracy_metrics(logits: torch.Tensor, labels: torch.Tensor,
@@ -61,6 +96,31 @@ def accuracy_metrics(logits: torch.Tensor, labels: torch.Tensor,
 def image_only(images: torch.Tensor, batch) -> tuple:
     """The default forward_inputs: the model takes the images alone."""
     return (images,)
+
+
+class _Graph:
+    """One captured step: the graph, its static inputs and outputs, and the
+    launches of each counter that one replay makes."""
+
+    def __init__(self, graph, inputs, outputs, counts):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.counts = counts
+
+
+def _signature(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _conv_bn_gate() -> bool:
+    """ARTGRAPH_CONVBN as models/resnet.py:conv_bn_kernels_on reads it."""
+    return os.environ.get("ARTGRAPH_CONVBN", "") == "1"
+
+
+def _tree(fn, tree):
+    """fn on every tensor of a tree of lists and tuples."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree(fn, t) for t in tree)
+    return fn(tree)
 
 
 class Trainer:
@@ -89,6 +149,15 @@ class Trainer:
         self.forward_inputs = forward_inputs
         self.transform_type = transform_type
         self.host_step = 0
+        self.has_bn = any(name.endswith("running_mean")
+                          for name, _ in self.model.named_buffers())
+        # device totals of the epoch, updated in place by eager steps and
+        # graph replays alike (a graph holds their addresses)
+        self._totals: Dict[str, Dict[str, torch.Tensor]] = {
+            "train": {}, "eval": {}}
+        self.graphs: Dict[tuple, _Graph] = {}
+        self._side = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
 
     def to_device(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.from_numpy(np.asarray(b)).to(self.device)
@@ -98,19 +167,44 @@ class Trainer:
         images = normalize_images(batch[0], self.transform_type)
         return self.model(*self.forward_inputs(images, batch))
 
-    def train_step(self, batch: Tuple[torch.Tensor, ...],
-                   ragged: bool = False):
-        """One fwd + bwd + update on a device batch (model in train mode);
-        returns the loss and metrics as device tensors. `ragged`: the batch's
-        mask (its last component) has padded rows."""
+    def _step(self, batch: Tuple[torch.Tensor, ...], ragged: bool):
+        """fwd + bwd + update; the loss and metrics as device tensors."""
         ctx = bn_batch_mask(batch[-1]) if ragged else contextlib.nullcontext()
         with ctx:
             loss, metrics = self.compute_loss(self._outputs(batch), batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        self.optimizer.step()
-        self.host_step += 1
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=_CAPTURABLE_EAGER)
+            self.optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(self, batch: Tuple[torch.Tensor, ...],
+                   ragged: bool = False):
+        """One eager fwd + bwd + update on a device batch (model in train
+        mode); returns the loss and metrics as device tensors. `ragged`: the
+        batch's mask (its last component) has padded rows."""
+        out = self._step(batch, ragged)
+        self.host_step += 1
+        return out
+
+    @staticmethod
+    def _accumulate(totals: Dict[str, torch.Tensor], loss, metrics,
+                    mask: torch.Tensor) -> None:
+        """Add a batch to the device totals in place: the loss weighted by
+        its valid count (the reference's loss.item() * n), the metrics
+        summed."""
+        n = mask.to(loss.dtype).sum()
+        for k, v in (("loss", loss * n), *metrics.items()):
+            if k not in totals:
+                totals[k] = torch.zeros_like(v)
+            totals[k].add_(v)
+
+    def _zeroed(self, mode: str) -> Dict[str, torch.Tensor]:
+        totals = self._totals[mode]
+        for t in totals.values():
+            t.zero_()
+        return totals
 
     @staticmethod
     def _read(totals: Dict[str, torch.Tensor], examples: float
@@ -122,25 +216,120 @@ class Trainer:
         out["examples"] = examples
         return out
 
-    @staticmethod
-    def _accumulate(totals, loss, metrics, n: float) -> None:
-        # reference accumulation: loss.item() * batch_size summed
-        totals["loss"] = totals.get("loss", 0.0) + loss * n
-        for k, v in metrics.items():
-            totals[k] = totals.get(k, 0.0) + v
+    # ------------------------------------------------------------------
+    # One step as one CUDA graph
+    def _run(self, key: tuple, body: Callable, inputs: tuple):
+        """body(*inputs): eagerly off cuda; on cuda a replay of the graph
+        captured under `key`, whose first call runs body eagerly on the
+        side stream (the warm-up, this call's own step) and then captures
+        it."""
+        if self.device.type != "cuda":
+            return body(*inputs)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._warm_up_and_capture(key, body, inputs)
+        for static, x in zip(g.inputs, inputs):
+            static.copy_(x)
+        g.graph.replay()
+        launches.add(g.counts)
+        return g.outputs
 
-    def train_epoch(self, loader: Iterable[Batch]) -> Dict[str, float]:
-        """One pass over the loader's (images, ..., mask) host batches."""
-        self.model.train()
-        totals: Dict[str, torch.Tensor] = {}
-        examples = 0.0
-        for batch in loader:
-            mask = np.asarray(batch[-1])
-            n = float(mask.sum())
-            loss, metrics = self.train_step(self.to_device(batch),
-                                            ragged=n < mask.size)
-            self._accumulate(totals, loss, metrics, n)
-            examples += n
+    def _warm_up_and_capture(self, key: tuple, body: Callable,
+                             inputs: tuple):
+        current = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            out = body(*inputs)
+        current.wait_stream(self._side)
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                       for x in inputs)
+        graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        # thread_local: the prefetch thread may pin and copy meanwhile
+        with torch.cuda.graph(graph, stream=self._side,
+                              capture_error_mode="thread_local"):
+            outputs = body(*static)
+        counts = launches.since(before)
+        launches.restore(before)         # a capture launches nothing
+        self.graphs[key] = _Graph(graph, static, outputs, counts)
+        return out
+
+    def _train_body(self, *batch):
+        loss, metrics = self._step(batch, ragged=False)
+        self._accumulate(self._totals["train"], loss, metrics, batch[-1])
+        return loss
+
+    @torch.no_grad()
+    def _eval_body(self, *batch):
+        outputs = self._outputs(batch)
+        loss, metrics = self.eval_compute_loss(outputs, batch)
+        self._accumulate(self._totals["eval"], loss, metrics, batch[-1])
+        return outputs, batch[1:-1]
+
+    @staticmethod
+    def _resident(loader, body: Callable) -> Callable:
+        """body over the batch gathered from the loader's resident data by
+        an index row: the gather is part of the captured step."""
+        return lambda idx, mask: body(*loader._gather(idx), mask)
+
+    def _train_batch(self, batch: Tuple[torch.Tensor, ...],
+                     ragged: bool) -> None:
+        if (ragged and self.has_bn) or self.device.type != "cuda":
+            loss, metrics = self._step(batch, ragged)
+            self._accumulate(self._totals["train"], loss, metrics, batch[-1])
+        else:
+            self._run(("train", _signature(batch), _conv_bn_gate()),
+                      self._train_body, batch)
+        self.host_step += 1
+
+    # ------------------------------------------------------------------
+    def _prefetched(self, loader, size: int = 2):
+        """(n_valid, batch_size, device batch) one batch ahead of the step.
+
+        A ResidentLoader's batches are on the device already
+        (`device_iter`). A host loader's are assembled by a background
+        thread; on cuda it stages each into pinned memory and issues its
+        copy on a side stream, and the step's stream waits on the copy's
+        event. The valid counts come from the host masks: no sync."""
+        if hasattr(loader, "device_iter") and getattr(loader, "pad_last",
+                                                      False):
+            yield from loader.device_iter()
+            return
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def produce():
+            with (torch.cuda.stream(copy_stream) if cuda
+                  else contextlib.nullcontext()):
+                for batch in loader:
+                    mask = np.asarray(batch[-1])
+                    host = [torch.from_numpy(np.ascontiguousarray(b))
+                            for b in batch]
+                    if not cuda:
+                        yield float(mask.sum()), mask.shape[0], host, None
+                        continue
+                    dev = tuple(t.pin_memory().to(self.device,
+                                                  non_blocking=True)
+                                for t in host)
+                    copied = torch.cuda.Event()
+                    copied.record(copy_stream)
+                    yield float(mask.sum()), mask.shape[0], dev, copied
+
+        current = torch.cuda.current_stream(self.device) if cuda else None
+        for n, bsize, dev, copied in pipeline(produce(), size):
+            if cuda:
+                current.wait_event(copied)
+                for t in dev:
+                    t.record_stream(current)
+            yield n, bsize, tuple(dev)
+
+    @staticmethod
+    def _use_epoch_scan(loader) -> bool:
+        return (hasattr(loader, "epoch_arrays")
+                and getattr(loader, "pad_last", False)
+                and getattr(loader, "epoch_scan", True))
+
+    def _finish_train(self, totals, examples: float) -> Dict[str, float]:
         out = self._read(totals, examples)
         if not np.isfinite(out["loss"]):
             # surface divergence at the epoch boundary instead of silently
@@ -149,6 +338,40 @@ class Trainer:
                 f"non-finite training loss {out['loss']} at step "
                 f"{self.host_step}; check lr/dtype policy")
         return out
+
+    def train_epoch(self, loader: Iterable[Batch]) -> Dict[str, float]:
+        """One pass over the loader's (images, ..., mask) batches."""
+        if self._use_epoch_scan(loader):
+            return self._train_epoch_resident(loader)
+        self.model.train()
+        totals = self._zeroed("train")
+        examples = 0.0
+        for n, bsize, batch in self._prefetched(loader):
+            self._train_batch(batch, ragged=n < bsize)
+            examples += n
+        return self._finish_train(totals, examples)
+
+    def _train_epoch_resident(self, loader) -> Dict[str, float]:
+        """The epoch from the loader's index and mask matrices: a replay a
+        batch with no host sync until the totals' read at the end. A
+        BatchNorm model's ragged tail runs its masked step eagerly, as the
+        JAX trainer runs it outside its scan."""
+        self.model.train()
+        totals = self._zeroed("train")
+        idx_all, mask_all, valid = loader.epoch_arrays()
+        nb = len(valid)
+        ragged_tail = self.has_bn and nb > 0 and valid[-1] < loader.batch_size
+        key = ("train", "resident", _signature(loader.data),
+               tuple(t.data_ptr() for t in loader.data), loader.batch_size,
+               _conv_bn_gate())
+        body = self._resident(loader, self._train_body)
+        for row in range(nb - ragged_tail):
+            self._run(key, body, (idx_all[row], mask_all[row]))
+            self.host_step += 1
+        if ragged_tail:
+            self._train_batch((*loader._gather(idx_all[-1]), mask_all[-1]),
+                              ragged=True)
+        return self._finish_train(totals, float(sum(valid)))
 
     @torch.no_grad()
     def eval_epoch(self, loader: Iterable[Batch],
@@ -159,31 +382,34 @@ class Trainer:
         and tuples of them, as the multitask and context models return) cut
         to the valid rows, as numpy."""
         self.model.eval()
-        totals: Dict[str, torch.Tensor] = {}
+        totals = self._zeroed("eval")
+        if self._use_epoch_scan(loader):
+            idx_all, mask_all, valid = loader.epoch_arrays()
+            key = ("eval", "resident", _signature(loader.data),
+                   tuple(t.data_ptr() for t in loader.data),
+                   loader.batch_size)
+            body = self._resident(loader, self._eval_body)
+            steps = ((k, key, body, (idx_all[row], mask_all[row]))
+                     for row, k in enumerate(valid))
+        else:
+            steps = ((n, ("eval", _signature(batch)), self._eval_body, batch)
+                     for n, _, batch in self._prefetched(loader))
         examples = 0.0
         collected = []
-        for batch in loader:
-            n = float(np.asarray(batch[-1]).sum())
-            dev = self.to_device(batch)
-            outputs = self._outputs(dev)
-            loss, metrics = self.eval_compute_loss(outputs, dev)
-            self._accumulate(totals, loss, metrics, n)
+        for n, key, body, inputs in steps:
+            outputs, rest = self._run(key, body, inputs)
             examples += n
             if collect_outputs:
+                # copied out of the graph's buffers before the next replay
                 valid = int(n)
-                collected.append((
-                    _rows_to_numpy(outputs, valid),
-                    tuple(np.asarray(b)[:valid] for b in batch[1:-1])))
+                cut = lambda t: t[:valid].clone()
+                collected.append((_tree(cut, outputs), _tree(cut, rest)))
         out = self._read(totals, examples)
-        return (out, collected) if collect_outputs else out
-
-
-def _rows_to_numpy(outputs, n: int):
-    """Every tensor of a tree of lists and tuples cut to its first n rows,
-    as numpy; the tree's structure kept."""
-    if isinstance(outputs, (list, tuple)):
-        return type(outputs)(_rows_to_numpy(o, n) for o in outputs)
-    return outputs[:n].cpu().numpy()
+        if not collect_outputs:
+            return out
+        to_numpy = lambda t: t.cpu().numpy()
+        return out, [(_tree(to_numpy, o), _tree(to_numpy, r))
+                     for o, r in collected]
 
 
 # --------------------------------------------------------------------------
@@ -193,12 +419,24 @@ def _rows_to_numpy(outputs, n: int):
 
 def adam(lr: float):
     """torch.optim.Adam defaults (betas 0.9/0.999, eps 1e-8) — every
-    reference trainer except ContextNet (ref: train_baseline.py:44)."""
-    return lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                           eps=1e-8)
+    reference trainer except ContextNet (ref: train_baseline.py:44). On
+    cuda `capturable=True, fused=True`: the step count and the bias
+    correction stay on the device, so the step can be captured in a CUDA
+    graph (the Trainer's graphed step), and one multi-tensor kernel updates
+    every parameter (capturable's foreach form launches a kernel a
+    parameter for the bias correction, which cost an eager ViT-B/16 step
+    ~10 ms of host time on an H100 host); on the CPU the default, host-side
+    form."""
+    def make(params):
+        params = list(params)
+        cuda = any(p.is_cuda for p in params)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=cuda, fused=cuda)
+    return make
 
 
 def sgd_momentum(lr: float, momentum: float = 0.9):
     """torch.optim.SGD(momentum=0.9) — ContextNet
-    (ref: train_baseline_context.py:49)."""
+    (ref: train_baseline_context.py:49). Its step has no host-side state
+    once the momentum buffers exist (after the warm-up step)."""
     return lambda params: torch.optim.SGD(params, lr=lr, momentum=momentum)

@@ -4,8 +4,9 @@ KG-embedding stage (the hetero-GAT of train_gnn_embeddings), its ResNet50
 serving and training paths, the unfused ViT-B/16 trunk (ViT(fuse_qkv=False))
 and the standalone Attention module, the training of the fusion model
 NewMultiModalMultiTaskViT, the four pipeline stages through their CLIs, the
-ContextNet and MultiModal context models' training and the three baseline
-CLIs once on one NVIDIA GPU.
+ContextNet and MultiModal context models' training, the three baseline
+CLIs, the Trainer's graphed step and its device-resident epochs once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -228,6 +229,46 @@ sum's device time and launches a step.
               embedding table written beside it: each run's lines, every
               kernel's launches (the unit on the full train batches only),
               its checkpoint reloaded strict and its results CSVs.
+
+ 23. graph train  the Trainer's graphed step (one CUDA graph a step:
+              normalize, forward, loss, backward, the optimizer step, the
+              metric totals) for phase 6's ViT, phase 13's ResNet50 with the
+              gate open and closed, phase 19's fusion ViT and phase 21's
+              ContextNet: at dropout 0 (cuDNN deterministic), 4 full batches
+              and a ragged one through train_epoch (the first the eager
+              warm-up, then replays; a BatchNorm model's ragged batch eager
+              under its mask) against eager train_step on the same batches
+              from the same weights: per-step losses, parameters and BN
+              buffers bit-identical, or within relative L2 GRAPH_REL_L2
+              (printed which); the counters per replay equal to the
+              kernels' launches a step, and the profiler's count of each of
+              the port's kernels per replay equal to an eager step's and to
+              the counters (the normalize kernel, the attention core twice
+              per block, dK/dV and the LayerNorm backward per backward, the
+              unit's forward and weight-gradient products); then at the
+              phases' dropout graphed against eager in turns
+              (GRAPH_WINDOWS windows of GRAPH_WINDOW_STEPS steps each way,
+              medians): ms a step, img/s, device busy ms and idle share,
+              each trainer's peak allocated and held memory.
+ 24. resident  RESIDENT_IMAGES seeded 224 px images (154 MB) held on the
+              card by a ResidentLoader, its batches equal to the host
+              loader's (valid rows, masks); ResNet50 (gate on) and ViT-B/16
+              at dropout 0, 3 epochs each three ways: the epoch from the
+              index and mask matrices, the per-batch device stream
+              (epoch_scan=False), the host loader with prefetch; epoch
+              losses equal across the ways, the second epoch's seconds and
+              img/s, the third's host-to-device copies by the profiler (the
+              index and mask matrices only on the resident ways); then
+              cli.train_baseline --architecture resnet (gate open) and vit
+              with --resident_data, --resident_data --no_epoch_scan and
+              --image_cache on phase 15's synthetic tree: each run's lines,
+              its launches (the unit on the full train batches only), its
+              checkpoint reloaded strict.
+ 25. capture  rows 1, 1b, 2, 2b, 3, 10 and 10b (the unit at the three
+              CONV_BN_SHAPES) each captured alone in a CUDA graph at the main
+              path's shapes and replayed on new inputs copied into its
+              static buffers: every output bit-identical to the eager launch
+              on those inputs.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3195,6 +3236,659 @@ def baseline_cli_phase() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phases 23-25: the graphed step, the resident epoch, capture safety
+# --------------------------------------------------------------------------
+
+GRAPH_FULL_STEPS = 4            # full batches of phase 23's exactness check
+GRAPH_WINDOWS, GRAPH_WINDOW_STEPS = 3, 6
+GRAPH_REL_L2 = 1e-6             # graphed against eager where not identical
+RESIDENT_IMAGES = 1024          # phase 24's resident dataset, 154 MB
+# the port's kernels by the name the profiler gives them (csrc/*.cu)
+OUR_KERNELS = ("normalize_u8_kernel", "attention_core_kernel",
+               "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
+               "layernorm_rows_kernel", "gemm_kernel", "layernorm_bwd_kernel",
+               "colsum_kernel", "unit_gemm_kernel", "sum_groups_kernel",
+               "sum_groups_seq_kernel")
+
+
+def _set_dropout(model: torch.nn.Module, p: float) -> torch.nn.Module:
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = p
+    return model
+
+
+def _graph_specs() -> list:
+    """Phase 23's five models as phases 6, 13 (gate on and off), 19 and 21
+    train them: (label, make() -> seeded model, optimizer, loss,
+    transform, forward_inputs, batch(rng, n) without the mask, gate, the
+    kernels' launches a step)."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import (multi_task_loss,
+                                                single_task_loss)
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import (NewMultiModalMultiTaskViT,
+                                           ResnetSingleTask, ViTSingleTask,
+                                           init_random_)
+    from artgraph_tpu_torch.train import adam
+    from artgraph_tpu_torch.train.trainer import image_only
+
+    single = single_task_loss(None, "cuda")
+    images_labels = lambda rng, n: (
+        rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+        rng.integers(0, 32, n).astype(np.int32))
+    ctx_name, ctx_build, ctx_opt, _, ctx_loss, _, ctx_labels = \
+        _context_nets()[0]
+    resnet = lambda: _seeded_resnet_(ResnetSingleTask(32, dropout=0.4),
+                                     SEED + 80)
+    return [
+        ("ViTSingleTask(32) ViT-B/16 (phase 6)",
+         lambda: init_random_(ViTSingleTask(32, dropout=0.4),
+                              torch.Generator().manual_seed(SEED + 10)),
+         adam(3e-4), single, "vit", image_only, images_labels, False,
+         VIT_STEP_LAUNCHES),
+        ("ResnetSingleTask(32) ResNet50 gate on (phase 13)", resnet,
+         adam(3e-4), single, "resnet", image_only, images_labels, True,
+         RESNET_STEP_LAUNCHES),
+        ("ResnetSingleTask(32) ResNet50 gate off (phase 13)", resnet,
+         adam(3e-4), single, "resnet", image_only, images_labels, False,
+         {"normalize_images": 1}),
+        ("NewMultiModalMultiTaskViT ViT-B/16 (phase 19)",
+         lambda: init_random_(
+             NewMultiModalMultiTaskViT(config.EMB_SIZE, config.NUM_CLASSES,
+                                       dropout=0.4),
+             torch.Generator().manual_seed(SEED + 90)),
+         adam(3e-4), multi_task_loss(None, None, 0.5, 0.5, "cuda"), "vit",
+         image_and_embeddings, lambda rng, n: _fusion_batch(rng, n)[:-1],
+         False, VIT_STEP_LAUNCHES),
+        (f"{ctx_name} ResNet50 gate on (phase 21)",
+         lambda: _seeded_resnet_(ctx_build(torch.bfloat16), SEED + 100),
+         ctx_opt, ctx_loss, "resnet", image_only,
+         lambda rng, n: (rng.integers(0, 256, (n, 224, 224, 3),
+                                      dtype=np.uint8),
+                         rng.normal(size=(n, config.EMB_SIZE))
+                         .astype(np.float32), ctx_labels(rng, n)),
+         True, RESNET_STEP_LAUNCHES),
+    ]
+
+
+def _spec_trainer(spec, model):
+    from artgraph_tpu_torch.train import Trainer
+
+    _, _, opt, loss, transform, inputs, _, _, _ = spec
+    return Trainer(model, opt, loss, transform_type=transform, device="cuda",
+                   forward_inputs=inputs)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms inside: a graph and the eager step
+    then run the same arithmetic, so they can be held to equality."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _eager_epoch(trainer, batches) -> dict:
+    """train_epoch's totals from eager train_step calls on the same
+    batches (the synchronous path, with no graph)."""
+    trainer.model.train()
+    totals, examples = {}, 0.0
+    for batch in batches:
+        dev = trainer.to_device(batch)
+        n = float(batch[-1].sum())
+        loss, metrics = trainer.train_step(dev, ragged=n < len(batch[-1]))
+        trainer._accumulate(totals, loss, metrics, dev[-1])
+        examples += n
+    return trainer._read(totals, examples)
+
+
+def _state_distance(a: torch.nn.Module, b: torch.nn.Module,
+                    buffers: bool) -> tuple[float, float]:
+    """(max abs, relative L2) between two models' parameters, or their
+    BatchNorm running statistics."""
+    pick = ((lambda m: [t for n, t in m.named_buffers() if "running" in n])
+            if buffers else (lambda m: list(m.parameters())))
+    x, y = (torch.cat([t.detach().double().flatten() for t in pick(m)])
+            if pick(m) else torch.zeros(1, dtype=torch.float64,
+                                        device="cuda") for m in (a, b))
+    return ((x - y).abs().max().item(),
+            ((x - y).norm() / y.norm().clamp_min(1e-30)).item())
+
+
+def _trace_events(fn, calls: int = 1) -> list:
+    """The profiler's chrome-trace events, host and device, over `calls`
+    calls of fn. One more call runs
+    first under the profiler and is not counted: on the card a trace can
+    miss device events for a while after the profiler starts (up to half a
+    ViT step's forward, seen in this script's runs)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "chip_smoke: measured calls"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    start = min(ev["ts"] for ev in events if ev.get("name") == mark)
+    return [ev for ev in events if ev.get("ts", -1) >= start]
+
+
+def _our_kernels(fn, calls: int) -> dict:
+    """{our kernel (unit_gemm_kernel by mode): launches per call of fn},
+    from the profiler."""
+    import re
+
+    out: dict = {}
+    for ev in _trace_events(fn, calls):
+        if ev.get("cat") != "kernel":
+            continue
+        for base in OUR_KERNELS:
+            if re.search(rf"(?<![\w]){base}(?![\w])", ev["name"]):
+                if base == "unit_gemm_kernel":
+                    # <0, true>, <(Mode)0, true>, ...: the mode's digits
+                    mode = re.search(r"unit_gemm_kernel<[^,>]*?(\d+)\s*,",
+                                     ev["name"])
+                    base = f"unit_gemm_kernel<{mode.group(1) if mode else '?'}>"
+                out[base] = out.get(base, 0) + 1 / calls
+                break
+    return out
+
+
+def _memcpy_sources(events: list, calls: int) -> dict:
+    """{"outermost op > innermost op": cudaMemcpyAsync calls per call} from
+    a trace's host events: each copy call named by the operators that
+    enclose it on its thread (the autograd engine's thread for the
+    backward's)."""
+    ops: dict = {}
+    for ev in events:
+        if ev.get("cat") == "cpu_op":
+            ops.setdefault(ev.get("tid"), []).append(ev)
+    out: dict = {}
+    for ev in events:
+        if ev.get("cat") != "cuda_runtime" or "Memcpy" not in ev["name"]:
+            continue
+        around = sorted((o for o in ops.get(ev.get("tid"), ())
+                         if o["ts"] <= ev["ts"] <= o["ts"] + o["dur"]),
+                        key=lambda o: (o["ts"], -o["dur"]))
+        key = (" > ".join(dict.fromkeys((around[0]["name"],
+                                         around[-1]["name"])))
+               if around else "(no operator)")
+        out[key] = out.get(key, 0) + 1 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _counters_as_kernels(counts: dict) -> dict:
+    """The kernels that each counted wrapper launch runs a known number of
+    times (csrc/*.cu): the normalize kernel once per normalize; the
+    attention core once per block-attention forward and once more in its
+    backward's recompute; dK/dV once per backward; the LayerNorm backward
+    once per block-attention and block-MLP backward; the unit's forward
+    product (mode 0) once per unit forward, its weight-gradient product
+    (mode 2) once per unit backward."""
+    get = lambda mod, attr: counts.get(
+        (f"artgraph_tpu_torch.ops.{mod}", attr), 0)
+    attn_f, attn_b = get("attention", "LAUNCHES"), get("attention",
+                                                       "LAUNCHES_BWD")
+    want = {"normalize_u8_kernel": get("preprocess", "LAUNCHES"),
+            "attention_core_kernel": attn_f + attn_b,
+            "attention_bwd_dkv_kernel": attn_b,
+            "layernorm_bwd_kernel": attn_b + get("mlp", "LAUNCHES_BWD"),
+            "unit_gemm_kernel<0>": get("conv_bn", "LAUNCHES"),
+            "unit_gemm_kernel<2>": get("conv_bn", "LAUNCHES_BWD")}
+    return {k: v for k, v in want.items() if v}
+
+
+def _graph_exact(spec) -> None:
+    """Phase 23 at dropout 0: GRAPH_FULL_STEPS full batches and a ragged
+    one through train_epoch (the first batch the eager warm-up, then
+    replays; a BatchNorm model's ragged batch eager under its mask) against
+    eager train_step on the same batches from the same weights; then each
+    counter per replay against the profiler's kernel counts."""
+    import copy
+
+    from artgraph_tpu_torch.ops import launches
+
+    label, make, *_, batch_of, gate, per_step = spec
+    rng = np.random.default_rng(SEED + 130)
+    batches = []
+    for i in range(GRAPH_FULL_STEPS + 1):
+        mask = np.ones(B, np.float32)
+        if i == GRAPH_FULL_STEPS:
+            mask[B // 2 + 3:] = 0.0
+        batches.append((*batch_of(rng, B), mask))
+    src = _set_dropout(make(), 0.0)
+    graphed = _spec_trainer(spec, copy.deepcopy(src))
+    eager = _spec_trainer(spec, src)
+    with _conv_bn_gate(gate), _deterministic():
+        got = [graphed.train_epoch([b])["loss"] for b in batches]
+        want = [_eager_epoch(eager, [b])["loss"] for b in batches]
+        torch.cuda.synchronize()
+        loss_err = max(abs(a - b) for a, b in zip(got, want))
+        p_abs, p_rel = _state_distance(graphed.model, eager.model, False)
+        b_abs, b_rel = _state_distance(graphed.model, eager.model, True)
+        same = loss_err == 0 and p_abs == 0 and b_abs == 0
+        print(f"graph exact: {label}, dropout 0, {GRAPH_FULL_STEPS} full "
+              f"batches + 1 ragged through train_epoch (graphs "
+              f"{len(graphed.graphs)}) against eager train_step from the "
+              f"same weights: per-step losses max |diff| {loss_err:.3g}; "
+              f"parameters max |diff| {p_abs:.3g}, rel L2 {p_rel:.3g}; BN "
+              f"buffers max |diff| {b_abs:.3g}, rel L2 {b_rel:.3g}: "
+              + ("bit-identical" if same else
+                 f"not identical, held at rel L2 <= {GRAPH_REL_L2}"),
+              flush=True)
+        if len(graphed.graphs) != 1 or not (
+                same or (p_rel <= GRAPH_REL_L2 and b_rel <= GRAPH_REL_L2
+                         and loss_err <= GRAPH_REL_L2 * max(map(abs,
+                                                                want)))):
+            raise AssertionError(f"graph exact: {label}: the graphed steps "
+                                 f"differ from the eager ones")
+        # the counters per replay against the profiler's kernel counts
+        calls = 2
+        before = launches.snapshot()
+        seen = _our_kernels(lambda: graphed.train_epoch([batches[0]]),
+                            calls)
+        counted = launches.since(before)
+        seen_eager = _our_kernels(
+            lambda: eager.train_step(eager.to_device(batches[0])), calls)
+    # _our_kernels runs fn once more before the profiled calls
+    counted = {k: n / (calls + 1) for k, n in counted.items()}
+    expect = _counters_as_kernels(counted)
+    per_replay = {k: counted.get((mod.__name__, attr), 0) for k, (mod, attr)
+                  in {**_counters(), **_conv_bn_counters()}.items()}
+    per_replay = {k: v for k, v in per_replay.items() if v}
+    print(f"graph counts: {label}: counters per replay {per_replay}; the "
+          f"profiler's kernels per replay {seen}; per eager step "
+          f"{seen_eager}", flush=True)
+    if per_replay != {k: float(v) for k, v in per_step.items()}:
+        raise AssertionError(f"graph counts: {label}: counters per replay "
+                             f"{per_replay}, expected {per_step}")
+    if not seen or seen != seen_eager or any(
+            seen.get(k) != v for k, v in expect.items()):
+        raise AssertionError(f"graph counts: {label}: the profiler's "
+                             f"kernels per replay {seen} (eager "
+                             f"{seen_eager}) do not match the counters "
+                             f"({expect})")
+    del graphed, eager, src
+    torch.cuda.empty_cache()
+
+
+def _graph_turns(spec) -> dict:
+    """Phase 23 at the phases' own dropout: graphed (train_epoch over
+    GRAPH_WINDOW_STEPS copies of one host batch: prefetch, replays) against
+    eager (train_step on the same batch) in turns, GRAPH_WINDOWS windows
+    each, medians; device busy ms a step and the memcpy calls by the
+    profiler; each trainer's peak allocated and held memory."""
+    import copy
+
+    label, make, *_, batch_of, gate, _ = spec
+    batch = (*batch_of(np.random.default_rng(SEED + 131), B),
+             np.ones(B, np.float32))
+    src = make()
+    trainers, peak, held = {}, {}, {}
+    with _conv_bn_gate(gate):
+        # each trainer's memory above what was there before it: the peak
+        # allocated over its warm-up (and capture: a replay allocates
+        # nothing), and what it holds after, graph pool included
+        for mode in ("eager", "graphed"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
+            trainer = trainers[mode] = _spec_trainer(spec,
+                                                     copy.deepcopy(src))
+            if mode == "eager":
+                for _ in range(2):
+                    trainer.train_step(trainer.to_device(batch))
+            else:
+                trainer.train_epoch([batch] * 2)
+            torch.cuda.synchronize()
+            peak[mode] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            torch.cuda.empty_cache()
+            held[mode] = (torch.cuda.memory_reserved() - base_reserved) / 1e9
+        graphed, eager = trainers["graphed"], trainers["eager"]
+        modes = {
+            "eager": (eager, lambda: [
+                eager.train_step(eager.to_device(batch))
+                for _ in range(GRAPH_WINDOW_STEPS)]),
+            "graphed": (graphed, lambda: graphed.train_epoch(
+                [batch] * GRAPH_WINDOW_STEPS)),
+        }
+        ms = {k: [] for k in modes}
+        for _ in range(GRAPH_WINDOWS):
+            for mode, (_, run) in modes.items():
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ms[mode].append(1e3 * (time.perf_counter() - t0)
+                                / GRAPH_WINDOW_STEPS)
+        busy, sources = {}, {}
+        for mode, (trainer, _) in modes.items():
+            step = ((lambda: trainer.train_step(trainer.to_device(batch)))
+                    if mode == "eager"
+                    else (lambda: trainer.train_epoch([batch])))
+            events = _trace_events(step, PROFILED_STEPS)
+            busy[mode] = sum(ev.get("dur", 0.0) for ev in events
+                             if ev.get("cat") in DEVICE_WORK
+                             ) / PROFILED_STEPS / 1e3
+            sources[mode] = _memcpy_sources(events, PROFILED_STEPS)
+    out = {}
+    for mode in modes:
+        step_ms = float(np.median(ms[mode]))
+        out[mode] = {"ms": step_ms, "img_s": 1e3 * B / step_ms,
+                     "busy_ms": busy[mode],
+                     "idle": max(0.0, 1 - busy[mode] / step_ms)
+                     if busy[mode] > 0 else None, "peak_gb": peak[mode],
+                     "held_gb": held[mode]}
+    fmt = lambda m: (f"{m['ms']:.3f} ms/step, {m['img_s']:.1f} img/s, "
+                     f"device busy {m['busy_ms']:.3f} ms, idle share "
+                     + ("not measured" if m["idle"] is None
+                        else f"{m['idle']:.4f}")
+                     + f", peak allocated {m['peak_gb']:.3f} GB, held "
+                       f"{m['held_gb']:.3f} GB")
+    print(f"graph turns: {label}, batch {B}, in turns ({GRAPH_WINDOWS} "
+          f"windows of {GRAPH_WINDOW_STEPS} steps each way, medians): eager "
+          f"{fmt(out['eager'])} | graphed {fmt(out['graphed'])} | "
+          f"graphed/eager img/s {out['graphed']['img_s'] / out['eager']['img_s']:.4f}x, "
+          f"busy {out['graphed']['busy_ms'] / max(out['eager']['busy_ms'], 1e-9):.4f}x "
+          f"(memory: each trainer's own, above what was allocated before "
+          f"it; held: reserved after its steps, the graph's pool "
+          f"included)", flush=True)
+    for mode, found in sources.items():
+        print(f"graph memcpy: {label}, {mode}: cudaMemcpyAsync calls a step "
+              f"by the operators around them (outermost > innermost): "
+              f"{found}", flush=True)
+    del graphed, eager, trainer, trainers, modes, src
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_train_phase() -> dict:
+    """Phase 23: the graphed step of five models against their eager step:
+    equal at dropout 0, the counters per replay equal to the profiler's
+    kernel counts, then timed in turns."""
+    turns = {}
+    for spec in _graph_specs():
+        _graph_exact(spec)
+        turns[spec[0]] = _graph_turns(spec)
+    return turns
+
+
+class _Rows:
+    """n seeded rows of (uint8 224 px image, int32 label)."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        self.labels = rng.integers(0, 32, n).astype(np.int32)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def get_batch(self, idx):
+        return self.images[idx], self.labels[idx]
+
+
+def _h2d(fn) -> list:
+    """The bytes of each host-to-device copy while fn runs, from the
+    profiler's memcpy events."""
+    return [int(ev.get("args", {}).get("bytes", 0))
+            for ev in _trace_events(fn)
+            if ev.get("cat") == "gpu_memcpy" and "HtoD" in ev.get("name", "")]
+
+
+def resident_phase() -> dict:
+    """Phase 24: RESIDENT_IMAGES seeded 224 px images held on the card; the
+    ResidentLoader's batches against the host loader's; ResNet50 (gate on)
+    and ViT-B/16 at dropout 0, an epoch each three ways (the epoch from the
+    index and mask matrices, the per-batch device stream, the host loader
+    with prefetch), losses equal, seconds and img/s, the profiler's H2D
+    bytes; then train_baseline with --resident_data, with --resident_data
+    --no_epoch_scan and with --image_cache, both architectures. Returns
+    the CLI runs' launches."""
+    import copy
+
+    from artgraph_tpu_torch.data.loader import DataLoader
+    from artgraph_tpu_torch.data.resident import ResidentLoader
+
+    rows = _Rows(RESIDENT_IMAGES, SEED + 140)
+    t0 = time.perf_counter()
+    resident = ResidentLoader(rows, B, shuffle=True, seed=SEED,
+                              device="cuda")
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    host = DataLoader(rows, B, shuffle=True, seed=SEED, num_workers=4)
+    nb = 0
+    for r, h in zip(resident, host):
+        k = int(h[-1].sum())
+        if not (np.array_equal(r[-1], h[-1]) and all(
+                torch.equal(a[:k], torch.from_numpy(b[:k]).cuda())
+                for a, b in zip(r[:-1], h[:-1]))):
+            raise AssertionError(f"resident: batch {nb} differs from the "
+                                 f"host loader's")
+        nb += 1
+    if nb != len(host):
+        raise AssertionError(f"resident: {nb} batches, host {len(host)}")
+    print(f"resident: {RESIDENT_IMAGES} images of 224 px uint8 "
+          f"({resident.nbytes / 1e6:.1f} MB with the labels) uploaded in "
+          f"{upload:.3f} s; an epoch of {nb} shuffled batches equal to the "
+          f"host loader's (valid rows and masks)", flush=True)
+    del resident
+    specs = {s[0]: s for s in _graph_specs()}
+    idx_mask_bytes = nb * B * (8 + 4)
+    for key in ("ResnetSingleTask(32) ResNet50 gate on (phase 13)",
+                "ViTSingleTask(32) ViT-B/16 (phase 6)"):
+        spec = specs[key]
+        src = _set_dropout(spec[1](), 0.0)
+        losses = {}
+        for way in ("epoch arrays", "device_iter", "host + prefetch"):
+            loader = (DataLoader(rows, B, shuffle=True, seed=SEED,
+                                 num_workers=4) if way == "host + prefetch"
+                      else ResidentLoader(rows, B, shuffle=True, seed=SEED,
+                                          epoch_scan=way == "epoch arrays",
+                                          device="cuda"))
+            trainer = _spec_trainer(spec, copy.deepcopy(src))
+            with _conv_bn_gate(spec[7]), _deterministic():
+                first = trainer.train_epoch(loader)["loss"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                second = trainer.train_epoch(loader)["loss"]
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                copies = _h2d(lambda: trainer.train_epoch(loader))
+            losses[way] = (first, second)
+            print(f"resident epoch: {key}, dropout 0, {way}: epoch losses "
+                  f"{first!r}, {second!r}; the second epoch {seconds:.4f} s, "
+                  f"{RESIDENT_IMAGES / seconds:.1f} img/s ({nb} steps); a "
+                  f"profiled third epoch: {len(copies)} host-to-device "
+                  f"copies, {sum(copies)} bytes (largest "
+                  f"{max(copies, default=0)})", flush=True)
+            # resident: the [nb, B] int64 index and f32 mask matrices only
+            # (the profiler may drop an event, never add one); host: every
+            # image crosses
+            if way == "host + prefetch":
+                ok = sum(copies) >= rows.images.nbytes
+            else:
+                ok = (sum(copies) <= idx_mask_bytes
+                      and max(copies, default=0) <= nb * B * 8)
+            if not ok:
+                raise AssertionError(
+                    f"resident epoch: {way}: host-to-device copies of "
+                    f"{copies} bytes; expected the index and mask matrices "
+                    f"({nb * B * 8} and {nb * B * 4} bytes) on the resident "
+                    f"paths, every image on the host one")
+            if not np.isfinite([first, second]).all():
+                raise AssertionError(f"resident epoch: {way}: losses "
+                                     f"{first}, {second}")
+            del trainer, loader
+            torch.cuda.empty_cache()
+        if len(set(losses.values())) != 1:
+            raise AssertionError(f"resident epoch: {key}: the three ways' "
+                                 f"losses differ: {losses}")
+        print(f"resident epoch: {key}: the three ways' epoch losses equal",
+              flush=True)
+        del src
+    return _resident_cli()
+
+
+def _resident_cli() -> dict:
+    """Phase 24's CLI runs: train_baseline --architecture resnet (gate open)
+    and vit with --resident_data, --resident_data --no_epoch_scan and
+    --image_cache on phase 15's synthetic tree, 1 epoch at --batch 10."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli import train_baseline
+
+    total: dict = {}
+    batch = 10
+    nbat = lambda n: -(-n // batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = _load_synth().make_image_tree(root)
+        n_train = nbat(counts["train"])
+        evals = nbat(counts["validation"]) + nbat(counts["test"])
+        full = counts["train"] // batch
+        if counts["train"] % batch == 0:
+            raise AssertionError("resident cli: the last batch is not ragged")
+        expect = {
+            "resnet": {"conv1x1_bn_stats": RESNET_UNITS * full,
+                       "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                       "normalize_images": n_train + evals},
+            "vit": {"fused_block_attention": 12 * (n_train + evals),
+                    "fused_block_mlp": 12 * (n_train + evals),
+                    "fused_block_attention_bwd": 12 * n_train,
+                    "fused_block_mlp_bwd": 12 * n_train,
+                    "normalize_images": n_train + evals}}
+        models = {"resnet": "ResnetSingleTask", "vit": "ViTSingleTask"}
+        for arch in ("resnet", "vit"):
+            for flags in (["--resident_data"],
+                          ["--resident_data", "--no_epoch_scan"],
+                          ["--image_cache", str(root / f"cache_{arch}")]):
+                label = f"{arch} {' '.join(flags[:2] if flags[0] != '--image_cache' else flags[:1])}"
+                with _conv_bn_gate(arch == "resnet"):
+                    ret, text, c = _run_cli(
+                        label, train_baseline.main,
+                        ["--dataset_path", str(root / "dataset"),
+                         "--image_path", str(root / "images"),
+                         "--architecture", arch, "--label", "style",
+                         "--epochs", "1", "--batch", str(batch),
+                         "--num_workers", "4", "--device", "cuda", *flags],
+                        phase="resident cli")
+                for k, n in c.items():
+                    total[k] = total.get(k, 0) + n
+                _expect_lines(label, text, "Train loss: ",
+                              "Validation loss: ", f"Test accuracy: {ret}",
+                              phase="resident cli")
+                _expect_launches(label, c, expect[arch],
+                                 phase="resident cli")
+                name = f"style_{arch}_baseline_single-task_checkpoint.pt"
+                model = load_reference_checkpoint(
+                    models[arch], os.path.join(config.CHECKPOINTS_DIR, name),
+                    "cuda")
+                note = (f"the unit on the {full} full train batches only"
+                        if arch == "resnet" else "the blocks' backward on "
+                        "the train batches only")
+                print(f"resident cli: {label}: launches as expected "
+                      f"({note}); {name} "
+                      f"reloaded strict ({len(model.state_dict())} tensors); "
+                      f"test accuracy {ret}", flush=True)
+                del model
+            cache = sorted(os.listdir(root / f"cache_{arch}"))
+            print(f"resident cli: {arch} --image_cache wrote {cache}",
+                  flush=True)
+    return total
+
+
+def capture_phase() -> None:
+    """Phase 25: rows 1, 1b, 2, 2b, 3, 10 and 10b each captured alone in a
+    CUDA graph at the main path's shapes, replayed on new inputs copied into
+    the static buffers: every output bit-identical to the eager launch on
+    those inputs."""
+    from artgraph_tpu_torch import ops
+    from artgraph_tpu_torch.ops import attention, conv_bn, mlp
+
+    rng = np.random.default_rng(SEED + 150)
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    params = lambda out1, in2: (
+        dev(1.0 + 0.1 * rng.normal(size=C)), dev(0.1 * rng.normal(size=C)),
+        dev(rng.normal(size=(out1, C)) / np.sqrt(C)),
+        dev(0.02 * rng.normal(size=out1)),
+        dev(rng.normal(size=(C, in2)) / np.sqrt(in2)),
+        dev(0.02 * rng.normal(size=C)))
+    x = dev(rng.normal(size=(B, N, C)), torch.bfloat16)
+    do = dev(rng.normal(size=(B, N, C)), torch.bfloat16)
+    attn_p, mlp_p = params(3 * C, C), params(HIDDEN, HIDDEN)
+    images = torch.from_numpy(rng.integers(0, 256, (B, 224, 224, 3),
+                                           dtype=np.uint8)).cuda()
+    cases = [
+        ("fused_block_attention (row 1)",
+         lambda x, *p: ops.fused_block_attention(x, *p, H), (x, *attn_p)),
+        ("fused_block_attention_bwd (row 1b)",
+         lambda x, *p: attention.block_attention_bwd_cuda(
+             x, *p[:6], p[6], H, 1e-6), (x, *attn_p, do)),
+        ("fused_block_mlp (row 2)",
+         lambda x, *p: ops.fused_block_mlp(x, *p), (x, *mlp_p)),
+        ("fused_block_mlp_bwd (row 2b)",
+         lambda x, *p: mlp.block_mlp_bwd_cuda(x, *p[:6], p[6], 1e-6),
+         (x, *mlp_p, do)),
+        ("normalize_images (row 3)",
+         lambda im: ops.normalize_images(im, "vit"), (images,)),
+    ]
+    for M, K, Nn, pro in CONV_BN_SHAPES:
+        xu, a, b, w, dy, ds1, ds2 = _unit_inputs(M, K, Nn, rng)
+        y = conv_bn.conv1x1_bn_stats_cuda(xu, a, b, w, pro)[0]
+        cases += [
+            (f"conv1x1_bn_stats (row 10) M={M} K={K} N={Nn} prologue={pro}",
+             lambda *t, pro=pro: conv_bn.conv1x1_bn_stats_cuda(*t, pro),
+             (xu, a, b, w)),
+            (f"conv1x1_bn_stats_bwd (row 10b) M={M} K={K} N={Nn} "
+             f"prologue={pro}",
+             lambda *t, pro=pro: conv_bn.conv1x1_bn_stats_bwd_cuda(*t, pro),
+             (xu, a, b, w, y, dy, ds1, ds2))]
+    flat = lambda out: [t for t in (out if isinstance(out, (tuple, list))
+                                    else (out,)) if t is not None]
+    with torch.no_grad():
+        for name, fn, args in cases:
+            fn(*args)                           # eager first: build, attrs
+            torch.cuda.synchronize()
+            static = [a.clone() for a in args]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs = flat(fn(*static))
+            # new inputs: each argument rolled by one along its first axis
+            new = [torch.roll(a, 1, 0) for a in args]
+            for s, n in zip(static, new):
+                s.copy_(n)
+            graph.replay()
+            torch.cuda.synchronize()
+            ref = flat(fn(*new))
+            torch.cuda.synchronize()
+            if len(ref) != len(outs) or not all(
+                    torch.equal(o, r) for o, r in zip(outs, ref)):
+                raise AssertionError(f"capture: {name}: the replay differs "
+                                     f"from the eager launch")
+            print(f"capture: {name}: captured alone, replayed on new inputs "
+                  f"copied into its static buffers: {len(outs)} outputs "
+                  f"bit-identical to the eager launch", flush=True)
+            del graph, outs, static, new, ref
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -3236,6 +3930,10 @@ def main() -> int:
                       baseline_cli_phase):
             for k, n in phase().items():
                 launches[k] = launches.get(k, 0) + n
+        graph_train_phase()
+        for k, n in resident_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        capture_phase()
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
     for name, n in launches.items():
