@@ -19,6 +19,13 @@ MultiModal models' tanh encoder), which
 the port cannot import (that package pulls in jax); the tests hold the two
 equal key for key. `gnn_state_from_flax` does the same for the GNN stage's
 `HeteroSGNN`, whose port keeps the flax names.
+
+`import_trunk_state` renames a trunk-only or foreign checkpoint's trunk
+into a model's keys for --init_checkpoint warm starts, as the JAX
+package's `import_trunk_state` does; `jax_top` names a state_dict entry by
+the JAX variables' collection and module (`params/resnet`,
+`batch_stats/resnet`, `params/classifier`), the names the warm start's
+report prints in both packages.
 """
 from __future__ import annotations
 
@@ -271,6 +278,80 @@ def gnn_state_from_flax(variables: dict) -> dict[str, np.ndarray]:
         sd[f"bns.{name}.running_var"] = _f32(stats["var"])
         sd[f"bns.{name}.num_batches_tracked"] = np.zeros((), np.int64)
     return sd
+
+
+def _trunk_child(rest: str, seq: bool) -> str | None:
+    """The child of a torchvision ResNet50 key (`conv1.weight`,
+    `4.0.conv1.weight`) in the index (seq) or named layout, renamed to the
+    other layout as asked; None for what is not a trunk child (fc)."""
+    child, _, tail = rest.partition(".")
+    named = {v: k for k, v in _SEQ_INDEX.items()}.get(child, child)
+    if named not in _SEQ_INDEX:
+        return None
+    return f"{_SEQ_INDEX[named] if seq else named}.{tail}"
+
+
+def import_trunk_state(model_name: str, sd: dict) -> dict:
+    """Trunk-only import for warm starts (--init_checkpoint): the trunk
+    entries of the state_dict sd under model_name's keys.
+
+    Accepts raw torchvision resnet50 (`conv1.weight`, ...) and raw timm ViT
+    (`cls_token`, `patch_embed.proj.weight`, ...) state_dicts, the
+    pretrained files the reference fine-tunes from (ref: models.py:51,97),
+    and reference checkpoints of any model that shares the trunk, with the
+    index-prefixed (`resnet.0.weight`) or named (`resnet.conv1.weight`)
+    ResNet layout. Heads are never imported, nor timm's classifier head,
+    nor BatchNorm's num_batches_tracked (the JAX variables have none).
+    Raises KeyError when sd holds no tensor of the trunk.
+    """
+    if model_name not in _HEADS:
+        raise ValueError(f"unsupported model {model_name!r}; the port has "
+                         f"{MODEL_NAMES}")
+    out = {}
+    if model_name in RESNET_MODELS:
+        seq = model_name not in NAMED_TRUNK
+        prefix = "" if "conv1.weight" in sd else "resnet."
+        for k, v in sd.items():
+            if not k.startswith(prefix) or k.endswith("num_batches_tracked"):
+                continue
+            rest = _trunk_child(k[len(prefix):], seq)
+            if rest is not None:
+                out[f"resnet.{rest}"] = v
+    else:
+        prefix = "" if "cls_token" in sd else "vit."
+        for k, v in sd.items():
+            if k.startswith(prefix) and not k[len(prefix):].startswith(
+                    "head."):
+                out[f"vit.{k[len(prefix):]}"] = v
+    if not out:
+        trunk = "ResNet50" if model_name in RESNET_MODELS else "ViT"
+        raise KeyError(f"no {trunk} trunk tensor for {model_name} among "
+                       f"{len(sd)} tensors (e.g. {sorted(sd)[:3]})")
+    return out
+
+
+def jax_top(model_name: str, key: str) -> str:
+    """`<collection>/<module>` of the JAX variables that hold the port's
+    state_dict entry `key` of model_name: `batch_stats` for BatchNorm
+    running statistics, `params` otherwise; the module is the head's flax
+    name or the trunk's (`resnet`, `vit`)."""
+    collection = ("batch_stats" if key.endswith(("running_mean",
+                                                 "running_var"))
+                  else "params")
+    for flax_name, (tprefix, _) in _HEADS[model_name].items():
+        if key.startswith(f"{tprefix}."):
+            return f"{collection}/{flax_name}"
+    return f"{collection}/{key.split('.')[0]}"
+
+
+def jax_counterpart_keys(model_name: str, keys) -> list:
+    """The entries of a model_name state_dict that the JAX variables hold:
+    all but num_batches_tracked and, in the models that keep it unused,
+    timm's 1000-class `vit.head` (the JAX export writes both as
+    constants)."""
+    timm_head = model_name not in RESNET_MODELS + ("ViTSingleTask",)
+    return [k for k in keys if not k.endswith("num_batches_tracked")
+            and not (timm_head and k.startswith("vit.head."))]
 
 
 def build_model(model_name: str, sd: dict, dtype: torch.dtype = torch.bfloat16

@@ -1,43 +1,52 @@
 """Shared CLI plumbing of the port: the reference's base argparse surface,
 the --device, the single- and multi-task losses, the context trainers'
-joint loss, checkpoints, the epoch loop and the test evaluation.
+joint loss, checkpoints, warm starts, the epoch loop with its crash
+recovery, and the test evaluation.
 
-Port of the part of artgraph_tpu/cli/_common.py that the image, context,
-projector and fusion trainers need.
-Flag names, defaults, checkpoint naming, print formats and the results CSVs
-are the reference's. Added: `--device` (default `cuda`, as `predict`), and
-the JAX CLIs' `--image_cache` (data/cache.py), `--resident_data`
-(data/resident.py) and `--no_epoch_scan` (the resident loader's per-batch
-stream instead of its epoch matrices), on `cuda` and on the CPU alike.
-Refused, because they need modules the port does not have yet (ROADMAP.md
-§1): the JAX CLIs' `--resume` and `--init_checkpoint` (checkpoint and
-warm-start plumbing), `--data_parallel` (the data mesh) and `-t/--tracking`
-(MLflow); the port's parser does not accept them.
+Port of artgraph_tpu/cli/_common.py.
+Flag names, defaults, checkpoint naming, print formats, MLflow metric names
+and the results CSVs are the reference's. Added: `--device` (default
+`cuda`, as `predict`). The JAX CLIs' extras, on `cuda` and on the CPU
+alike: `--image_cache` (data/cache.py), `--resident_data`
+(data/resident.py), `--no_epoch_scan` (the resident loader's per-batch
+stream instead of its epoch matrices), `-t/--tracking` (tracking/),
+`--init_checkpoint` (`apply_init_checkpoint`) and `--resume`
+(`run_epoch_loop`, checkpointing/state_io.py). Refused: the JAX CLIs'
+`--data_parallel`, because the port has no data mesh yet (ROADMAP.md §1);
+the port's parser does not accept it.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 import warnings
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.checkpointing import save_reference_checkpoint
+from artgraph_tpu_torch.checkpointing import (import_trunk_state,
+                                              restore_checkpoint,
+                                              save_checkpoint as save_state,
+                                              save_reference_checkpoint)
+from artgraph_tpu_torch.checkpointing.torch_interop import (
+    jax_counterpart_keys, jax_top)
 from artgraph_tpu_torch.data.cache import wrap_with_cache
 from artgraph_tpu_torch.data.loader import DataLoader, prepare_dataloader
 from artgraph_tpu_torch.data.resident import (ResidentCapacityError,
                                               ResidentLoader)
 from artgraph_tpu_torch.metrics import summarize, write_results
-from artgraph_tpu_torch.train import cross_entropy
+from artgraph_tpu_torch.tracking import log_metric, track_params
+from artgraph_tpu_torch.train import EarlyStopping, cross_entropy
 from artgraph_tpu_torch.train.trainer import Trainer, accuracy_metrics
 
 
 def get_base_arguments() -> argparse.ArgumentParser:
-    """Shared argparse surface (ref: src/utils.py:17-28) plus --num_workers,
-    --results_dir and --device."""
+    """Shared argparse surface (ref: src/utils.py:17-28) plus the JAX CLIs'
+    extras but --data_parallel, and --device."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--image_path', type=str, default=config.IMAGE_DIR,
                         help='Experiment name.')
@@ -52,6 +61,8 @@ def get_base_arguments() -> argparse.ArgumentParser:
                         help='Initial learning rate.')
     parser.add_argument('--with_weights', action='store_true',
                         help='If using class weights for tackling class imabalnces.')
+    parser.add_argument('-t', '--tracking', action='store_true',
+                        help='If tracking or not with MLFlow.')
     parser.add_argument('--num_workers', type=int, default=6,
                         help='Host data-loader worker threads.')
     parser.add_argument('--results_dir', type=str, default=None,
@@ -72,6 +83,22 @@ def get_base_arguments() -> argparse.ArgumentParser:
                         help='With --resident_data, keep per-batch step '
                              'dispatch instead of running the epoch from '
                              'its uploaded index and mask matrices.')
+    parser.add_argument('--init_checkpoint', type=str, default=None,
+                        help='Warm-start from a .pt checkpoint: a full '
+                             'reference checkpoint of this model, or a '
+                             'trunk-only file (raw torchvision resnet50 / '
+                             'timm ViT state_dict — the pretrained weights '
+                             'the reference fine-tunes from). Matching '
+                             'subtrees are imported; everything else stays '
+                             'freshly initialized.')
+    parser.add_argument('--resume', type=str, default=None,
+                        help='Checkpoint directory for crash recovery: the '
+                             'full train state (params+opt_state+BN stats+'
+                             'rng+epoch+early-stop state) is saved there '
+                             'after every epoch, and training continues '
+                             'from it when the directory holds one. The '
+                             'reference has no resume (save-only best '
+                             'checkpoints).')
     return parser
 
 
@@ -202,15 +229,177 @@ def reload_state(trainer: Trainer, path: str) -> None:
     trainer.model.load_state_dict(sd, strict=True)
 
 
-def run_epoch_loop(args, train_fn, valid_fn) -> None:
-    """The reference epoch loop: all --epochs run, train_fn() then
-    valid_fn(); early stopping only selects the saved checkpoint (ref:
-    train_baseline.py:133-137). The JAX loop's other arguments (trainer,
-    state, loaders, early stopping, the epoch) serve its --resume and
-    --tracking branches, which the port does not have."""
-    for _ in range(args.epochs):
-        train_fn()
-        valid_fn()
+def apply_init_checkpoint(trainer: Trainer, model_name: str,
+                          path: str) -> Tuple[list, list]:
+    """--init_checkpoint: overlay a .pt checkpoint's matching tensors onto
+    the trainer's freshly initialized model (the reference's pretrained
+    fine-tuning, ref: models.py:51-53,97: torchvision/timm weights).
+
+    The full reference layout of model_name first, then a trunk-only
+    import (raw torchvision/timm, or another model sharing the trunk;
+    import_trunk_state). A tensor of the model present in the file with the
+    same shape is copied into the existing parameter or buffer in place,
+    cast to its dtype, so a CUDA graph captured later sees the addresses the
+    optimizer holds; everything else stays fresh. Only the tensors the JAX
+    variables hold take part (no num_batches_tracked, no unused timm head),
+    and the report names and counts them as the JAX package's does.
+    Returns the (imported, fresh) state_dict keys, a fresh key whose shape
+    differs from the file's with the two shapes after it."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    dest = trainer.model.state_dict()
+    keys = jax_counterpart_keys(model_name, dest)
+    if all(k in raw for k in keys):
+        src, scope = raw, "full model"
+    else:
+        src, scope = import_trunk_state(model_name, raw), "trunk only"
+    imported, fresh = [], []
+    with torch.no_grad():
+        for k in keys:
+            d = dest[k]
+            if k not in src:
+                fresh.append(k)
+            elif tuple(src[k].shape) != tuple(d.shape):
+                fresh.append(f"{k} (shape {tuple(src[k].shape)} != "
+                             f"{tuple(d.shape)})")
+            else:
+                d.copy_(src[k].to(d.dtype))
+                imported.append(k)
+
+    # counted as the JAX overlay counts: a module the file lacks entirely
+    # is one entry, anything else one entry a tensor
+    modules: Dict[str, list] = {}
+    for k in keys:
+        modules.setdefault(jax_top(model_name, k), []).append(k)
+    absent = {m for m, ks in modules.items() if not any(k in src for k in ks)}
+    n_fresh = len(absent) + sum(
+        1 for k in fresh if jax_top(model_name, k.split(" ")[0]) not in absent)
+    tops = lambda names: sorted({jax_top(model_name, n.split(" ")[0])
+                                 for n in names})
+    print(f"init_checkpoint {path}: {scope}; imported {len(imported)} "
+          f"tensors ({', '.join(tops(imported))}); "
+          f"fresh {n_fresh} ({', '.join(tops(fresh)) or 'none'})")
+    return imported, fresh
+
+
+def maybe_warm_start(args, trainer: Trainer, model_name: str) -> None:
+    if getattr(args, "init_checkpoint", None):
+        apply_init_checkpoint(trainer, model_name, args.init_checkpoint)
+
+
+# --resume: one file holds the whole train state and the epoch it ends;
+# meta.json beside it is a readable copy of the loop's scalars
+RESUME_STATE, RESUME_META = "state.pt", "meta.json"
+
+
+def _rng_state(device: torch.device) -> torch.Tensor:
+    """The generator dropout draws from: the device's (seed and Philox
+    offset on cuda), the CPU's default otherwise."""
+    if device.type == "cuda":
+        return torch.cuda.get_rng_state(device)
+    return torch.get_rng_state()
+
+
+def save_resume_payload(resume_dir: str, payload: dict, meta: dict) -> int:
+    """The state file, then meta.json, each written to a tmp file and
+    renamed (a crash mid-write, exactly the window --resume exists for,
+    leaves the previous file whole). The state file carries the epoch that
+    a restart reads, so the weights and their epoch cannot come from two
+    different saves. Shared by the Trainer CLIs and the GNN trainer's own
+    loop; returns the state file's size in bytes."""
+    nbytes = save_state(os.path.join(resume_dir, RESUME_STATE), payload)
+    meta_path = os.path.join(resume_dir, RESUME_META)
+    with open(meta_path + ".tmp", "w") as f:
+        json.dump(meta, f)
+    os.replace(meta_path + ".tmp", meta_path)
+    return nbytes
+
+
+def load_resume_payload(resume_dir: str) -> Optional[dict]:
+    """The payload save_resume_payload wrote in resume_dir, or None when
+    there is none yet (a first run)."""
+    path = os.path.join(resume_dir, RESUME_STATE)
+    return restore_checkpoint(path) if os.path.exists(path) else None
+
+
+def save_resume_state(resume_dir: str, trainer: Trainer, epoch: int,
+                      early_stop: EarlyStopping) -> int:
+    """The full train state after `epoch` epochs: the model's parameters and
+    BN buffers, the optimizer's state (Adam's moments and step), the host
+    step, the dropout generator's state and the early-stopping state.
+    Returns the state file's size in bytes."""
+    stop = {"best_loss": early_stop.best_loss, "wait": early_stop.wait,
+            "stop": early_stop.stop}
+    return save_resume_payload(resume_dir, {
+        "epoch": epoch, "host_step": trainer.host_step,
+        "model": trainer.model.state_dict(),
+        "optimizer": trainer.optimizer.state_dict(),
+        "rng": _rng_state(trainer.device), "early_stop": stop,
+    }, {"epoch": epoch, **stop})
+
+
+def load_resume_state(resume_dir: str, trainer: Trainer,
+                      early_stop: EarlyStopping, payload: dict) -> int:
+    """Restore what save_resume_state saved into the trainer and early_stop;
+    returns the epoch to continue from. The parameters and buffers are
+    copied in place; the optimizer's state tensors are new ones on the
+    parameters' device (fused capturable Adam's step there too), so graphs
+    captured before would update the old ones and are dropped. Done before
+    the first step, no graph exists yet."""
+    trainer.model.load_state_dict(payload["model"], strict=True)
+    trainer.optimizer.load_state_dict(payload["optimizer"])
+    trainer.graphs.clear()
+    trainer.host_step = int(payload["host_step"])
+    if trainer.device.type == "cuda":
+        torch.cuda.set_rng_state(payload["rng"], trainer.device)
+    else:
+        torch.set_rng_state(payload["rng"])
+    for k, v in payload["early_stop"].items():
+        setattr(early_stop, k, v)
+    epoch = int(payload["epoch"])
+    print(f"resumed from {resume_dir}: epoch {epoch}, "
+          f"step {trainer.host_step}")
+    return epoch
+
+
+def run_epoch_loop(args, trainer: Trainer, loaders, early_stop: EarlyStopping,
+                   train_fn: Callable[[int], object],
+                   valid_fn: Callable[[int], object]) -> None:
+    """The reference epoch loop: all --epochs run, train_fn(epoch) then
+    valid_fn(epoch); early stopping only selects the saved checkpoint (ref:
+    train_baseline.py:133-137). With --tracking the arguments are logged
+    first. With --resume the full train state is saved after every epoch,
+    with the seconds and bytes of the save printed, and a restart continues
+    from the saved epoch: the restored generator gives the dropout masks,
+    and each of `loaders` (the ones an epoch iterates once: train and
+    valid) is advanced by the saved epoch to give the batch order, of an
+    uninterrupted run. The test split's loader, which runs once after the
+    loop, is not advanced."""
+    if args.tracking:
+        track_params(args)
+    start_epoch = 0
+    resume_dir = getattr(args, "resume", None)
+    payload = load_resume_payload(resume_dir) if resume_dir else None
+    if payload is not None:
+        start_epoch = load_resume_state(resume_dir, trainer, early_stop,
+                                        payload)
+        for loader in loaders:
+            loader._epoch += start_epoch
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.perf_counter()
+        train_fn(epoch)
+        valid_fn(epoch)
+        if resume_dir:
+            t1 = time.perf_counter()
+            nbytes = save_resume_state(resume_dir, trainer, epoch + 1,
+                                       early_stop)
+            print(f"resume state saved to {resume_dir}: epoch {epoch + 1}, "
+                  f"{nbytes} bytes in {time.perf_counter() - t1:.3f} s "
+                  f"(the epoch took {t1 - t0:.3f} s)")
+
+
+def log_test_metric(args, name: str, value: float) -> None:
+    if args.tracking:
+        log_metric(name, value)
 
 
 def evaluate_single_task(trainer: Trainer, loader, num_classes: int,

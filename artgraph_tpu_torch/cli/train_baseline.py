@@ -3,8 +3,9 @@ artgraph_tpu/cli/train_baseline.py.
 
 Same flags as the reference's src/train_baseline.py (--label,
 --architecture, --dropout + the base arguments), checkpoint name, patience
-(10), loss (cross-entropy, optional class weights), Adam and prints, plus
-`--device` (default `cuda`):
+(10), loss (cross-entropy, optional class weights), Adam, prints and MLflow
+metrics, plus `--device` (default `cuda`) and the JAX CLI's
+--init_checkpoint and --resume:
 
     python -m artgraph_tpu_torch.cli.train_baseline --architecture resnet \
         --dataset_path <dataset> --image_path <images> --label style
@@ -26,10 +27,12 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, make_loaders, reload_state,
-    resolve_device, run_epoch_loop, save_checkpoint, single_task_loss)
+    evaluate_single_task, get_base_arguments, log_test_metric, make_loaders,
+    maybe_warm_start, reload_state, resolve_device, run_epoch_loop,
+    save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
 from artgraph_tpu_torch.models import ResnetSingleTask, ViTSingleTask
+from artgraph_tpu_torch.tracking import tracker
 from artgraph_tpu_torch.train import EarlyStopping
 from artgraph_tpu_torch.train.trainer import Trainer, adam
 
@@ -56,14 +59,16 @@ def main(argv=None):
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
-    model = (ResnetSingleTask if args.architecture == 'resnet'
-             else ViTSingleTask)(num_class, args.dropout)
+    model_cls = (ResnetSingleTask if args.architecture == 'resnet'
+                 else ViTSingleTask)
+    model = model_cls(num_class, args.dropout)
     class_weights = (get_class_weights(dataset_train, num_class, args.label)
                      if args.with_weights else None)
     trainer = Trainer(model=model, optimizer=adam(args.lr),
                       compute_loss=single_task_loss(class_weights, device),
                       transform_type=args.architecture, device=device,
                       seed=config.GLOBAL_SEED)
+    maybe_warm_start(args, trainer, model_cls.__name__)
 
     checkpoint_name = os.path.join(
         config.CHECKPOINTS_DIR,
@@ -72,17 +77,22 @@ def main(argv=None):
                                checkpoint_path=checkpoint_name,
                                save_fn=save_checkpoint)
 
-    def train():
+    @tracker(args.tracking, 'train')
+    def train(epoch):
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}; train accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    def valid():
+    @tracker(args.tracking, 'valid')
+    def valid(epoch):
         m = trainer.eval_epoch(loaders['valid'])
         early_stop(m['loss'], trainer.model)
         print(f'Validation loss: {m["loss"]}; '
               f'validation accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    run_epoch_loop(args, train, valid)
+    run_epoch_loop(args, trainer, (loaders['train'], loaders['valid']),
+                   early_stop, train, valid)
 
     # test(): the model from the best checkpoint
     # (ref: train_baseline.py:102-128)
@@ -90,6 +100,7 @@ def main(argv=None):
     acc = evaluate_single_task(trainer, loaders['test'], num_class,
                                results_dir=args.results_dir)
     print(f'Test accuracy: {acc}')
+    log_test_metric(args, 'test acc', acc)
     return acc
 
 

@@ -27,13 +27,14 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, joint_loss, logits_loss,
-    make_loaders, reload_state, resolve_device, run_epoch_loop,
-    save_checkpoint, single_task_loss)
+    evaluate_single_task, get_base_arguments, joint_loss, log_test_metric,
+    logits_loss, make_loaders, maybe_warm_start, reload_state, resolve_device,
+    run_epoch_loop, save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import (get_class_weights,
                                                load_dataset_multimodal)
 from artgraph_tpu_torch.models import (ContextNetSingleTask,
                                        MultiModalSingleTask)
+from artgraph_tpu_torch.tracking import tracker
 from artgraph_tpu_torch.train import EarlyStopping, mse, smooth_l1
 from artgraph_tpu_torch.train.trainer import Trainer, adam, sgd_momentum
 
@@ -87,6 +88,7 @@ def main(argv=None):
                       eval_compute_loss=logits_loss(class_loss),
                       transform_type='resnet', device=device,
                       seed=config.GLOBAL_SEED)
+    maybe_warm_start(args, trainer, type(model).__name__)
 
     checkpoint_name = os.path.join(
         config.CHECKPOINTS_DIR,
@@ -95,22 +97,28 @@ def main(argv=None):
                                checkpoint_path=checkpoint_name,
                                save_fn=save_checkpoint)
 
-    def train():
+    @tracker(args.tracking, 'train')
+    def train(epoch):
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}; train accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    def valid():
+    @tracker(args.tracking, 'valid')
+    def valid(epoch):
         m = trainer.eval_epoch(loaders['valid'])
         early_stop(m['loss'], trainer.model)
         print(f'Validation loss: {m["loss"]}; '
               f'validation accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    run_epoch_loop(args, train, valid)
+    run_epoch_loop(args, trainer, (loaders['train'], loaders['valid']),
+                   early_stop, train, valid)
 
     reload_state(trainer, checkpoint_name)
     acc = evaluate_single_task(trainer, loaders['test'], num_class,
                                results_dir=args.results_dir, output_index=0)
     print(f'Test accuracy: {acc}')
+    log_test_metric(args, 'test acc', acc)
     return acc
 
 

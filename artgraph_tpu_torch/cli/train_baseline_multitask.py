@@ -26,10 +26,12 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, make_loaders, multi_task_loss,
-    reload_state, resolve_device, run_epoch_loop, save_checkpoint)
+    evaluate_single_task, get_base_arguments, log_test_metric, make_loaders,
+    maybe_warm_start, multi_task_loss, reload_state, resolve_device,
+    run_epoch_loop, save_checkpoint)
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
 from artgraph_tpu_torch.models import ResnetMultiTask, ViTMultiTask
+from artgraph_tpu_torch.tracking import tracker_multitask
 from artgraph_tpu_torch.train import EarlyStopping
 from artgraph_tpu_torch.train.trainer import Trainer, adam
 
@@ -67,6 +69,7 @@ def main(argv=None):
                                                    device),
                       transform_type=args.architecture, device=device,
                       seed=config.GLOBAL_SEED)
+    maybe_warm_start(args, trainer, type(model).__name__)
 
     # the reference keeps 'single-task' in this checkpoint name (ref :48)
     checkpoint_name = os.path.join(
@@ -76,20 +79,25 @@ def main(argv=None):
                                checkpoint_path=checkpoint_name,
                                save_fn=save_checkpoint)
 
-    def train():
+    @tracker_multitask(args.tracking, 'train')
+    def train(epoch):
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}; train style accuracy: '
               f'{m["style_correct"]}; train genre accuracy '
               f'{m["genre_correct"]}')
+        return m['loss'], m['style_correct'], m['genre_correct'], epoch
 
-    def valid():
+    @tracker_multitask(args.tracking, 'valid')
+    def valid(epoch):
         m = trainer.eval_epoch(loaders['valid'])
         early_stop(m['loss'], trainer.model)
         print(f'Validation loss: {m["loss"]}; validation style accuracy: '
               f'{m["style_correct"]}; validation genre accuracy '
               f'{m["genre_correct"]}')
+        return m['loss'], m['style_correct'], m['genre_correct'], epoch
 
-    run_epoch_loop(args, train, valid)
+    run_epoch_loop(args, trainer, (loaders['train'], loaders['valid']),
+                   early_stop, train, valid)
 
     reload_state(trainer, checkpoint_name)
     style_acc = evaluate_single_task(trainer, loaders['test'],
@@ -100,6 +108,8 @@ def main(argv=None):
                                      output_index=1, suffix='_genre')
     print(f'Test style accuracy: {style_acc}; test genre accuracy: '
           f'{genre_acc}')
+    log_test_metric(args, 'test style acc', style_acc)
+    log_test_metric(args, 'test genre acc', genre_acc)
     return style_acc, genre_acc
 
 

@@ -17,8 +17,12 @@ Same flags and defaults as the JAX CLI, plus `--device` (default `cuda`). On
 `cuda` every GATConv runs the CSR softmax kernel forward and the segment-sum
 and scalar-sum kernels in its backward. `--no_epoch_scan` is accepted and
 changes nothing: the port dispatches one step per epoch either way, which is
-what the JAX CLI's epoch chunks compute. `--data_parallel` other than 0 and
-`--resume` are not ported (ROADMAP.md §1).
+what the JAX CLI's epoch chunks compute. `--resume <dir>` saves the model,
+Adam's state, the dropout generator's state and the epoch to
+`<dir>/state.pt` (with `meta.json` beside it) after every epoch with
+`epoch % 5 == 0`, as epoch + 1, and at the end, as the JAX CLI does, and a
+restart continues from the saved epoch with the same dropout masks.
+`--data_parallel` other than 0 is not ported (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ import numpy as np
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.cli._common import resolve_device
+from artgraph_tpu_torch.cli._common import (load_resume_payload,
+                                            resolve_device,
+                                            save_resume_payload)
 from artgraph_tpu_torch.data.artgraph import (ArtGraph, gat_self_loops,
                                               to_undirected, with_csr)
 from artgraph_tpu_torch.data.embeddings import save_embedding
@@ -81,8 +87,9 @@ def main(argv=None):
                              'semantics (reference default adds min(N_src, '
                              'N_dst) self-loops per relation).')
     parser.add_argument('--resume', type=str, default=None,
-                        help='Checkpoint directory for crash recovery (not '
-                             'ported).')
+                        help='Checkpoint directory for crash recovery: full '
+                             'train state saved every 5 epochs; training '
+                             'continues from it when present.')
     parser.add_argument('--no_epoch_scan', action='store_true',
                         help='Accepted for the JAX CLI\'s surface; the port '
                              'runs one step per epoch either way.')
@@ -93,9 +100,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"--data_parallel {args.data_parallel}: the edge-sharded GNN is "
             f"not ported yet (ROADMAP.md §1, data parallelism)")
-    if args.resume:
-        raise NotImplementedError(
-            "--resume: crash recovery is not ported yet (ROADMAP.md §1)")
     device = resolve_device(args.device)
 
     graphs = load_graphs(config.DATASET_DIR, args.operator,
@@ -111,6 +115,21 @@ def main(argv=None):
                        dropout=0.4).to(device)
     optimizer = adam(args.lr)(model.parameters())
     generator = torch.Generator(device).manual_seed(config.GLOBAL_SEED)
+
+    def save_resume(epoch: int) -> None:
+        save_resume_payload(args.resume, {
+            "epoch": epoch, "model": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "generator": generator.get_state()}, {"epoch": epoch})
+
+    start_epoch = 0
+    payload = load_resume_payload(args.resume) if args.resume else None
+    if payload is not None:
+        model.load_state_dict(payload["model"], strict=True)
+        optimizer.load_state_dict(payload["optimizer"])
+        generator.set_state(payload["generator"])
+        start_epoch = int(payload["epoch"])
+        print(f"resumed from {args.resume}: epoch {start_epoch}")
 
     def forward(name: str, train: bool):
         _, x, edges, csr, labels = graphs[name]
@@ -132,7 +151,7 @@ def main(argv=None):
         print(f'{label}_val_accuracy', round(val_acc, 2) * 100)
 
     train_loss = train_acc = 0.0
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         loss, logp, _ = forward("train_train", train=True)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -143,6 +162,10 @@ def main(argv=None):
         if epoch % 5 == 0:
             val_loss, val_acc, _ = evaluate("train_validation")
             print_metrics(train_loss, train_acc, val_loss, val_acc)
+            if args.resume:
+                save_resume(epoch + 1)
+    if args.resume:
+        save_resume(args.epochs)
 
     val_loss, val_acc, _ = evaluate("train_validation")
     test_loss, test_acc, _ = evaluate("train_test")

@@ -22,14 +22,14 @@ import os
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.cli._common import (evaluate_single_task,
-                                            get_base_arguments, make_loaders,
-                                            reload_state, resolve_device,
-                                            run_epoch_loop, save_checkpoint,
-                                            single_task_loss)
+from artgraph_tpu_torch.cli._common import (
+    evaluate_single_task, get_base_arguments, log_test_metric, make_loaders,
+    maybe_warm_start, reload_state, resolve_device, run_epoch_loop,
+    save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import (get_class_weights,
                                                load_dataset_new_multimodal)
 from artgraph_tpu_torch.models import NewMultiModalSingleTask
+from artgraph_tpu_torch.tracking import tracker
 from artgraph_tpu_torch.train import EarlyStopping
 from artgraph_tpu_torch.train.trainer import Trainer, adam
 
@@ -81,6 +81,7 @@ def main(argv=None):
                       transform_type='resnet', device=device,
                       seed=config.GLOBAL_SEED,
                       forward_inputs=image_and_embedding)
+    maybe_warm_start(args, trainer, type(model).__name__)
 
     checkpoint_name = os.path.join(
         config.CHECKPOINTS_DIR,
@@ -89,23 +90,29 @@ def main(argv=None):
                                checkpoint_path=checkpoint_name,
                                save_fn=save_checkpoint)
 
-    def train():
+    @tracker(args.tracking, 'train')
+    def train(epoch):
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}; train accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    def valid():
+    @tracker(args.tracking, 'valid')
+    def valid(epoch):
         m = trainer.eval_epoch(loaders['valid'])
         # the reference early-stops on the NEGATIVE accuracy here (ref :99)
         early_stop(-m['correct'], trainer.model)
         print(f'Validation loss: {m["loss"]}; '
               f'validation accuracy: {m["correct"]}')
+        return m['loss'], m['correct'], epoch
 
-    run_epoch_loop(args, train, valid)
+    run_epoch_loop(args, trainer, (loaders['train'], loaders['valid']),
+                   early_stop, train, valid)
 
     reload_state(trainer, checkpoint_name)
     acc = evaluate_single_task(trainer, loaders['test'], num_class,
                                results_dir=args.results_dir)
     print(f'Test accuracy: {acc}')
+    log_test_metric(args, 'test acc', acc)
     return acc
 
 

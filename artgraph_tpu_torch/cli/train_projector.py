@@ -18,6 +18,12 @@ LabelProjectorVit; both normalize with the ResNet statistics, as the
 reference does even for the ViT. generate_projections loads every file of
 PROJECTIONS_DIR as the ResNet LabelProjector, so a ViT projector belongs in
 a directory of its own.
+
+`--init_checkpoint` warm-starts the projector as in the JAX CLI. `--resume`
+is refused: this trainer has no resumable epoch loop (the JAX CLI parses
+the flag and ignores it). With `-t` the arguments and the epochs' `train
+loss` and `valid loss` and the `test loss` are logged (the JAX CLI parses
+the flag and logs nothing).
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (get_base_arguments, make_loaders,
-                                            reload_state, resolve_device,
-                                            save_checkpoint)
+                                            maybe_warm_start, reload_state,
+                                            resolve_device, save_checkpoint)
 from artgraph_tpu_torch.data.factories import load_dataset_projection
 from artgraph_tpu_torch.models import LabelProjector, LabelProjectorVit
+from artgraph_tpu_torch.tracking import log_metric, track_params
 from artgraph_tpu_torch.train import EarlyStopping, smooth_l1
 from artgraph_tpu_torch.train.trainer import Trainer, adam
 
@@ -52,6 +59,9 @@ def main(argv=None):
     parser.add_argument('--architecture', type=str, default='resnet',
                         help='Architecture (vt|resnet).')
     args = parser.parse_args(argv)
+    if args.resume:
+        parser.error('--resume: train_projector has no resumable epoch loop '
+                     '(the JAX CLI parses the flag and ignores it)')
     device = resolve_device(args.device)
 
     dataset_train, dataset_valid, dataset_test = load_dataset_projection(
@@ -70,6 +80,7 @@ def main(argv=None):
     trainer = Trainer(model=model, optimizer=adam(args.lr),
                       compute_loss=projection_loss, transform_type='resnet',
                       device=device, seed=config.GLOBAL_SEED)
+    maybe_warm_start(args, trainer, type(model).__name__)
 
     checkpoint_path = os.path.join(config.PROJECTIONS_DIR,
                                    f'{args.exp}_checkpoint_projector.pt')
@@ -77,16 +88,24 @@ def main(argv=None):
                                checkpoint_path=checkpoint_path,
                                save_fn=save_checkpoint)
 
-    for _ in range(args.epochs):
+    if args.tracking:
+        track_params(args)
+    for epoch in range(args.epochs):
         m = trainer.train_epoch(loaders['train'])
         print(f'Train loss: {m["loss"]}')
+        if args.tracking:
+            log_metric('train loss', m['loss'], step=epoch)
         m = trainer.eval_epoch(loaders['valid'])
         early_stop(m['loss'], trainer.model)
         print(f'Validation loss: {m["loss"]}')
+        if args.tracking:
+            log_metric('valid loss', m['loss'], step=epoch)
 
     reload_state(trainer, checkpoint_path)
     m = trainer.eval_epoch(loaders['test'])
     print(f'Test loss: {m["loss"]}')
+    if args.tracking:
+        log_metric('test loss', m['loss'])
     return m['loss']
 
 

@@ -5,8 +5,10 @@ Port of artgraph_tpu/train/early_stopping.py (ref src/models/models.py:9-39
 epoch counts as an improvement only when -loss >= best + min_delta, and each
 improvement saves a checkpoint through `save_fn(model_state, path)`. The
 wait counter resets on improvement, as the JAX package's does (the reference
-resets an unused attribute instead); reference trainers ignore `.stop`: the
-epoch loop runs all epochs and early stopping only selects the saved
+resets an unused attribute instead, models.py:35, so its counter never
+resets); `legacy_counter_bug=True` reproduces the reference's `wait` and
+`stop` trajectory, as the JAX flag does. Reference trainers ignore `.stop`:
+the epoch loop runs all epochs and early stopping only selects the saved
 checkpoint, identical either way.
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Callable, Optional
 class EarlyStopping:
     def __init__(self, patience: int = 3, min_delta: float = 0.001,
                  checkpoint_path: str = "checkpoint.pt",
-                 save_fn: Optional[Callable[[object, str], None]] = None):
+                 save_fn: Optional[Callable[[object, str], None]] = None,
+                 legacy_counter_bug: bool = False):
         self.patience = patience
         self.min_delta = min_delta
         self.best_loss = None
@@ -25,6 +28,7 @@ class EarlyStopping:
         self.wait = 0
         self.path = checkpoint_path
         self.save_fn = save_fn
+        self.legacy_counter_bug = legacy_counter_bug
 
     def __call__(self, current_loss: float, model_state) -> None:
         loss = -float(current_loss)
@@ -39,7 +43,8 @@ class EarlyStopping:
         else:
             self.best_loss = loss
             self.save_checkpoint(model_state)
-            self.wait = 0
+            if not self.legacy_counter_bug:
+                self.wait = 0
 
     def save_checkpoint(self, model_state) -> None:
         print("Validation loss decreased. Saving model...")

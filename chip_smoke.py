@@ -5,8 +5,9 @@ serving and training paths, the unfused ViT-B/16 trunk (ViT(fuse_qkv=False))
 and the standalone Attention module, the training of the fusion model
 NewMultiModalMultiTaskViT, the four pipeline stages through their CLIs, the
 ContextNet and MultiModal context models' training, the three baseline
-CLIs, the Trainer's graphed step and its device-resident epochs once on one
-NVIDIA GPU.
+CLIs, the Trainer's graphed step and its device-resident epochs, and the
+trainers' run control (--resume, --init_checkpoint, -t) once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -269,6 +270,29 @@ sum's device time and launches a step.
               path's shapes and replayed on new inputs copied into its
               static buffers: every output bit-identical to the eager launch
               on those inputs.
+ 26. run control  on phase 15's synthetic tree at --batch 10 (the last
+              batch ragged), with cuDNN's deterministic algorithms, at the
+              CLI's dropout (0.4): cli.train_baseline --architecture vit and
+              --architecture resnet (gate open) with --epochs 3 --resume A,
+              with --epochs 1 then --epochs 3 --resume B, and the same pair
+              with --resident_data (R): B and R bit-identical to A (the best
+              checkpoint, the final payload's parameters, BN buffers, Adam
+              state, host step, early-stop state and generator state, the
+              epochs' printed lines, the test accuracy), each run's launches
+              exact, the restart's "resumed from" line; each resume save's
+              bytes and seconds beside its epoch's seconds. A ViT run with
+              -t into a file store: its metrics equal the printed values,
+              its launches and lines equal the same run's without -t.
+              cli.train_gnn_embeddings --epochs 6 then 8 with --resume on a
+              KG written here: both embedding files bit-identical to an
+              uninterrupted --epochs 8. --init_checkpoint from a seeded
+              ViTSingleTask .pt saved by the port (full model), the same
+              weights in raw timm layout and a seeded raw-torchvision
+              ResNet50 trunk (trunk only): applied to the CLI's fresh model
+              the imported tensors equal the file's, the fresh ones (the
+              head) unchanged, the report's counts as expected; then each
+              through cli.train_baseline for 1 epoch, which prints the same
+              report, launches exact.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3889,6 +3913,410 @@ def capture_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# Phase 26: run control (--resume, --init_checkpoint, -t/--tracking)
+# --------------------------------------------------------------------------
+
+RC_BATCH = 10                   # phase 26's CLI batch: a ragged last batch
+
+
+def _rc_epoch_lines(text: str) -> list:
+    """A CLI run's per-epoch lines: losses, accuracies, early stopping."""
+    return [ln for ln in text.splitlines() if ln.startswith(
+        ("Train loss", "Validation loss", "EarlyStopping"))]
+
+
+def _rc_saves(text: str) -> list:
+    """(epoch, bytes, save s, epoch s) of each resume save a run printed."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("resume state saved to "):
+            head, _, tail = ln.partition(": epoch ")
+            epoch, rest = tail.split(", ", 1)
+            nbytes, rest = rest.split(" bytes in ")
+            save_s, rest = rest.split(" s (the epoch took ")
+            out.append((int(epoch), int(nbytes), float(save_s),
+                        float(rest.rstrip(" s)"))))
+    return out
+
+
+def _rc_equal(label: str, a, b, path: str = "") -> None:
+    """a and b (tensors, numbers, nested dicts and lists) bit-identical."""
+    if isinstance(a, torch.Tensor):
+        if not (a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"run control: {label}: {path} differs")
+    elif isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"run control: {label}: {path} keys differ")
+        for k in a:
+            _rc_equal(label, a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"run control: {label}: {path} lengths")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _rc_equal(label, x, y, f"{path}/{i}")
+    elif a != b:
+        raise AssertionError(f"run control: {label}: {path}: {a} != {b}")
+
+
+def _rc_image_launches(arch: str, counts: dict, train_epochs: int,
+                       valid_epochs: int, test: bool) -> dict:
+    """The kernels' launches of a train_baseline run of that many train and
+    valid epochs (and the test pass) at RC_BATCH, gate open for ResNet."""
+    nb = lambda n: -(-n // RC_BATCH)
+    train = train_epochs * nb(counts["train"])
+    evals = valid_epochs * nb(counts["validation"]) + test * nb(
+        counts["test"])
+    if arch == "resnet":
+        full = train_epochs * (counts["train"] // RC_BATCH)
+        return {"conv1x1_bn_stats": RESNET_UNITS * full,
+                "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                "normalize_images": train + evals}
+    return {"fused_block_attention": 12 * (train + evals),
+            "fused_block_mlp": 12 * (train + evals),
+            "fused_block_attention_bwd": 12 * train,
+            "fused_block_mlp_bwd": 12 * train,
+            "normalize_images": train + evals}
+
+
+def _rc_resume(arch: str, root: Path, counts: dict, total: dict) -> dict:
+    """Part 1-3 for one architecture: --epochs 3 --resume A uninterrupted;
+    --epochs 1 then 3 with --resume B; the same pair with --resident_data
+    (R). B and R against A bit for bit: the best checkpoint, the final
+    payload (parameters, BN buffers, Adam's state, host step, early-stop
+    state, generator), the epochs' printed lines and the test accuracy.
+    Returns the seconds and bytes of every save."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli import train_baseline
+
+    base = ["--dataset_path", str(root / "dataset"), "--image_path",
+            str(root / "images"), "--architecture", arch, "--label",
+            "style", "--batch", str(RC_BATCH), "--num_workers", "4",
+            "--device", "cuda"]
+    name = f"style_{arch}_baseline_single-task_checkpoint.pt"
+    runs = {"A": [(3, [])], "B": [(1, []), (3, [])],
+            "R": [(1, ["--resident_data"]), (3, ["--resident_data"])]}
+    saved = config.CHECKPOINTS_DIR
+    results, saves = {}, []
+    try:
+        for key, legs in runs.items():
+            config.CHECKPOINTS_DIR = str(root / f"ckpt_{arch}_{key}")
+            lines, done = [], 0
+            for epochs, extra in legs:
+                label = f"{arch} {key} --epochs {epochs}{' ' if extra else ''}" \
+                        f"{' '.join(extra)}"
+                with _conv_bn_gate(arch == "resnet"), _deterministic():
+                    acc, text, c = _run_cli(
+                        label, train_baseline.main,
+                        [*base, "--epochs", str(epochs), "--resume",
+                         str(root / f"resume_{arch}_{key}"), *extra],
+                        phase="run control")
+                for k, n in c.items():
+                    total[k] = total.get(k, 0) + n
+                _expect_launches(label, c, _rc_image_launches(
+                    arch, counts, epochs - done, epochs - done, True),
+                    phase="run control")
+                if done and f"resumed from {root / f'resume_{arch}_{key}'}:" \
+                        f" epoch {done}, step" not in text:
+                    raise AssertionError(f"run control: {label}: no "
+                                         f"'resumed from' line")
+                lines += _rc_epoch_lines(text)
+                saves += [(arch, key, *s) for s in _rc_saves(text)]
+                done = epochs
+            results[key] = (acc, lines, torch.load(
+                root / f"ckpt_{arch}_{key}" / name, map_location="cpu",
+                weights_only=True), torch.load(
+                root / f"resume_{arch}_{key}" / "state.pt",
+                map_location="cpu", weights_only=True))
+    finally:
+        config.CHECKPOINTS_DIR = saved
+    acc_a, lines_a, best_a, state_a = results["A"]
+    if len(lines_a) < 6 or state_a["epoch"] != 3:
+        raise AssertionError(f"run control: {arch}: A printed {lines_a}")
+    for key in ("B", "R"):
+        acc, lines, best, state = results[key]
+        if acc != acc_a or lines != lines_a:
+            raise AssertionError(f"run control: {arch} {key}: accuracy "
+                                 f"{acc} != {acc_a} or lines {lines} != "
+                                 f"{lines_a}")
+        _rc_equal(f"{arch} {key} best checkpoint", best, best_a)
+        _rc_equal(f"{arch} {key} payload", state, state_a)
+    model = state_a["model"]
+    bn = sum(1 for k in model if k.endswith(("running_mean", "running_var")))
+    moments = sum(len(v) for v in state_a["optimizer"]["state"].values())
+    print(f"run control: {arch}: B (1 + 2 epochs) and R (--resident_data, "
+          f"1 + 2) bit-identical to A (3 epochs, dropout 0.4): the best "
+          f"checkpoint ({len(best_a)} tensors), the payload's "
+          f"{len(model)} model tensors ({bn} BN statistics), "
+          f"{moments} Adam state tensors, host_step "
+          f"{state_a['host_step']}, early stop {state_a['early_stop']}, "
+          f"{len(lines_a)} epoch lines, test accuracy {acc_a}", flush=True)
+    del results, state_a, best_a, model
+    for key in runs:
+        shutil.rmtree(root / f"resume_{arch}_{key}", ignore_errors=True)
+    return saves
+
+
+def _rc_gnn(root: Path, total: dict) -> None:
+    """Part 4: train_gnn_embeddings --epochs 6 --resume G, then --epochs 8
+    --resume G, against an uninterrupted --epochs 8: both embedding files
+    bit-identical."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli import train_gnn_embeddings
+    from artgraph_tpu_torch.data.embeddings import load_embedding
+
+    kg = _write_kg(root / "kg", SEED + 160)
+    saved = config.DATASET_DIR, config.EMBEDDINGS_DIR
+    config.DATASET_DIR = str(root / "kg")
+    resume = root / "resume_gnn"
+    embs = {}
+    try:
+        for tag, legs in (("resumed", (6, 8)), ("straight", (8,))):
+            config.EMBEDDINGS_DIR = str(root / f"emb_{tag}")
+            for epochs in legs:
+                argv = ["--device", "cuda", "--epochs", str(epochs)]
+                if tag == "resumed":
+                    argv += ["--resume", str(resume)]
+                _, text, c = _run_cli(f"gnn {tag} --epochs {epochs}",
+                                      train_gnn_embeddings.main, argv,
+                                      phase="run control")
+                for k, n in c.items():
+                    total[k] = total.get(k, 0) + n
+                if epochs == 8 and tag == "resumed" and \
+                        f"resumed from {resume}: epoch 6" not in text:
+                    raise AssertionError("run control: gnn: no 'resumed "
+                                         "from ...: epoch 6' line")
+            embs[tag] = [load_embedding(str(root / f"emb_{tag}" / f"{s}.pt"))
+                         for s in ("test_gnn_artwork_style_embs",
+                                   "test_gnn_style_embs")]
+    finally:
+        config.DATASET_DIR, config.EMBEDDINGS_DIR = saved
+    for a, b in zip(embs["resumed"], embs["straight"]):
+        if a.shape != (kg["artwork"], 128) or not np.array_equal(a, b):
+            raise AssertionError("run control: gnn: the resumed embeddings "
+                                 "differ from the uninterrupted run's")
+    print(f"run control: gnn: --epochs 6 --resume, then --epochs 8 --resume:"
+          f" both embedding files [{kg['artwork']}, 128] bit-identical to an "
+          f"uninterrupted --epochs 8", flush=True)
+
+
+def _rc_warm(root: Path, counts: dict, total: dict) -> None:
+    """Part 5: --init_checkpoint from a full seeded ViTSingleTask .pt saved
+    by the port, from the same weights in raw timm layout, and from a raw
+    torchvision-layout ResNet50 trunk. Each applied directly to the CLI's
+    freshly built model (the file's tensors in place, the heads as fresh as
+    before, the report's counts as expected), then through train_baseline
+    for 1 epoch, which must print the same report."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import save_reference_checkpoint
+    from artgraph_tpu_torch.checkpointing.torch_interop import \
+        jax_counterpart_keys
+    from artgraph_tpu_torch.cli import train_baseline
+    from artgraph_tpu_torch.cli._common import (apply_init_checkpoint,
+                                                single_task_loss)
+    from artgraph_tpu_torch.models import (ResNet50, ResnetSingleTask,
+                                           ViTSingleTask, init_random_)
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    vit = init_random_(ViTSingleTask(32, dropout=0.4),
+                       torch.Generator().manual_seed(SEED + 170))
+    save_reference_checkpoint(vit, str(root / "vit_full.pt"))
+    timm = {k[len("vit."):]: v.float() for k, v in vit.state_dict().items()
+            if not k.startswith("vit.head.")}
+    timm["head.weight"] = torch.zeros(1000, C)
+    timm["head.bias"] = torch.zeros(1000)
+    torch.save(timm, root / "vit_timm.pt")
+    tv = _seeded_resnet_(ResNet50(named=True), SEED + 180)
+    raw = {k: v.float() for k, v in tv.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    raw["fc.weight"] = torch.zeros(1000, 2048)
+    raw["fc.bias"] = torch.zeros(1000)
+    torch.save(raw, root / "resnet_torchvision.pt")
+    del vit, tv
+
+    cases = (("vit", "ViTSingleTask", "vit_full.pt", "full model", None),
+             ("vit", "ViTSingleTask", "vit_timm.pt", "trunk only",
+              "params/head"),
+             ("resnet", "ResnetSingleTask", "resnet_torchvision.pt",
+              "trunk only", "params/classifier"))
+    saved = config.CHECKPOINTS_DIR
+    try:
+        for arch, model_name, fname, scope, head in cases:
+            path = str(root / fname)
+            torch.manual_seed(config.GLOBAL_SEED)   # as the CLI builds it
+            model = (ResnetSingleTask if arch == "resnet"
+                     else ViTSingleTask)(32, 0.4)
+            trainer = Trainer(model, adam(3e-4), single_task_loss(None,
+                                                                  "cuda"),
+                              transform_type=arch, device="cuda")
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                imported, fresh = apply_init_checkpoint(trainer, model_name,
+                                                        path)
+            report = out.getvalue().strip()
+            keys = jax_counterpart_keys(model_name, before)
+            n_head = sum(1 for k in keys if k.startswith(
+                ("classifier.", "vit.head.")))
+            tops = {"vit_full.pt": "params/head, params/vit",
+                    "vit_timm.pt": "params/vit",
+                    "resnet_torchvision.pt":
+                        "batch_stats/resnet, params/resnet"}[fname]
+            want = (f"init_checkpoint {path}: {scope}; imported "
+                    f"{len(keys) - n_head if head else len(keys)} tensors "
+                    f"({tops}); fresh {1 if head else 0} ({head or 'none'})")
+            if report != want:
+                raise AssertionError(f"run control: warm {fname}: report "
+                                     f"{report!r}, expected {want!r}")
+            src = torch.load(path, map_location="cpu", weights_only=True)
+            got = model.state_dict()
+            for k in imported:
+                sk = (k if fname == "vit_full.pt" else
+                      k[len("vit."):] if arch == "vit" else
+                      _tv_name(k))
+                if not torch.equal(got[k].cpu(), src[sk].to(got[k].dtype)):
+                    raise AssertionError(f"run control: warm {fname}: {k} "
+                                         f"is not the file's {sk}")
+            for k in fresh:
+                if not torch.equal(got[k], before[k]):
+                    raise AssertionError(f"run control: warm {fname}: the "
+                                         f"fresh {k} changed")
+            del trainer, model, before, got
+            config.CHECKPOINTS_DIR = str(root / f"ckpt_warm_{fname}")
+            label = f"{arch} --init_checkpoint {fname}"
+            with _conv_bn_gate(arch == "resnet"):
+                _, text, c = _run_cli(
+                    label, train_baseline.main,
+                    ["--dataset_path", str(root / "dataset"), "--image_path",
+                     str(root / "images"), "--architecture", arch, "--label",
+                     "style", "--batch", str(RC_BATCH), "--num_workers", "4",
+                     "--device", "cuda", "--epochs", "1",
+                     "--init_checkpoint", path], phase="run control")
+            for k, n in c.items():
+                total[k] = total.get(k, 0) + n
+            _expect_launches(label, c, _rc_image_launches(arch, counts, 1, 1,
+                                                          True),
+                             phase="run control")
+            if report not in text.splitlines():
+                raise AssertionError(f"run control: {label}: the CLI did "
+                                     f"not print {report!r}")
+            print(f"run control: warm {fname} into {model_name}: {scope}, "
+                  f"{len(imported)} tensors imported equal to the file's, "
+                  f"{len(fresh)} fresh unchanged; the CLI printed the same "
+                  f"report and trained 1 epoch", flush=True)
+    finally:
+        config.CHECKPOINTS_DIR = saved
+
+
+def _tv_name(key: str) -> str:
+    """A ResnetSingleTask trunk key (resnet.4.0.conv1.weight) as raw
+    torchvision names it (layer1.0.conv1.weight)."""
+    index = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+             "6": "layer3", "7": "layer4"}
+    child, _, rest = key[len("resnet."):].partition(".")
+    return f"{index[child]}.{rest}"
+
+
+def _rc_tracking(root: Path, untracked: dict) -> dict:
+    """Part 6: train_baseline --architecture vit --epochs 1 -t into a file
+    store under root: its per-epoch metric values equal the printed ones,
+    and its launches and printed lines equal those of the same run without
+    -t (tracking adds no work to a step)."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli import train_baseline
+    from artgraph_tpu_torch.tracking import mlflow_adapter
+
+    saved = config.CHECKPOINTS_DIR, mlflow_adapter._store
+    config.CHECKPOINTS_DIR = str(root / "ckpt_tracked")
+    mlflow_adapter._store = mlflow_adapter._FileStore(str(root / "mlruns"))
+    try:
+        with _deterministic():
+            acc, text, c = _run_cli(
+                "vit -t", train_baseline.main,
+                ["--dataset_path", str(root / "dataset"), "--image_path",
+                 str(root / "images"), "--architecture", "vit", "--label",
+                 "style", "--batch", str(RC_BATCH), "--num_workers", "4",
+                 "--device", "cuda", "--epochs", "1", "-t", "--exp",
+                 "chip_smoke"], phase="run control")
+    finally:
+        config.CHECKPOINTS_DIR, mlflow_adapter._store = saved
+    if mlflow_adapter._mlflow is not None:
+        print("run control: tracking: mlflow is installed here; the file "
+              "store is not checked", flush=True)
+        return c
+    (run_id,) = os.listdir(root / "mlruns" / "chip_smoke")
+    metrics = root / "mlruns" / "chip_smoke" / run_id / "metrics"
+    read = lambda n: [ln.split()[1:] for ln in
+                      (metrics / n).read_text().splitlines()]
+    train = [ln for ln in text.splitlines() if ln.startswith("Train loss")]
+    valid = [ln for ln in text.splitlines()
+             if ln.startswith("Validation loss: ")]
+    for name, lines in (("train", train), ("valid", valid)):
+        loss, acc_text = lines[0].split(": ", 1)[1].split("; ")
+        want = {"loss": [[str(float(loss)), "0"]],
+                "acc": [[str(float(acc_text.split(": ")[1])), "0"]]}
+        for metric, rows in want.items():
+            if read(f"{name} {metric}") != rows:
+                raise AssertionError(f"run control: tracking: {name} "
+                                     f"{metric} {read(f'{name} {metric}')} "
+                                     f"!= printed {rows}")
+    if read("test acc") != [[str(acc), "0"]]:
+        raise AssertionError("run control: tracking: test acc")
+    if c != untracked["counts"] or _rc_epoch_lines(text) != \
+            untracked["lines"]:
+        raise AssertionError(f"run control: tracking: launches {c} or "
+                             f"lines differ from the untracked run's "
+                             f"{untracked['counts']}")
+    print(f"run control: tracking: -t wrote {sorted(os.listdir(metrics))} "
+          f"equal to the printed values; launches and epoch lines equal to "
+          f"the untracked run's", flush=True)
+    return c
+
+
+def run_control_phase() -> dict:
+    """Phase 26: the trainers' run control on the card; returns every
+    kernel's launches over its runs."""
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        counts = _load_synth().make_image_tree(root)
+        if counts["train"] % RC_BATCH == 0:
+            raise AssertionError("run control: the last batch is not ragged")
+        saves = []
+        for arch in ("vit", "resnet"):
+            saves += _rc_resume(arch, root, counts, total)
+        for arch, key, epoch, nbytes, save_s, epoch_s in saves:
+            print(f"run control: save cost: {arch} {key} epoch {epoch}: "
+                  f"{nbytes} bytes in {save_s:.3f} s beside an epoch of "
+                  f"{epoch_s:.3f} s ({counts['train']} train, "
+                  f"{counts['validation']} valid images)", flush=True)
+        # part 6's reference: the tracked run's arguments without -t
+        from artgraph_tpu_torch import config
+        from artgraph_tpu_torch.cli import train_baseline
+        saved = config.CHECKPOINTS_DIR
+        config.CHECKPOINTS_DIR = str(root / "ckpt_untracked")
+        try:
+            with _deterministic():
+                _, text, c = _run_cli(
+                    "vit untracked", train_baseline.main,
+                    ["--dataset_path", str(root / "dataset"), "--image_path",
+                     str(root / "images"), "--architecture", "vit",
+                     "--label", "style", "--batch", str(RC_BATCH),
+                     "--num_workers", "4", "--device", "cuda", "--epochs",
+                     "1"], phase="run control")
+        finally:
+            config.CHECKPOINTS_DIR = saved
+        untracked = {"counts": c, "lines": _rc_epoch_lines(text)}
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+        for k, n in _rc_tracking(root, untracked).items():
+            total[k] = total.get(k, 0) + n
+        _rc_gnn(root, total)
+        _rc_warm(root, counts, total)
+    return total
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -3934,6 +4362,8 @@ def main() -> int:
         for k, n in resident_phase().items():
             launches[k] = launches.get(k, 0) + n
         capture_phase()
+        for k, n in run_control_phase().items():
+            launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
     for name, n in launches.items():

@@ -779,3 +779,62 @@ def test_cuda_context_training_step_matches_the_plain_path(monkeypatch):
                                  runs[True], runs[False]):
         rel = (ours.double() - plain.double()).norm() / plain.double().norm()
         assert rel <= 5e-2, (name, float(rel))
+
+
+@pytest.mark.cuda
+def test_cuda_resumed_graphed_epoch_equals_an_uninterrupted_one(tmp_path,
+                                                               monkeypatch):
+    """--resume on the graphed step, at dropout 0.4: a small ViT trained one
+    epoch, its state saved (save_resume_state), restored into a fresh
+    trainer (load_resume_state) and trained a second epoch equals two
+    uninterrupted epochs bit for bit: the second epoch's loss, every
+    parameter and Adam's state. The restart's first batch is an eager
+    warm-up where the uninterrupted run replays: both must draw the same
+    dropout masks from the restored generator (cuDNN deterministic, for the
+    patch embedding's convolution)."""
+    import functools
+
+    from artgraph_tpu_torch.cli._common import (load_resume_payload,
+                                                load_resume_state,
+                                                save_resume_state,
+                                                single_task_loss)
+    from artgraph_tpu_torch.models import ViT, heads
+    from artgraph_tpu_torch.train import EarlyStopping, Trainer, adam
+
+    _need_cuda()
+    monkeypatch.setattr(heads, "ViT", functools.partial(
+        ViT, img_size=64, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+        mlp_ratio=4.0))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(5)
+    batches = []
+    for i in range(4):
+        mask = np.ones(8, np.float32)
+        mask[6:] = 0.0 if i == 3 else 1.0
+        batches.append((rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+                        rng.integers(0, 5, 8).astype(np.int32), mask))
+
+    def trainer():
+        torch.manual_seed(0)
+        return Trainer(heads.ViTSingleTask(5, dropout=0.4), adam(1e-3),
+                       single_task_loss(None, "cuda"), transform_type="vit",
+                       device="cuda", seed=1)
+
+    straight = trainer()
+    want = [straight.train_epoch(batches) for _ in range(2)]
+    first = trainer()
+    got = [first.train_epoch(batches)]
+    save_resume_state(str(tmp_path), first, 1, EarlyStopping())
+    resumed = trainer()
+    assert load_resume_state(str(tmp_path), resumed, EarlyStopping(),
+                             load_resume_payload(str(tmp_path))) == 1
+    got.append(resumed.train_epoch(batches))
+    torch.cuda.synchronize()
+    assert got == want and resumed.host_step == straight.host_step == 8
+    for (name, p), q in zip(resumed.model.state_dict().items(),
+                            straight.model.state_dict().values()):
+        assert torch.equal(p, q), name
+    for p, q in zip(resumed.model.parameters(), straight.model.parameters()):
+        for k, v in resumed.optimizer.state[p].items():
+            assert torch.equal(v, straight.optimizer.state[q][k]), k
+            assert v.device == p.device, k

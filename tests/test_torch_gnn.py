@@ -396,12 +396,16 @@ def test_cli_cpu_prints_the_jax_lines_and_saves_embeddings(
         assert ref.shape == emb.shape
 
 
-def test_cli_refuses_what_is_not_ported(kg_dirs):
+def test_cli_refuses_what_is_not_ported(kg_dirs, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_gnn_embeddings.main(["--device", "cpu", "--data_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gnn_embeddings.main(["--device", "cpu", "--resume",
-                                   str(kg_dirs / "resume")])
+    # --resume is ported (tests/test_torch_runcontrol.py): on cuda without a
+    # card it raises instead of training on the CPU, and saves nothing
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_gnn_embeddings.main(["--resume", str(kg_dirs / "resume")])
+    assert not (kg_dirs / "resume").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_gnn_embeddings.main(["--epochs", "1"])

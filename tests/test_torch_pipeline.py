@@ -321,8 +321,9 @@ CLIS = {
 }
 
 
-# the JAX CLIs' data flags that the image CLIs of the port now take
-PORTED_EXTRAS = ("--resident_data", "--no_epoch_scan", "--image_cache")
+# the JAX CLIs' flags that the image CLIs of the port now take
+PORTED_EXTRAS = ("--resident_data", "--no_epoch_scan", "--image_cache",
+                 "--init_checkpoint", "--tracking", "--resume")
 
 
 class _Parsed(Exception):
@@ -335,15 +336,18 @@ class _Parsed(Exception):
     ["--resume", "r"], ["--tracking"]])
 @pytest.mark.parametrize("cli", sorted(CLIS))
 def test_clis_refuse_the_tpu_extras(cli, extra, monkeypatch):
-    """The extras the port lacks are refused by the parser; the ported data
-    flags parse (the CLI stops at resolve_device, right after parsing),
-    except in generate_projections, which takes --device only."""
+    """The extra the port lacks (--data_parallel) is refused by the parser;
+    the ported flags parse (the CLI stops at resolve_device, right after
+    parsing), except in generate_projections, which takes --device only,
+    and --resume in train_projector, which has no resumable loop and says
+    so."""
     def parsed(name):
         raise _Parsed(name)
 
     monkeypatch.setattr(sys.modules[CLIS[cli].__module__], "resolve_device",
                         parsed)
-    ported = extra[0] in PORTED_EXTRAS and cli != "generate_projections"
+    ported = (extra[0] in PORTED_EXTRAS and cli != "generate_projections"
+              and (cli, extra[0]) != ("train_projector", "--resume"))
     with pytest.raises(_Parsed if ported else SystemExit):
         CLIS[cli](["--device", "cpu", *extra])
 

@@ -382,7 +382,7 @@ def test_train_baseline_cli_refuses_what_is_not_ported(synthetic_dataset,
                                                        tiny_trunk):
     with pytest.raises(SystemExit):       # a TPU extra the port lacks
         train_baseline.main(_cli_args(synthetic_dataset, "--device", "cpu",
-                                      "--resume", "ckpt"))
+                                      "--data_parallel", "2"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_baseline.main(_cli_args(synthetic_dataset))
