@@ -10,22 +10,33 @@ and the results CSVs are the reference's. Added: `--device` (default
 alike: `--image_cache` (data/cache.py), `--resident_data`
 (data/resident.py), `--no_epoch_scan` (the resident loader's per-batch
 stream instead of its epoch matrices), `-t/--tracking` (tracking/),
-`--init_checkpoint` (`apply_init_checkpoint`) and `--resume`
-(`run_epoch_loop`, checkpointing/state_io.py). Refused: the JAX CLIs'
-`--data_parallel`, because the port has no data mesh yet (ROADMAP.md §1);
-the port's parser does not accept it.
+`--init_checkpoint` (`apply_init_checkpoint`), `--resume`
+(`run_epoch_loop`, checkpointing/state_io.py) and `--data_parallel N`.
+
+`--data_parallel N` (N > 0): the CLI starts N ranks of itself
+(`launch_ranks`, parallel.mesh.spawn), each a process that owns `cuda:rank`
+under NCCL (or the CPU under gloo with `--device cpu`), trains on its
+contiguous block of `--batch / N` rows of every global batch (`make_mesh`,
+`make_loaders(mesh=)`) and returns when they are done. N beyond the
+visible CUDA devices, or one that does not divide `--batch`, is refused
+before any rank starts (JAX's create_mesh refuses the first, its sharded
+batch the second). Rank 0 alone prints, writes checkpoints, the resume
+state, the results CSVs and tracking; every rank reads a resume state or a
+warm start. `--data_parallel 0` (the default) is the one-process path.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import sys
 import time
 import warnings
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.checkpointing import (import_trunk_state,
@@ -39,6 +50,7 @@ from artgraph_tpu_torch.data.loader import DataLoader, prepare_dataloader
 from artgraph_tpu_torch.data.resident import (ResidentCapacityError,
                                               ResidentLoader)
 from artgraph_tpu_torch.metrics import summarize, write_results
+from artgraph_tpu_torch.parallel.mesh import current_mesh, spawn
 from artgraph_tpu_torch.tracking import log_metric, track_params
 from artgraph_tpu_torch.train import EarlyStopping, cross_entropy
 from artgraph_tpu_torch.train.trainer import Trainer, accuracy_metrics
@@ -46,7 +58,7 @@ from artgraph_tpu_torch.train.trainer import Trainer, accuracy_metrics
 
 def get_base_arguments() -> argparse.ArgumentParser:
     """Shared argparse surface (ref: src/utils.py:17-28) plus the JAX CLIs'
-    extras but --data_parallel, and --device."""
+    extras and --device."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--image_path', type=str, default=config.IMAGE_DIR,
                         help='Experiment name.')
@@ -65,6 +77,8 @@ def get_base_arguments() -> argparse.ArgumentParser:
                         help='If tracking or not with MLFlow.')
     parser.add_argument('--num_workers', type=int, default=6,
                         help='Host data-loader worker threads.')
+    parser.add_argument('--data_parallel', type=int, default=0,
+                        help='Devices on the data mesh axis (0 = single device).')
     parser.add_argument('--results_dir', type=str, default=None,
                         help='If set, emit reference-schema results CSVs here.')
     parser.add_argument('--device', type=str, default='cuda',
@@ -115,10 +129,72 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def is_rank0() -> bool:
+    """True outside a data mesh and on its rank 0: the process that prints
+    and writes files."""
+    mesh = current_mesh()
+    return mesh is None or mesh.rank == 0
+
+
+def needs_launch(args) -> bool:
+    """--data_parallel N > 0 in a process that is not a rank yet."""
+    return getattr(args, "data_parallel", 0) > 0 and current_mesh() is None
+
+
+def launch_ranks(args, main: Callable, argv):
+    """Run main(argv) in args.data_parallel spawned ranks (NCCL on
+    `cuda:rank`, or gloo on the CPU) and return rank 0's result. Refuses
+    more ranks than visible CUDA devices and a --batch they do not
+    divide."""
+    n = args.data_parallel
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if n > have:
+            raise ValueError(f"--data_parallel {n}: mesh {n}x1 != {have} "
+                             f"visible CUDA devices")
+    batch = getattr(args, "batch", None)
+    if batch is not None and batch % n:
+        raise ValueError(f"--batch {batch} is not divisible by "
+                         f"--data_parallel {n}")
+    module = main.__module__
+    if module == "__main__":      # python -m artgraph_tpu_torch.cli.<name>
+        module = sys.modules["__main__"].__spec__.name
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return spawn(_rank_cli, n, "nccl" if device.type == "cuda" else "gloo",
+                 args=(module, argv), device=device, timeout=float("inf"))
+
+
+def _rank_cli(mesh, module: str, argv: list):
+    """One rank of a CLI: its main(argv), printing on rank 0 only."""
+    import contextlib
+    import importlib
+
+    main = importlib.import_module(module).main
+    if mesh.rank == 0:
+        return main(argv)
+    with open(os.devnull, "w") as devnull, \
+            contextlib.redirect_stdout(devnull):
+        return main(argv)
+
+
+def make_mesh(args):
+    """This rank's mesh under --data_parallel N (the spawned ranks' group),
+    None for the one-process path."""
+    if not getattr(args, "data_parallel", 0):
+        return None
+    mesh = current_mesh()
+    if mesh is None or mesh.size != args.data_parallel:
+        raise RuntimeError(f"--data_parallel {args.data_parallel}: no mesh "
+                           f"of that size; the CLI starts its ranks itself "
+                           f"(launch_ranks)")
+    return mesh
+
+
 def make_loaders(datasets: Dict, batch_size: int, num_workers: int,
                  seed: int = config.GLOBAL_SEED, cache_dir: str = None,
                  resident: bool = False, epoch_scan: bool = True,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
     """Reference loader kwargs (ref: train_baseline.py:23-25): shuffled,
     no drop_last; the last batch padded with a mask.
 
@@ -126,12 +202,14 @@ def make_loaders(datasets: Dict, batch_size: int, num_workers: int,
     `resident=True` keeps each split on `device` (data/resident.py); a
     split that exceeds the device-memory budget WARNS and keeps the host
     DataLoader, as the JAX package's capacity rule does: its batches still
-    train on the device."""
+    train on the device. Over a data mesh every loader serves this rank's
+    block of each batch, and residency is sharded (each rank holds its own
+    rows)."""
     if cache_dir:
         datasets = {name: wrap_with_cache(ds, cache_dir, name)
                     for name, ds in datasets.items()}
     host_kwargs = dict(batch_size=batch_size, shuffle=True, drop_last=False,
-                       num_workers=num_workers, seed=seed)
+                       num_workers=num_workers, seed=seed, mesh=mesh)
     if not resident:
         return prepare_dataloader(datasets, **host_kwargs)
     loaders = {}
@@ -139,7 +217,7 @@ def make_loaders(datasets: Dict, batch_size: int, num_workers: int,
         try:
             loaders[name] = ResidentLoader(
                 ds, batch_size=batch_size, shuffle=True, drop_last=False,
-                seed=seed, epoch_scan=epoch_scan, device=device)
+                seed=seed, epoch_scan=epoch_scan, device=device, mesh=mesh)
         except ResidentCapacityError as e:
             warnings.warn(f"--resident_data: split {name!r} exceeds the "
                           f"device memory budget ({e}); using the host "
@@ -218,13 +296,18 @@ def _on_device(class_weights: Optional[np.ndarray],
 
 
 def save_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """EarlyStopping's save_fn: the model as a reference .pt."""
+    """EarlyStopping's save_fn: the model as a reference .pt (rank 0's)."""
+    if not is_rank0():
+        return
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     save_reference_checkpoint(model, path)
 
 
 def reload_state(trainer: Trainer, path: str) -> None:
-    """Load the best checkpoint back into the trainer's model (strict)."""
+    """Load the best checkpoint back into the trainer's model (strict); over
+    a mesh every rank reads rank 0's file once it is written."""
+    if trainer.mesh is not None:
+        dist.barrier()
     sd = torch.load(path, map_location="cpu", weights_only=True)
     trainer.model.load_state_dict(sd, strict=True)
 
@@ -325,15 +408,23 @@ def save_resume_state(resume_dir: str, trainer: Trainer, epoch: int,
                       early_stop: EarlyStopping) -> int:
     """The full train state after `epoch` epochs: the model's parameters and
     BN buffers, the optimizer's state (Adam's moments and step), the host
-    step, the dropout generator's state and the early-stopping state.
-    Returns the state file's size in bytes."""
+    step, the dropout generator's state (every rank's, over a mesh: all
+    ranks call this, rank 0 writes) and the early-stopping state. Returns
+    the state file's size in bytes (0 on the other ranks)."""
     stop = {"best_loss": early_stop.best_loss, "wait": early_stop.wait,
             "stop": early_stop.stop}
+    rng = _rng_state(trainer.device)
+    if trainer.mesh is not None:
+        states = [None] * trainer.mesh.size
+        dist.all_gather_object(states, rng.cpu())
+        rng = states
+    if not is_rank0():
+        return 0
     return save_resume_payload(resume_dir, {
         "epoch": epoch, "host_step": trainer.host_step,
         "model": trainer.model.state_dict(),
         "optimizer": trainer.optimizer.state_dict(),
-        "rng": _rng_state(trainer.device), "early_stop": stop,
+        "rng": rng, "early_stop": stop,
     }, {"epoch": epoch, **stop})
 
 
@@ -349,10 +440,13 @@ def load_resume_state(resume_dir: str, trainer: Trainer,
     trainer.optimizer.load_state_dict(payload["optimizer"])
     trainer.graphs.clear()
     trainer.host_step = int(payload["host_step"])
+    rng = payload["rng"]
+    if trainer.mesh is not None:
+        rng = rng[trainer.mesh.rank]
     if trainer.device.type == "cuda":
-        torch.cuda.set_rng_state(payload["rng"], trainer.device)
+        torch.cuda.set_rng_state(rng, trainer.device)
     else:
-        torch.set_rng_state(payload["rng"])
+        torch.set_rng_state(rng)
     for k, v in payload["early_stop"].items():
         setattr(early_stop, k, v)
     epoch = int(payload["epoch"])
@@ -431,6 +525,6 @@ def evaluate_single_task(trainer: Trainer, loader, num_classes: int,
         labels.append(lab)
     summary = summarize(np.concatenate(labels), np.concatenate(logits),
                         num_classes)
-    if results_dir:
+    if results_dir and is_rank0():
         write_results(results_dir, summary, suffix=suffix)
     return summary["accuracy"]

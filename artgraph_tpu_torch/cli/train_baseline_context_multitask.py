@@ -27,9 +27,10 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, joint_loss, log_test_metric,
-    logits_loss, make_loaders, maybe_warm_start, multi_task_loss, reload_state,
-    resolve_device, run_epoch_loop, save_checkpoint)
+    evaluate_single_task, get_base_arguments, joint_loss, launch_ranks,
+    log_test_metric, logits_loss, make_loaders, make_mesh, maybe_warm_start,
+    multi_task_loss, needs_launch, reload_state, resolve_device,
+    run_epoch_loop, save_checkpoint)
 from artgraph_tpu_torch.cli.train_baseline_context import net_recipe
 from artgraph_tpu_torch.data.factories import (get_class_weights,
                                                load_dataset_multimodal)
@@ -56,6 +57,9 @@ def main(argv=None):
     if args.net not in NETS:
         parser.error(f'--net {args.net!r}: options are {sorted(NETS)}')
     device = resolve_device(args.device)
+    if needs_launch(args):
+        return launch_ranks(args, main, argv)
+    mesh = make_mesh(args)
 
     dataset_train, dataset_valid, dataset_test = load_dataset_multimodal(
         base_dir=args.dataset_path, image_dir=args.image_path,
@@ -64,7 +68,8 @@ def main(argv=None):
                             'test': dataset_test}, args.batch,
                             args.num_workers, cache_dir=args.image_cache,
                             resident=args.resident_data,
-                            epoch_scan=not args.no_epoch_scan, device=device)
+                            epoch_scan=not args.no_epoch_scan, device=device,
+                            mesh=mesh)
 
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
     model = NETS[args.net](emb_size=config.EMB_SIZE, num_classes=NUM_CLASSES)
@@ -80,7 +85,7 @@ def main(argv=None):
                                               lamb),
                       eval_compute_loss=logits_loss(class_loss),
                       transform_type='resnet', device=device,
-                      seed=config.GLOBAL_SEED)
+                      seed=config.GLOBAL_SEED, mesh=mesh)
     maybe_warm_start(args, trainer, type(model).__name__)
 
     checkpoint_name = os.path.join(config.CHECKPOINTS_DIR,

@@ -22,7 +22,16 @@ Adam's state, the dropout generator's state and the epoch to
 `<dir>/state.pt` (with `meta.json` beside it) after every epoch with
 `epoch % 5 == 0`, as epoch + 1, and at the end, as the JAX CLI does, and a
 restart continues from the saved epoch with the same dropout masks.
-`--data_parallel` other than 0 is not ported (ROADMAP.md §1).
+
+`--data_parallel N` (N > 0) runs the edge-sharded GNN of JAX's mesh path
+(parallel/gnn_parallel.py): the CLI starts N ranks of itself (NCCL on
+`cuda:rank`, gloo under `--device cpu`), each holds every relation's shard
+of the edges (JAX's contiguous split of the padded edge array) with its own
+CSR metadata and the whole node features, model and optimizer; the
+reductions over edges combine over the ranks, every rank draws the same
+dropout masks from a generator seeded alike, and the gradients are averaged
+after the backward (parallel/mesh.py). Rank 0 alone prints and writes the
+embeddings and the resume state; every rank reads a resume state.
 """
 from __future__ import annotations
 
@@ -33,14 +42,18 @@ import numpy as np
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.cli._common import (load_resume_payload,
-                                            resolve_device,
+from artgraph_tpu_torch.cli._common import (is_rank0, launch_ranks,
+                                            load_resume_payload, make_mesh,
+                                            needs_launch, resolve_device,
                                             save_resume_payload)
 from artgraph_tpu_torch.data.artgraph import (ArtGraph, gat_self_loops,
                                               to_undirected, with_csr)
 from artgraph_tpu_torch.data.embeddings import save_embedding
 from artgraph_tpu_torch.models.gnn import (HeteroSGNN, feature_dims,
                                           graph_tensors)
+from artgraph_tpu_torch.parallel.gnn_parallel import (device_put_graph_csr,
+                                                      init_variables)
+from artgraph_tpu_torch.parallel.mesh import sync_grads
 from artgraph_tpu_torch.train import adam, nll_loss
 
 
@@ -49,9 +62,10 @@ def get_accuracy(log_probs: torch.Tensor, labels: torch.Tensor) -> float:
 
 
 def load_graphs(dataset_dir: str, operator: str, self_loops: bool,
-                device: torch.device) -> dict:
+                device: torch.device, mesh=None) -> dict:
     """The 4 graph variants, undirected, with GAT self-loops when asked, as
-    (x_dict, edge_dict, csr_dict, labels) on `device`."""
+    (graph, x_dict, edge_dict, csr_dict, labels) on `device`; over a mesh
+    the edges and CSR metadata of this rank's shard."""
     graphs = {}
     for name, split in (("train", "train"), ("train_train", "train"),
                         ("train_validation", "validation"),
@@ -61,8 +75,11 @@ def load_graphs(dataset_dir: str, operator: str, self_loops: bool,
                                    type=split)[0])
         if operator == 'GATConv' and self_loops:
             g = gat_self_loops(g)
-        g, csr = with_csr(g, device)
-        x, edges = graph_tensors(g, device)
+        if mesh is not None:
+            x, edges, csr = device_put_graph_csr(g, mesh)
+        else:
+            g, csr = with_csr(g, device)
+            x, edges = graph_tensors(g, device)
         labels = {k: torch.from_numpy(v.astype(np.int64)).to(device)
                   for k, v in g.labels.items()}
         graphs[name] = (g, x, edges, csr, labels)
@@ -81,7 +98,7 @@ def main(argv=None):
                         help='Activation (relu|prelu).')
     parser.add_argument('--data_parallel', type=int, default=0,
                         help='Devices for edge-sharded message passing '
-                             '(0 = single device; the only value ported).')
+                             '(0 = single device).')
     parser.add_argument('--no_self_loops', action='store_true',
                         help='Disable the PyG GATConv add_self_loops=True '
                              'semantics (reference default adds min(N_src, '
@@ -96,14 +113,15 @@ def main(argv=None):
     parser.add_argument('--device', type=str, default='cuda',
                         help='Torch device to train on (cuda, cuda:N or cpu).')
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            f"--data_parallel {args.data_parallel}: the edge-sharded GNN is "
-            f"not ported yet (ROADMAP.md §1, data parallelism)")
     device = resolve_device(args.device)
+    if needs_launch(args):
+        return launch_ranks(args, main, argv)
+    mesh = make_mesh(args)
+    if mesh is not None:
+        device = mesh.device
 
     graphs = load_graphs(config.DATASET_DIR, args.operator,
-                         not args.no_self_loops, device)
+                         not args.no_self_loops, device, mesh)
     label = args.label
     g_train = graphs["train_train"][0]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
@@ -112,11 +130,18 @@ def main(argv=None):
                        operator=args.operator, activation=args.activation,
                        aggr='sum', hidden_channels=128,
                        out_channels=config.NUM_CLASSES[label], n_layers=2,
-                       dropout=0.4).to(device)
+                       dropout=0.4,
+                       axis_name=None if mesh is None else mesh.axis_name
+                       ).to(device)
+    if mesh is not None:
+        init_variables(model, mesh)
     optimizer = adam(args.lr)(model.parameters())
+    # the same state on every rank: the replicated node tensors' masks
     generator = torch.Generator(device).manual_seed(config.GLOBAL_SEED)
 
     def save_resume(epoch: int) -> None:
+        if not is_rank0():
+            return
         save_resume_payload(args.resume, {
             "epoch": epoch, "model": model.state_dict(),
             "optimizer": optimizer.state_dict(),
@@ -155,6 +180,8 @@ def main(argv=None):
         loss, logp, _ = forward("train_train", train=True)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            sync_grads(model.parameters(), mesh)
         optimizer.step()
         train_loss = loss.item()
         train_acc = get_accuracy(logp.detach(),
@@ -177,9 +204,12 @@ def main(argv=None):
     # artwork embedding is the post-BN pre-activation hidden state
     print('Saving embeddings...')
     _, _, emb = evaluate("train")
-    os.makedirs(config.EMBEDDINGS_DIR, exist_ok=True)
-    for stem in (f"test_gnn_artwork_{label}_embs", f"test_gnn_{label}_embs"):
-        save_embedding(os.path.join(config.EMBEDDINGS_DIR, f"{stem}.pt"), emb)
+    if is_rank0():
+        os.makedirs(config.EMBEDDINGS_DIR, exist_ok=True)
+        for stem in (f"test_gnn_artwork_{label}_embs",
+                     f"test_gnn_{label}_embs"):
+            save_embedding(os.path.join(config.EMBEDDINGS_DIR,
+                                        f"{stem}.pt"), emb)
     print('Saved.')
 
 

@@ -23,9 +23,9 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, log_test_metric, make_loaders,
-    maybe_warm_start, reload_state, resolve_device, run_epoch_loop,
-    save_checkpoint, single_task_loss)
+    evaluate_single_task, get_base_arguments, launch_ranks, log_test_metric,
+    make_loaders, make_mesh, maybe_warm_start, needs_launch, reload_state,
+    resolve_device, run_epoch_loop, save_checkpoint, single_task_loss)
 from artgraph_tpu_torch.data.factories import (get_class_weights,
                                                load_dataset_new_multimodal)
 from artgraph_tpu_torch.models import NewMultiModalSingleTask
@@ -59,6 +59,9 @@ def main(argv=None):
     parser.add_argument('--dropout', type=float, default=0.4, help='Dropout')
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    if needs_launch(args):
+        return launch_ranks(args, main, argv)
+    mesh = make_mesh(args)
 
     dataset_train, dataset_valid, dataset_test = load_dataset_new_multimodal(
         base_dir=args.dataset_path, image_dir=args.image_path,
@@ -68,7 +71,8 @@ def main(argv=None):
                             'test': dataset_test}, args.batch,
                             args.num_workers, cache_dir=args.image_cache,
                             resident=args.resident_data,
-                            epoch_scan=not args.no_epoch_scan, device=device)
+                            epoch_scan=not args.no_epoch_scan, device=device,
+                            mesh=mesh)
 
     num_class = config.NUM_CLASSES[args.label]
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
@@ -79,7 +83,7 @@ def main(argv=None):
     trainer = Trainer(model=model, optimizer=adam(args.lr),
                       compute_loss=single_task_loss(class_weights, device),
                       transform_type='resnet', device=device,
-                      seed=config.GLOBAL_SEED,
+                      seed=config.GLOBAL_SEED, mesh=mesh,
                       forward_inputs=image_and_embedding)
     maybe_warm_start(args, trainer, type(model).__name__)
 

@@ -28,9 +28,9 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.cli._common import (
-    evaluate_single_task, get_base_arguments, log_test_metric, make_loaders,
-    maybe_warm_start, multi_task_loss, reload_state, resolve_device,
-    run_epoch_loop, save_checkpoint)
+    evaluate_single_task, get_base_arguments, launch_ranks, log_test_metric,
+    make_loaders, make_mesh, maybe_warm_start, multi_task_loss, needs_launch,
+    reload_state, resolve_device, run_epoch_loop, save_checkpoint)
 from artgraph_tpu_torch.data.factories import (
     get_class_weights, load_dataset_multitask_new_multimodal)
 from artgraph_tpu_torch.models import (NewMultiModalMultiTask,
@@ -78,6 +78,9 @@ def main(argv=None):
                         help='Architecture (resnet|vit).')
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    if needs_launch(args):
+        return launch_ranks(args, main, argv)
+    mesh = make_mesh(args)
 
     dataset_train, dataset_valid, dataset_test = \
         load_dataset_multitask_new_multimodal(
@@ -94,7 +97,8 @@ def main(argv=None):
                             'test': dataset_test}, args.batch,
                             args.num_workers, cache_dir=args.image_cache,
                             resident=args.resident_data,
-                            epoch_scan=not args.no_epoch_scan, device=device)
+                            epoch_scan=not args.no_epoch_scan, device=device,
+                            mesh=mesh)
 
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
     model = (NewMultiModalMultiTask if args.architecture == 'resnet'
@@ -110,7 +114,7 @@ def main(argv=None):
                       compute_loss=multi_task_loss(cw_s, cw_g, 0.5, 0.5,
                                                    device),
                       transform_type=args.architecture, device=device,
-                      seed=config.GLOBAL_SEED,
+                      seed=config.GLOBAL_SEED, mesh=mesh,
                       forward_inputs=image_and_embeddings)
     maybe_warm_start(args, trainer, type(model).__name__)
 

@@ -32,9 +32,10 @@ import os
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.cli._common import (get_base_arguments, make_loaders,
-                                            maybe_warm_start, reload_state,
-                                            resolve_device, save_checkpoint)
+from artgraph_tpu_torch.cli._common import (
+    get_base_arguments, launch_ranks, make_loaders, make_mesh,
+    maybe_warm_start, needs_launch, reload_state, resolve_device,
+    save_checkpoint)
 from artgraph_tpu_torch.data.factories import load_dataset_projection
 from artgraph_tpu_torch.models import LabelProjector, LabelProjectorVit
 from artgraph_tpu_torch.tracking import log_metric, track_params
@@ -63,6 +64,9 @@ def main(argv=None):
         parser.error('--resume: train_projector has no resumable epoch loop '
                      '(the JAX CLI parses the flag and ignores it)')
     device = resolve_device(args.device)
+    if needs_launch(args):
+        return launch_ranks(args, main, argv)
+    mesh = make_mesh(args)
 
     dataset_train, dataset_valid, dataset_test = load_dataset_projection(
         base_dir=args.dataset_path, image_dir=args.image_path,
@@ -71,7 +75,8 @@ def main(argv=None):
                             'test': dataset_test}, args.batch,
                             args.num_workers, cache_dir=args.image_cache,
                             resident=args.resident_data,
-                            epoch_scan=not args.no_epoch_scan, device=device)
+                            epoch_scan=not args.no_epoch_scan, device=device,
+                            mesh=mesh)
 
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
     model = (LabelProjector if args.architecture == 'resnet'
@@ -79,7 +84,7 @@ def main(argv=None):
     # the reference normalizes with the ResNet statistics for both
     trainer = Trainer(model=model, optimizer=adam(args.lr),
                       compute_loss=projection_loss, transform_type='resnet',
-                      device=device, seed=config.GLOBAL_SEED)
+                      device=device, seed=config.GLOBAL_SEED, mesh=mesh)
     maybe_warm_start(args, trainer, type(model).__name__)
 
     checkpoint_path = os.path.join(config.PROJECTIONS_DIR,

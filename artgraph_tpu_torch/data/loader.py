@@ -7,6 +7,14 @@ ragged batch is padded to `batch_size` and an f32 validity mask is appended,
 so a step sees one shape per epoch and the losses and metrics weight rows by
 the mask. Batches are numpy arrays; the Trainer moves them to the device,
 one batch ahead, through `pipeline`.
+
+Over a data mesh (`mesh=`, parallel/mesh.py) each rank's loader yields its
+own contiguous block of `batch_size / N` rows of every global batch (JAX's
+`P("data")` layout; the global order is the one-device loader's), padded
+and masked to that size, and decodes only those rows: the last batch's
+padding falls to the last ranks, and a rank whose block is all padding
+decodes one row and zeroes it. `global_counts()` gives each global batch's
+valid count, which the Trainer reads instead of a collective.
 """
 from __future__ import annotations
 
@@ -51,18 +59,25 @@ class DataLoader:
 
     Args mirror the reference loader kwargs (batch_size, shuffle, drop_last,
     num_workers); `seed` drives a per-epoch deterministic shuffle, the same
-    order as the JAX package's loader for the same seed and epoch.
+    order as the JAX package's loader for the same seed and epoch. `mesh`:
+    this rank's blocks of the global batches of `batch_size` rows.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, num_workers: int = 6, seed: int = 1):
+                 drop_last: bool = False, num_workers: int = 6, seed: int = 1,
+                 mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.mesh = mesh
         self._epoch = 0
+        self._rows = batch_size
+        if mesh is not None:
+            from artgraph_tpu_torch.parallel.mesh import per_rank
+            self._rows = per_rank(batch_size, mesh)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -80,6 +95,23 @@ class DataLoader:
         for start in range(0, stop, self.batch_size):
             yield order[start:start + self.batch_size]
 
+    def global_counts(self) -> list:
+        """Each global batch's valid row count (the shuffle moves rows, not
+        counts)."""
+        n = len(self.dataset)
+        stop = n - n % self.batch_size if self.drop_last else n
+        return [min(self.batch_size, stop - s)
+                for s in range(0, stop, self.batch_size)]
+
+    def _local(self, indices: np.ndarray):
+        """This rank's block of a global batch's indices, and whether it
+        holds none (then one row stands in, zeroed by _finalize)."""
+        if self.mesh is None:
+            return indices, False
+        lo = self.mesh.rank * self._rows
+        block = indices[lo:lo + self._rows]
+        return (block, False) if len(block) else (indices[:1], True)
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
         self._epoch += 1
         get_batch = getattr(self.dataset, "get_batch", None)
@@ -95,28 +127,32 @@ class DataLoader:
             window = self.num_workers + 2
             pending = []
             for indices in self._batch_indices():
-                pending.append(executor.submit(fetch, indices))
+                block, empty = self._local(indices)
+                pending.append((executor.submit(fetch, block), empty))
                 if len(pending) >= window:
-                    yield self._finalize(pending.pop(0).result())
-            for fut in pending:
-                yield self._finalize(fut.result())
+                    fut, empty = pending.pop(0)
+                    yield self._finalize(fut.result(), empty)
+            for fut, empty in pending:
+                yield self._finalize(fut.result(), empty)
         finally:
             # an abandoned iterator must not leave queued decodes running
             executor.shutdown(wait=False, cancel_futures=True)
 
-    def _finalize(self, batch):
-        padded, mask = _pad_batch(batch, self.batch_size)
+    def _finalize(self, batch, empty: bool = False):
+        if empty:
+            batch = tuple(np.zeros((0, *c.shape[1:]), c.dtype) for c in batch)
+        padded, mask = _pad_batch(batch, self._rows)
         return (*padded, mask)
 
 
 def prepare_dataloader(datasets: Dict[str, object], batch_size: int,
                        shuffle: bool = False, drop_last: bool = False,
-                       num_workers: int = 6, seed: int = 1
+                       num_workers: int = 6, seed: int = 1, mesh=None
                        ) -> Dict[str, DataLoader]:
     """One loader per named split (ref: src/utils.py:225-236)."""
     return {name: DataLoader(ds, batch_size=batch_size, shuffle=shuffle,
                              drop_last=drop_last, num_workers=num_workers,
-                             seed=seed)
+                             seed=seed, mesh=mesh)
             for name, ds in datasets.items()}
 
 

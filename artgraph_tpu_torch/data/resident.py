@@ -1,8 +1,8 @@
 """Device-resident dataset loader: each split uploaded once, batches gathered
 on the device.
 
-Port of the single-device part of artgraph_tpu/data/resident.py
-(`ResidentCapacityError`, `estimate_nbytes`, `ResidentLoader`). Every
+Port of artgraph_tpu/data/resident.py (`ResidentCapacityError`,
+`estimate_nbytes`, `ResidentLoader`, its sharded residency). Every
 component of the dataset (uint8 NHWC images, f32 embeddings, int32 labels)
 is materialized once with the dataset's vectorized `get_batch` over all rows
 (which also fills a decoded cache, data/cache.py), moved to the device once,
@@ -24,12 +24,25 @@ memory. On the CPU there is no budget.
 The Trainer consumes `epoch_arrays()` (the epoch's index and mask matrices,
 one upload each, gathers inside its captured step) or, with
 `epoch_scan=False`, `device_iter()` (the gathered batches one by one).
-Sharded residency over a device mesh (the JAX `mesh=`) is not ported.
+
+Sharded residency (`mesh=`, a parallel.mesh.DataMesh), JAX's: rows are
+placed block-cyclically, global row i on rank (i % batch_size) // pb with
+pb = batch_size / N, the rank that consumes it in the data-parallel step of
+an unshuffled epoch, and each rank holds (and decodes) only its rows,
+padded to the ranks' common length. A rank's batches are local gathers of
+pb rows. With shuffle=False they are the host loader's blocks; with
+shuffle=True each rank shuffles its own rows per epoch with the rng
+(seed, epoch, rank) (`_plan_sharded`), which covers every row once an
+epoch but is not the host loader's order (a global shuffle would defeat
+local residency). The valid counts `epoch_arrays` returns are the global
+batch's. The capacity check holds a rank's share against its device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from artgraph_tpu_torch.parallel.mesh import per_rank
 
 
 class ResidentCapacityError(RuntimeError):
@@ -74,7 +87,7 @@ class ResidentLoader:
                  drop_last: bool = False, num_workers: int = 0, seed: int = 1,
                  pad_last: bool = True, budget_frac: float = 0.6,
                  hbm_budget_bytes: int | None = None, epoch_scan: bool = True,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         if not hasattr(dataset, "get_batch"):
             raise TypeError(f"{type(dataset).__name__} has no vectorized "
                             "get_batch(); ResidentLoader requires one")
@@ -84,9 +97,16 @@ class ResidentLoader:
         self.seed = seed
         self.pad_last = pad_last
         self.epoch_scan = epoch_scan
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.n = len(dataset)
         self._epoch = 0
+        D = 1 if mesh is None else mesh.size
+        if mesh is not None:
+            self._pb, self._D = per_rank(batch_size, mesh), D
+            if not pad_last and self.n % batch_size:
+                raise ValueError("sharded residency requires pad_last=True "
+                                 "when the dataset is ragged")
 
         # the capacity check comes before the dataset is materialized
         self.nbytes = estimate_nbytes(dataset)
@@ -94,10 +114,24 @@ class ResidentLoader:
             free = budget = int(hbm_budget_bytes)
         else:
             free, budget = _device_budget(self.device, budget_frac)
-        if budget is not None and self.nbytes > budget:
-            raise ResidentCapacityError(self.nbytes, free, budget)
+        if budget is not None and self.nbytes // D > budget:
+            raise ResidentCapacityError(self.nbytes // D, free, budget)
 
-        comps = dataset.get_batch(np.arange(self.n, dtype=np.int64))
+        rows = np.arange(self.n, dtype=np.int64)
+        if mesh is not None:
+            # block-cyclic: global row i -> rank (i % B) // pb; the ranks'
+            # stores are padded to a common length
+            pb = self._pb
+            owner = (rows % batch_size) // pb
+            self._n_local = np.bincount(owner, minlength=D)
+            n_pad = (int(-(-self._n_local.max() // pb) * pb) if self.n
+                     else pb)
+            rows = rows[owner == mesh.rank]
+        comps = dataset.get_batch(rows)
+        if mesh is not None:
+            comps = [np.concatenate([c, np.zeros((n_pad - len(rows),
+                                                  *c.shape[1:]), c.dtype)])
+                     for c in map(np.asarray, comps)]
         self.data = tuple(
             torch.from_numpy(np.ascontiguousarray(c)).to(self.device)
             for c in comps)
@@ -138,9 +172,14 @@ class ResidentLoader:
         if not self.pad_last:
             raise NotImplementedError("epoch_arrays requires pad_last=True")
         self._epoch += 1
-        idx_all, valid = self._epoch_plan()
-        mask_all = (np.arange(self.batch_size)[None, :]
-                    < np.asarray(valid)[:, None]).astype(np.float32)
+        if self.mesh is not None:
+            idx_all, mask_all, valid = self._plan_sharded()
+            idx_all = idx_all[:, self.mesh.rank]
+            mask_all = mask_all[:, self.mesh.rank]
+        else:
+            idx_all, valid = self._epoch_plan()
+            mask_all = (np.arange(self.batch_size)[None, :]
+                        < np.asarray(valid)[:, None]).astype(np.float32)
         return (torch.from_numpy(idx_all).to(self.device),
                 torch.from_numpy(mask_all).to(self.device), valid)
 
@@ -153,10 +192,46 @@ class ResidentLoader:
         for row, k in enumerate(valid):
             yield float(k), B, (*self._gather(idx_dev[row]), mask_dev[row])
 
+    def _plan_sharded(self):
+        """The sharded epoch's schedule on the host: ([nb, N, pb] per-rank
+        index blocks into each rank's store, [nb, N, pb] f32 masks, the
+        global batches' valid counts). JAX's plan: only the last batch can
+        be ragged (the ranks' row counts differ by at most pb)."""
+        D, pb = self._D, self._pb
+        nb = len(self)
+        orders = []
+        for d in range(D):
+            o = np.arange(self._n_local[d])
+            if self.shuffle:
+                rng = np.random.default_rng((self.seed, self._epoch, d))
+                rng.shuffle(o)
+            orders.append(o)
+        idx_all = np.zeros((nb, D, pb), dtype=np.int64)
+        mask_all = np.zeros((nb, D, pb), dtype=np.float32)
+        valid = []
+        for k in range(nb):
+            tot = 0
+            for d in range(D):
+                sl = orders[d][k * pb:(k + 1) * pb]
+                idx_all[k, d, :len(sl)] = sl
+                mask_all[k, d, :len(sl)] = 1.0
+                tot += len(sl)
+            valid.append(tot)
+        return idx_all, mask_all, valid
+
     def __iter__(self):
         """DataLoader's contract: (device components..., numpy f32 mask);
-        with pad_last=False no mask, and the ragged last batch ragged."""
+        with pad_last=False no mask, and the ragged last batch ragged. Over
+        a mesh, this rank's blocks and their masks."""
         self._epoch += 1
+        if self.mesh is not None:
+            idx_all, mask_all, _ = self._plan_sharded()
+            r = self.mesh.rank
+            idx_dev = torch.from_numpy(idx_all[:, r]).to(self.device)
+            for row in range(len(idx_all)):
+                batch = self._gather(idx_dev[row])
+                yield (*batch, mask_all[row, r]) if self.pad_last else batch
+            return
         idx_all, valid = self._epoch_plan()
         idx_dev = torch.from_numpy(idx_all).to(self.device)
         B = self.batch_size

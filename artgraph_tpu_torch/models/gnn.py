@@ -15,7 +15,13 @@ and `HeteroSGNN`), the reference's PyG HeteroGNN under
     `index_add_` path of ops.segment;
   * the reference forward quirk: the next layer consumes the post-BN
     PRE-activation x; activation and dropout feed only the output conv, and
-    the returned embedding is the last post-BN x (ref: models_graph.py:25-39).
+    the returned embedding is the last post-BN x (ref: models_graph.py:25-39);
+  * `axis_name` (a mesh axis, parallel/mesh.py) runs a model on one edge
+    shard of the edge-sharded GNN (parallel/gnn_parallel.py): every
+    reduction over edges combines over the ranks, so node tensors, the
+    outputs and the BatchNorm statistics are whole and the same on every
+    rank. The dropout masks are too when every rank passes a generator in
+    the same state.
 
 PyG's lazy (-1, -1) shapes become explicit input widths: `HeteroSGNN` takes
 `in_channels` per node type (`feature_dims` of a graph's features). The
@@ -43,6 +49,7 @@ from artgraph_tpu_torch.ops.csr_segment import (csr_attention_aggregate,
                                                 csr_segment_sum)
 from artgraph_tpu_torch.ops.segment import (segment_mean, segment_softmax,
                                             segment_sum)
+from artgraph_tpu_torch.parallel.mesh import axis_mesh
 
 _F32 = torch.float32
 
@@ -103,8 +110,10 @@ class SAGEConv(nn.Module):
     """PyG SAGEConv defaults: out = lin_l(mean_j x_src[j]) + bias
     + lin_r(x_dst), projected first (linear commutes with the mean)."""
 
-    def __init__(self, in_src: int, in_dst: int, features: int):
+    def __init__(self, in_src: int, in_dst: int, features: int,
+                 axis_name: Optional[str] = None):
         super().__init__()
+        self.axis_name = axis_name
         self.lin_l = TypedLinear(in_src, features, use_bias=False)
         self.lin_r = TypedLinear(in_dst, features, use_bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
@@ -112,9 +121,11 @@ class SAGEConv(nn.Module):
     def forward(self, x_src, x_dst, edge_index, num_dst: int, csr=None):
         h = self.lin_l(x_src)
         if csr is not None:
-            agg = csr_segment_mean(csr_gather(h, csr, "src"), csr.dst)
+            agg = csr_segment_mean(csr_gather(h, csr, "src"), csr.dst,
+                                   self.axis_name)
         else:
-            agg = segment_mean(h[edge_index[0]], edge_index[1], num_dst)
+            agg = segment_mean(h[edge_index[0]], edge_index[1], num_dst,
+                               self.axis_name)
         return agg + self.bias + self.lin_r(x_dst)
 
 
@@ -122,8 +133,10 @@ class GraphConv(nn.Module):
     """PyG GraphConv: out = lin_rel(sum_j x_src[j]) + bias
     + lin_root(x_dst)."""
 
-    def __init__(self, in_src: int, in_dst: int, features: int):
+    def __init__(self, in_src: int, in_dst: int, features: int,
+                 axis_name: Optional[str] = None):
         super().__init__()
+        self.axis_name = axis_name
         self.lin_rel = TypedLinear(in_src, features, use_bias=False)
         self.lin_root = TypedLinear(in_dst, features, use_bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
@@ -131,9 +144,11 @@ class GraphConv(nn.Module):
     def forward(self, x_src, x_dst, edge_index, num_dst: int, csr=None):
         h = self.lin_rel(x_src)
         if csr is not None:
-            agg = csr_segment_sum(csr_gather(h, csr, "src"), csr.dst)
+            agg = csr_segment_sum(csr_gather(h, csr, "src"), csr.dst,
+                                  self.axis_name)
         else:
-            agg = segment_sum(h[edge_index[0]], edge_index[1], num_dst)
+            agg = segment_sum(h[edge_index[0]], edge_index[1], num_dst,
+                              self.axis_name)
         return agg + self.bias + self.lin_root(x_dst)
 
 
@@ -142,9 +157,11 @@ class GATConv(nn.Module):
     per-destination softmax."""
 
     def __init__(self, in_src: int, in_dst: int, features: int,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.negative_slope = negative_slope
+        self.axis_name = axis_name
         self.lin_src = TypedLinear(in_src, features, use_bias=False)
         self.lin_dst = TypedLinear(in_dst, features, use_bias=False)
         self.att_src = nn.Parameter(lecun_normal_(
@@ -166,26 +183,32 @@ class GATConv(nn.Module):
             a_dst = csr_gather(alpha_dst, csr, "dst")
             logits = F.leaky_relu((msgs @ self.att_src)[:, 0] + a_dst,
                                   self.negative_slope)
-            out = csr_attention_aggregate(msgs, logits, csr.dst)
+            out = csr_attention_aggregate(msgs, logits, csr.dst,
+                                          axis_name=self.axis_name)
         else:
             src, dst = edge_index[0], edge_index[1]
             alpha_src = (h_src @ self.att_src)[:, 0]
             logits = F.leaky_relu(
                 alpha_src[src] + alpha_dst[dst.clamp_max(num_dst - 1)],
                 self.negative_slope)
-            att = segment_softmax(logits, dst, num_dst)
-            out = segment_sum(att[:, None] * h_src[src], dst, num_dst)
+            att = segment_softmax(logits, dst, num_dst, self.axis_name)
+            out = segment_sum(att[:, None] * h_src[src], dst, num_dst,
+                              self.axis_name)
         return out + self.bias
 
 
 class GCNConv(nn.Module):
     """PyG GCNConv (homogeneous only): symmetric-normalized aggregation with
-    self-loops; raises on bipartite use, as PyG does. Ignores csr."""
+    self-loops; raises on bipartite use, as PyG does. Ignores csr. On an
+    edge shard (axis_name) the degrees and the aggregate are summed over the
+    ranks, and rank 0 alone adds the self-loops."""
 
     def __init__(self, in_src: int, in_dst: int, features: int,
-                 add_self_loops: bool = True):
+                 add_self_loops: bool = True,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.add_self_loops = add_self_loops
+        self.axis_name = axis_name
         self.lin = TypedLinear(in_src, features, use_bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -195,15 +218,18 @@ class GCNConv(nn.Module):
             raise ValueError("GCNConv supports homogeneous graphs only "
                              "(PyG GCNConv has no bipartite mode)")
         src, dst = edge_index[0], edge_index[1]
-        if self.add_self_loops:
+        axis = self.axis_name
+        if self.add_self_loops and (axis is None
+                                    or axis_mesh(axis).rank == 0):
             loops = torch.arange(num_dst, dtype=src.dtype, device=src.device)
             src, dst = torch.cat([src, loops]), torch.cat([dst, loops])
         h = self.lin(x_src)
         deg = segment_sum(torch.ones(src.shape[0], dtype=_F32,
-                                     device=src.device), dst, num_dst)
+                                     device=src.device), dst, num_dst, axis)
         inv_sqrt = torch.where(deg > 0, deg.rsqrt(), 0.0)
         norm = inv_sqrt[src] * inv_sqrt[dst]
-        return segment_sum(norm[:, None] * h[src], dst, num_dst) + self.bias
+        return segment_sum(norm[:, None] * h[src], dst, num_dst,
+                           axis) + self.bias
 
 
 class GINConv(nn.Module):
@@ -211,9 +237,10 @@ class GINConv(nn.Module):
     out = update((1 + eps) * lin_dst(x_dst) + sum_j lin_src(x_src[j]))."""
 
     def __init__(self, in_src: int, in_dst: int, features: int,
-                 eps: float = 0.0):
+                 eps: float = 0.0, axis_name: Optional[str] = None):
         super().__init__()
         self.eps = eps
+        self.axis_name = axis_name
         self.lin_src = TypedLinear(in_src, features, use_bias=False)
         self.lin_dst = TypedLinear(in_dst, features, use_bias=False)
         self.update = TypedLinear(features, features)
@@ -222,9 +249,11 @@ class GINConv(nn.Module):
         h_src = self.lin_src(x_src)
         h_dst = self.lin_dst(x_dst)
         if csr is not None:
-            agg = csr_segment_sum(csr_gather(h_src, csr, "src"), csr.dst)
+            agg = csr_segment_sum(csr_gather(h_src, csr, "src"), csr.dst,
+                                  self.axis_name)
         else:
-            agg = segment_sum(h_src[edge_index[0]], edge_index[1], num_dst)
+            agg = segment_sum(h_src[edge_index[0]], edge_index[1], num_dst,
+                              self.axis_name)
         return self.update((1.0 + self.eps) * h_dst + agg)
 
 
@@ -261,13 +290,15 @@ class HeteroSGNN(nn.Module):
     edge_dict, csr=None, generator=None) -> (x dict, [log_softmax dict]),
     the reference's (emb, [out_soft]). x_dict maps node type -> features
     (tensor or OneHot); edge_dict maps (src, rel, dst) -> [2, E] int64;
-    csr maps the same keys to EdgeCSR metadata (then the kernels run)."""
+    csr maps the same keys to EdgeCSR metadata (then the kernels run).
+    axis_name: the mesh axis of an edge-sharded run (edge_dict and csr then
+    hold this rank's shard)."""
 
     def __init__(self, metadata: Tuple, in_channels: Dict[str, int],
                  operator: str = "GATConv", activation: str = "relu",
                  aggr: str = "sum", hidden_channels: int = 128,
                  out_channels: int = 32, n_layers: int = 2,
-                 dropout: float = 0.4):
+                 dropout: float = 0.4, axis_name: Optional[str] = None):
         super().__init__()
         if operator not in OPERATORS:
             raise ValueError(f"unknown operator {operator!r}")
@@ -278,6 +309,7 @@ class HeteroSGNN(nn.Module):
         self.activation, self.aggr = activation, aggr
         self.hidden_channels, self.out_channels = hidden_channels, out_channels
         self.n_layers, self.dropout = n_layers, dropout
+        self.axis_name = axis_name
         conv_cls = OPERATORS[operator]
         self.convs = nn.ModuleDict()
         self.bns = nn.ModuleDict()
@@ -288,7 +320,7 @@ class HeteroSGNN(nn.Module):
             width = hidden_channels if layer < n_layers else out_channels
             for (s, r, t) in edge_types:
                 self.convs[f"{name}__{s}__{r}__{t}"] = conv_cls(
-                    dims[s], dims[t], width)
+                    dims[s], dims[t], width, axis_name=axis_name)
             if layer == n_layers:
                 break
             for t in node_types:

@@ -21,7 +21,12 @@ BatchNorm2d's (`weight`, `bias`, `running_mean`, `running_var`,
 The ragged final batch's statistics must ignore its padded rows. As in the
 JAX package, the mask reaches every MixedBatchNorm through a context
 variable (`bn_batch_mask`), not an argument, so the model signatures stay
-the reference's; the Trainer sets it for a ragged batch only.
+the reference's; the Trainer sets it for a ragged batch only. A second
+context variable, `bn_psum_axis`, makes the statistics global over a data
+mesh (the Trainer's data-parallel step): each rank's raw sums
+(sum x, sum x^2, n) of whichever source (its own rows, its valid rows under
+the mask, or the fused unit's epilogue) are summed over the ranks, in one
+all-reduce, before the moments are finished.
 
 The fused 1x1-conv + BN-statistics unit (ops/conv_bn.py) replaces each
 bottleneck's conv1 -> bn1 statistics and bn2-apply -> ReLU -> conv3 -> bn3
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from artgraph_tpu_torch.ops.conv_bn import conv1x1_bn_stats
+from artgraph_tpu_torch.parallel.mesh import psum
 
 RESNET_WIDTHS = (64, 128, 256, 512)
 # torchvision resnet50's children before avgpool and fc, in order
@@ -69,6 +75,8 @@ def at_least_f32(dtype: torch.dtype) -> torch.dtype:
 
 _BATCH_MASK: contextvars.ContextVar = contextvars.ContextVar(
     "bn_batch_mask", default=None)
+_BN_AXIS: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_psum_axis", default=None)
 
 
 @contextlib.contextmanager
@@ -81,6 +89,17 @@ def bn_batch_mask(mask: torch.Tensor):
         yield
     finally:
         _BATCH_MASK.reset(token)
+
+
+@contextlib.contextmanager
+def bn_psum_axis(axis: str):
+    """Make every MixedBatchNorm in this scope take its train-mode
+    statistics over all ranks of the mesh axis `axis`."""
+    token = _BN_AXIS.set(axis)
+    try:
+        yield
+    finally:
+        _BN_AXIS.reset(token)
 
 
 class MixedBatchNorm(nn.Module):
@@ -100,7 +119,11 @@ class MixedBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def _batch_moments(self, x: torch.Tensor, raw_moments):
-        """(mean, mean of squares, n) in f32 over the batch's valid rows."""
+        """(mean, mean of squares, n) in f32 over the batch's valid rows
+        (over every rank's, under bn_psum_axis)."""
+        axis = _BN_AXIS.get()
+        if axis is not None:
+            return self._global_moments(x, raw_moments, axis)
         if raw_moments is not None:
             # sums from the producing kernel's epilogue; callers keep the
             # fused unit off under a batch mask
@@ -115,6 +138,35 @@ class MixedBatchNorm(nn.Module):
         n = mask.to(_F32).sum() * float(x.shape[2] * x.shape[3])
         return ((xf * m).sum((0, 2, 3)) / n,
                 (xf.square() * m).sum((0, 2, 3)) / n, n)
+
+    @staticmethod
+    def _global_moments(x: torch.Tensor, raw_moments, axis: str):
+        """The moments from the ranks' summed (s1, s2, n), one all-reduce.
+        n keeps the dtype of the one-device path's (a tensor of f32 under
+        the mask; f64 for its Python float otherwise), so the running
+        variance's n / (n - 1) rounds as it does there."""
+        if raw_moments is not None:
+            s1, s2, n = raw_moments
+            s1, s2 = s1.to(_F32), s2.to(_F32)
+            n, n_dtype = float(n), torch.float64
+        else:
+            xf = x.to(at_least_f32(x.dtype))
+            mask = _BATCH_MASK.get()
+            spatial = float(x.shape[2] * x.shape[3])
+            if mask is None:
+                s1, s2 = xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))
+                n, n_dtype = x.shape[0] * spatial, torch.float64
+            else:
+                m = mask.to(xf.dtype).view(-1, 1, 1, 1)
+                s1 = (xf * m).sum((0, 2, 3))
+                s2 = (xf.square() * m).sum((0, 2, 3))
+                n, n_dtype = mask.to(_F32).sum() * spatial, _F32
+        C = s1.shape[0]
+        n = (n.to(s1.dtype).reshape(1) if isinstance(n, torch.Tensor)
+             else torch.full((1,), n, dtype=s1.dtype, device=s1.device))
+        tot = psum(torch.cat([s1, s2, n]), axis)
+        n = tot[2 * C]
+        return tot[:C] / n, tot[C:2 * C] / n, n.to(n_dtype)
 
     def forward(self, x: torch.Tensor, raw_moments=None,
                 scale_shift_only: bool = False):

@@ -1,10 +1,10 @@
 """CSR-sorted segment reductions for GNN message passing, both directions.
 
-Port of artgraph_tpu/ops/csr_segment.py (without the `axis_name` branches of
-the edge-sharded path). The KG topology is static, so each relation's edges
-are sorted by destination once, on the host, and the metadata (`CSR`,
-`EdgeCSR`) lives as tensors on the device for the whole run. Every scatter of
-message passing then becomes a read of contiguous edge rows:
+Port of artgraph_tpu/ops/csr_segment.py. The KG topology is static, so each
+relation's edges are sorted by destination once, on the host, and the
+metadata (`CSR`, `EdgeCSR`) lives as tensors on the device for the whole
+run. Every scatter of message passing then becomes a read of contiguous edge
+rows:
 
   C entry (csrc/csr_segment.cu)  Pallas kernel   public ops
   ag_csr_sum_f32                 _sum_kernel      csr_segment_sum,
@@ -26,16 +26,25 @@ restate the JAX VJPs: a gather of the output cotangent back to the edges,
 the `src_perm` reorder for the source side, and a detached softmax max.
 The kernels' own backwards are gathers in JAX too, so they stay torch
 indexing here.
+
+With `axis_name` (the edge-sharded GNN, parallel/gnn_parallel.py) each rank
+reduces its own edge shard with the kernels and the partials combine over
+the ranks of that mesh axis: sums and in-degree counts by a sum all-reduce;
+the attention aggregate by a max all-reduce of the detached segment maxima,
+each shard's numerator and denominator rescaled by exp(m - m_global) and
+summed. The port's shards carry no padding edges (gnn_parallel strips them
+before building each shard's metadata), so no sentinel ids reach here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from artgraph_tpu_torch.ops import _build
+from artgraph_tpu_torch.parallel.mesh import pmax, psum
 
 # Launches of each CUDA kernel since the last reset.
 LAUNCHES_SUM = 0
@@ -427,15 +436,24 @@ class _Gather(torch.autograd.Function):
         return d_x[:ctx.n], None, None
 
 
-def csr_segment_sum(data: torch.Tensor, csr: CSR) -> torch.Tensor:
+def csr_segment_sum(data: torch.Tensor, csr: CSR,
+                    axis_name: Optional[str] = None) -> torch.Tensor:
     """Sum of data rows per segment: [E, F] in the csr's sorted order ->
-    [num_segments, F]."""
-    return _SegmentSum.apply(data, csr)
+    [num_segments, F]; with axis_name summed over the ranks."""
+    out = _SegmentSum.apply(data, csr)
+    return out if axis_name is None else psum(out, axis_name)
 
 
-def csr_segment_mean(data: torch.Tensor, csr: CSR) -> torch.Tensor:
-    """Per-segment mean; empty segments give 0."""
-    return csr_segment_sum(data, csr) / csr.counts.clamp_min(1.0)[:, None]
+def csr_segment_mean(data: torch.Tensor, csr: CSR,
+                     axis_name: Optional[str] = None) -> torch.Tensor:
+    """Per-segment mean; empty segments give 0. With axis_name the sums and
+    the in-degree counts are summed over the ranks first, so the mean is
+    over all of a node's incoming edges."""
+    counts = csr.counts
+    if axis_name is not None:
+        counts = psum(counts, axis_name)
+    return (csr_segment_sum(data, csr, axis_name)
+            / counts.clamp_min(1.0)[:, None])
 
 
 def csr_scalar_segment_sum(w: torch.Tensor, csr: CSR) -> torch.Tensor:
@@ -460,10 +478,21 @@ def csr_gather(x: torch.Tensor, ecsr: EdgeCSR, axis: str) -> torch.Tensor:
 
 
 def csr_attention_aggregate(messages: torch.Tensor, logits: torch.Tensor,
-                            csr: CSR, eps: float = 1e-16) -> torch.Tensor:
+                            csr: CSR, eps: float = 1e-16,
+                            axis_name: Optional[str] = None) -> torch.Tensor:
     """GAT aggregation: out[s] = sum_e w_e m_e / sum_e w_e with
     w_e = exp(logit_e - max of segment s's logits), the exact per-segment
     shift, computed online in one pass (a global shift would underflow the
-    exp of cold segments to zero)."""
-    num, _, den = _SoftmaxRaw.apply(messages, logits, csr)
+    exp of cold segments to zero). With axis_name the shards' maxima take a
+    max all-reduce, each shard's numerator and denominator are rescaled by
+    exp(m - m_global) (0 where the shard has no edge into the segment) and
+    summed over the ranks."""
+    num, m, den = _SoftmaxRaw.apply(messages, logits, csr)
+    if axis_name is not None:
+        m_g = pmax(m, axis_name)
+        r = torch.where(torch.isfinite(m),
+                        torch.exp(m - torch.where(torch.isfinite(m_g), m_g,
+                                                  0.0)), 0.0)
+        num = psum(num * r[:, None], axis_name)
+        den = psum(den * r, axis_name)
     return num / den.clamp_min(eps)[:, None]

@@ -14,7 +14,7 @@ read alike.
 Values are read on the host when they are logged: a 0-d tensor through
 `.item()`. The trainers log once per epoch, after the epoch's one read of
 its device totals, so tracking adds no synchronization and no work inside
-a step.
+a step. Over a data mesh (parallel/mesh.py) only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -73,7 +73,17 @@ class _FileStore:
 _store = _FileStore()
 
 
+def _silent() -> bool:
+    """A data-mesh rank other than 0: it logs nothing."""
+    from artgraph_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh is not None and mesh.rank != 0
+
+
 def set_experiment(name: str) -> None:
+    if _silent():
+        return
     if _mlflow is not None:
         _mlflow.set_experiment(name)
     else:
@@ -81,6 +91,8 @@ def set_experiment(name: str) -> None:
 
 
 def log_param(key: str, value) -> None:
+    if _silent():
+        return
     if _mlflow is not None:
         _mlflow.log_param(key, value)
     else:
@@ -88,6 +100,8 @@ def log_param(key: str, value) -> None:
 
 
 def log_metric(key: str, value, step: int = 0) -> None:
+    if _silent():
+        return
     if _mlflow is not None:
         _mlflow.log_metric(key, _as_float(value), step=step)
     else:

@@ -1,18 +1,57 @@
 """Cross-entropy and NLL with torch-criterion semantics over masked batches.
 
-Port of artgraph_tpu/train/losses.py:cross_entropy, nll_loss, smooth_l1
-and mse (without the data-mesh psum scope, and nll_loss without the mask no caller
-passes).
+Port of artgraph_tpu/train/losses.py:cross_entropy, nll_loss, smooth_l1,
+mse and the data-mesh scope `loss_psum_axis` (nll_loss without the mask no
+caller passes).
 torch.nn.CrossEntropyLoss with class weights divides by the SUM OF SAMPLE
 WEIGHTS, not the batch size; padded rows of the static-shape final batch
 carry mask 0 and drop out of both sums. The softmax runs in f32 (f64 inputs
 stay f64).
+
+Inside a `loss_psum_axis(axis)` scope (the Trainer's data-parallel step)
+the weighted numerator and denominator are summed over the ranks of the
+mesh axis BEFORE the division (parallel.mesh.psum, differentiable), so
+every rank computes the same GLOBAL torch-semantics mean, exact when the
+ranks' weight sums differ (class weights, ragged masks).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
+
+from artgraph_tpu_torch.parallel.mesh import psum
+
+_PSUM_AXIS: contextvars.ContextVar = contextvars.ContextVar(
+    "loss_psum_axis", default=None)
+
+
+@contextlib.contextmanager
+def loss_psum_axis(axis: str):
+    """Make every loss and metric reduction in this scope global over the
+    ranks of the mesh axis `axis`."""
+    token = _PSUM_AXIS.set(axis)
+    try:
+        yield
+    finally:
+        _PSUM_AXIS.reset(token)
+
+
+def psum_if_sharded(value: torch.Tensor) -> torch.Tensor:
+    """`value` summed over the ranks of the active loss_psum_axis scope
+    (itself outside one)."""
+    axis = _PSUM_AXIS.get()
+    return value if axis is None else psum(value, axis)
+
+
+def _masked(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum(values * weights) / max(sum(weights), 1e-12), both sums global
+    in a loss_psum_axis scope."""
+    num = psum_if_sharded((values * weights).sum())
+    den = psum_if_sharded(weights.sum())
+    return num / den.clamp_min(1e-12)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -29,7 +68,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         weights = class_weights.to(per_sample)[labels]
     if mask is not None:
         weights = weights * mask.to(per_sample)
-    return (per_sample * weights).sum() / weights.sum().clamp_min(1e-12)
+    return _masked(per_sample, weights)
 
 
 def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -66,7 +105,9 @@ def _mean_over_rows(per_elem: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The mean of per_elem [B, ...], or with mask [B] of its valid rows."""
     if mask is None:
-        return per_elem.mean()
+        if _PSUM_AXIS.get() is None:
+            return per_elem.mean()
+        return _masked(per_elem, torch.ones_like(per_elem))
     w = mask.to(per_elem.dtype).reshape(
         (-1,) + (1,) * (per_elem.dim() - 1)).expand_as(per_elem)
-    return (per_elem * w).sum() / w.sum().clamp_min(1e-12)
+    return _masked(per_elem, w)

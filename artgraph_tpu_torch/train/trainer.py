@@ -1,8 +1,8 @@
-"""Single-device trainer for the image models.
+"""The trainer of the image models, on one device or over a data mesh.
 
 Port of artgraph_tpu/train/trainer.py (`Trainer`, `accuracy_metrics`, `adam`,
-`sgd_momentum`) without its mesh branches. The model's arguments and the
-loss are functions, as in the JAX trainer:
+`sgd_momentum`). The model's arguments and the loss are functions, as in the
+JAX trainer:
 
   forward_inputs(images, batch) -> the model's positional arguments
   compute_loss(outputs, batch) -> (scalar loss, metrics dict)
@@ -60,6 +60,29 @@ Random state is explicit: the trainer seeds its device's generator, which
 nn.Dropout draws from, with `seed` (GLOBAL_SEED in the CLIs); a graph
 replay advances it as the eager step would. The dropout masks are not the
 JAX package's (another generator).
+
+Data parallelism (`mesh=`, a parallel.mesh.DataMesh; the JAX trainer's
+shard_map step): each rank is a process with its own device and its own
+block of `batch_size / N` rows of every global batch, from a loader built
+with the same mesh (data/loader.py, data/resident.py; a loader of another
+mesh, or of none, is refused). The trainer broadcasts rank 0's parameters
+and buffers at construction, and each step runs under `loss_psum_axis` and
+`bn_psum_axis`: the loss's weighted numerator and denominator, the correct
+counts and the BatchNorm raw moments are summed over the ranks, so the
+loss, the metrics and the running statistics are the global batch's on
+every rank. After the backward, `sync_grads` averages the gradients: each
+rank's backward through the psums holds N times its share of the global
+gradient (parallel/mesh.py), so the pmean is the global gradient, as in
+the JAX step. The optimizer then updates every rank's replica alike.
+Dropout draws from a generator seeded per rank (rank 0 keeps `seed`), the
+analog of JAX's fold_in(rng, axis_index). A ragged last batch runs its
+masked step on every rank (the ragged test is global: the loaders give the
+global valid counts). Evaluation's metrics are global the same way; with
+collect_outputs each batch's outputs and labels are gathered from the ranks
+in rank order, the global batch's order, and cut to its valid rows. Under
+NCCL the step is the graphed one, its collectives captured with it (the
+eager warm-up step runs them first); gloo collectives cannot be captured,
+so under gloo (the CPU, or ranks sharing one card) every step is eager.
 """
 from __future__ import annotations
 
@@ -73,8 +96,12 @@ import torch
 
 from artgraph_tpu_torch import config
 from artgraph_tpu_torch.data.loader import pipeline
-from artgraph_tpu_torch.models.resnet import bn_batch_mask
+from artgraph_tpu_torch.models.resnet import bn_batch_mask, bn_psum_axis
 from artgraph_tpu_torch.ops import launches, normalize_images
+from artgraph_tpu_torch.parallel.mesh import (global_batch_array, psum,
+                                              replicated, sync_grads)
+from artgraph_tpu_torch.train.losses import (loss_psum_axis,
+                                             psum_if_sharded)
 
 Batch = Tuple[np.ndarray, ...]
 
@@ -87,10 +114,11 @@ def accuracy_metrics(logits: torch.Tensor, labels: torch.Tensor,
                      mask: torch.Tensor, prefix: str = ""
                      ) -> Dict[str, torch.Tensor]:
     """Masked correct-prediction count (the reference's accuracy
-    numerator), keyed `{prefix}correct`."""
+    numerator), keyed `{prefix}correct`; global over the mesh inside a
+    loss_psum_axis scope."""
     correct = ((logits.argmax(-1) == labels).to(torch.float32)
                * mask.to(torch.float32)).sum()
-    return {f"{prefix}correct": correct}
+    return {f"{prefix}correct": psum_if_sharded(correct)}
 
 
 def image_only(images: torch.Tensor, batch) -> tuple:
@@ -132,8 +160,12 @@ class Trainer:
                  device: str | torch.device = "cuda",
                  seed: int = config.GLOBAL_SEED,
                  forward_inputs: Callable = image_only,
-                 eval_compute_loss: Optional[Callable] = None):
-        self.device = torch.device(device)
+                 eval_compute_loss: Optional[Callable] = None,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
+        if mesh is not None:
+            seed = seed + _RANK_SEED_STRIDE * mesh.rank
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"Trainer: device {device} requested but "
@@ -143,6 +175,12 @@ class Trainer:
         else:
             torch.manual_seed(seed)
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicated(self.model, mesh)
+        # one CUDA graph a step on cuda, but not under gloo, whose
+        # collectives cannot be captured
+        self.graphed = self.device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
         self.optimizer = optimizer(self.model.parameters())
         self.compute_loss = compute_loss
         self.eval_compute_loss = eval_compute_loss or compute_loss
@@ -167,13 +205,24 @@ class Trainer:
         images = normalize_images(batch[0], self.transform_type)
         return self.model(*self.forward_inputs(images, batch))
 
+    def _global(self):
+        """Over a mesh, the scope in which losses, metrics and BatchNorm
+        statistics are global."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(loss_psum_axis(self.mesh.axis_name))
+            stack.enter_context(bn_psum_axis(self.mesh.axis_name))
+        return stack
+
     def _step(self, batch: Tuple[torch.Tensor, ...], ragged: bool):
         """fwd + bwd + update; the loss and metrics as device tensors."""
         ctx = bn_batch_mask(batch[-1]) if ragged else contextlib.nullcontext()
-        with ctx:
+        with ctx, self._global():
             loss, metrics = self.compute_loss(self._outputs(batch), batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            sync_grads(self.model.parameters(), self.mesh)
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_CAPTURABLE_EAGER)
             self.optimizer.step()
@@ -188,13 +237,14 @@ class Trainer:
         self.host_step += 1
         return out
 
-    @staticmethod
-    def _accumulate(totals: Dict[str, torch.Tensor], loss, metrics,
+    def _accumulate(self, totals: Dict[str, torch.Tensor], loss, metrics,
                     mask: torch.Tensor) -> None:
         """Add a batch to the device totals in place: the loss weighted by
-        its valid count (the reference's loss.item() * n), the metrics
-        summed."""
+        its valid count (the reference's loss.item() * n; the global batch's
+        over a mesh), the metrics summed."""
         n = mask.to(loss.dtype).sum()
+        if self.mesh is not None:
+            n = psum(n, self.mesh.axis_name)
         for k, v in (("loss", loss * n), *metrics.items()):
             if k not in totals:
                 totals[k] = torch.zeros_like(v)
@@ -223,7 +273,7 @@ class Trainer:
         captured under `key`, whose first call runs body eagerly on the
         side stream (the warm-up, this call's own step) and then captures
         it."""
-        if self.device.type != "cuda":
+        if not self.graphed:
             return body(*inputs)
         g = self.graphs.get(key)
         if g is None:
@@ -262,7 +312,8 @@ class Trainer:
     @torch.no_grad()
     def _eval_body(self, *batch):
         outputs = self._outputs(batch)
-        loss, metrics = self.eval_compute_loss(outputs, batch)
+        with self._global():
+            loss, metrics = self.eval_compute_loss(outputs, batch)
         self._accumulate(self._totals["eval"], loss, metrics, batch[-1])
         return outputs, batch[1:-1]
 
@@ -274,7 +325,7 @@ class Trainer:
 
     def _train_batch(self, batch: Tuple[torch.Tensor, ...],
                      ragged: bool) -> None:
-        if (ragged and self.has_bn) or self.device.type != "cuda":
+        if (ragged and self.has_bn) or not self.graphed:
             loss, metrics = self._step(batch, ragged)
             self._accumulate(self._totals["train"], loss, metrics, batch[-1])
         else:
@@ -297,23 +348,30 @@ class Trainer:
             return
         cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        # over a mesh the valid count and size of the GLOBAL batch: the
+        # loader knows them without a collective
+        counts = (iter(loader.global_counts()) if self.mesh is not None
+                  else None)
 
         def produce():
             with (torch.cuda.stream(copy_stream) if cuda
                   else contextlib.nullcontext()):
                 for batch in loader:
                     mask = np.asarray(batch[-1])
+                    n, size = ((float(mask.sum()), mask.shape[0])
+                               if counts is None
+                               else (float(next(counts)), loader.batch_size))
                     host = [torch.from_numpy(np.ascontiguousarray(b))
                             for b in batch]
                     if not cuda:
-                        yield float(mask.sum()), mask.shape[0], host, None
+                        yield n, size, host, None
                         continue
                     dev = tuple(t.pin_memory().to(self.device,
                                                   non_blocking=True)
                                 for t in host)
                     copied = torch.cuda.Event()
                     copied.record(copy_stream)
-                    yield float(mask.sum()), mask.shape[0], dev, copied
+                    yield n, size, dev, copied
 
         current = torch.cuda.current_stream(self.device) if cuda else None
         for n, bsize, dev, copied in pipeline(produce(), size):
@@ -323,8 +381,13 @@ class Trainer:
                     t.record_stream(current)
             yield n, bsize, tuple(dev)
 
-    @staticmethod
-    def _use_epoch_scan(loader) -> bool:
+    def _use_epoch_scan(self, loader) -> bool:
+        if getattr(loader, "mesh", None) is not self.mesh:
+            # the loader's and the trainer's placement must agree
+            raise ValueError(
+                "the loader's mesh is not the trainer's: over a data mesh "
+                "each rank needs a loader of its own block of every batch "
+                "(DataLoader / ResidentLoader with the trainer's mesh)")
         return (hasattr(loader, "epoch_arrays")
                 and getattr(loader, "pad_last", False)
                 and getattr(loader, "epoch_scan", True))
@@ -401,15 +464,28 @@ class Trainer:
             examples += n
             if collect_outputs:
                 # copied out of the graph's buffers before the next replay
-                valid = int(n)
-                cut = lambda t: t[:valid].clone()
-                collected.append((_tree(cut, outputs), _tree(cut, rest)))
+                collected.append(self._collect(outputs, rest, inputs[-1],
+                                               int(n)))
         out = self._read(totals, examples)
         if not collect_outputs:
             return out
         to_numpy = lambda t: t.cpu().numpy()
         return out, [(_tree(to_numpy, o), _tree(to_numpy, r))
                      for o, r in collected]
+
+    def _collect(self, outputs, rest, mask: torch.Tensor, valid: int):
+        """A batch's outputs and non-image components cut to its valid rows;
+        over a mesh the ranks' blocks gathered first, in rank order."""
+        if self.mesh is None:
+            cut = lambda t: t[:valid].clone()
+            return _tree(cut, outputs), _tree(cut, rest)
+        keep = global_batch_array(mask, self.mesh) > 0
+        cut = lambda t: global_batch_array(t, self.mesh)[keep]
+        return _tree(cut, outputs), _tree(cut, rest)
+
+
+# rank r of a mesh seeds its dropout generator with seed + r * this
+_RANK_SEED_STRIDE = 1_000_003
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,9 @@ serving and training paths, the unfused ViT-B/16 trunk (ViT(fuse_qkv=False))
 and the standalone Attention module, the training of the fusion model
 NewMultiModalMultiTaskViT, the four pipeline stages through their CLIs, the
 ContextNet and MultiModal context models' training, the three baseline
-CLIs, the Trainer's graphed step and its device-resident epochs, and the
-trainers' run control (--resume, --init_checkpoint, -t) once on one NVIDIA
+CLIs, the Trainer's graphed step and its device-resident epochs, the
+trainers' run control (--resume, --init_checkpoint, -t) and data
+parallelism (--data_parallel, the edge-sharded GNN) once on one NVIDIA
 GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
@@ -293,6 +294,29 @@ sum's device time and launches a step.
               head) unchanged, the report's counts as expected; then each
               through cli.train_baseline for 1 epoch, which prints the same
               report, launches exact.
+ 27. data parallel  (a) ViTSingleTask ViT-B/16 and ResnetSingleTask
+              ResNet50 (gate on) at dropout 0, batch 32: DP_STEPS steps of
+              train_epoch over a one-rank NCCL mesh in this process (the
+              graphed step with its collectives captured) against the
+              one-device graphed step on the same batches, the losses,
+              parameters and BN statistics within DP_REL_L2 or
+              DP_FLOOR_FACTOR x their distance between two one-device runs
+              whose batches differ only in row order; then both timed in
+              turns: ms a step, device busy ms and idle share, NCCL's
+              kernels' share of the busy time, launches a step. (b) two
+              gloo ranks spawned on the one card, one eager step each on
+              its 16 rows (ViT-B/16; ResNet50 in bf16 with the gate open
+              and closed, and in f32) or its edge shard of the 8M-edge
+              GNN, against the one-process step: the loss, trunk and head
+              gradients and BN statistics' updates within the dtype's
+              bound or DP_FLOOR_FACTOR x its own error on one process
+              (bf16 against f32, f32 against f64: a random-init ResNet50's
+              gradient is chaotic), the stem BN's updates within
+              DP_STEM_REL, every kernel of each path launched on both
+              ranks. (c) cli.train_baseline --architecture vit and
+              cli.train_gnn_embeddings with --data_parallel 1 on cuda
+              (one NCCL rank in a process of its own): the result, the
+              checkpoint and the embeddings; --data_parallel 2 refused.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1797,15 +1821,17 @@ def _bench_graph(artworks: int, edges_per_rel: int, artists: int, tags: int,
                        labels=labels)
 
 
-def _gnn_model(graph, dropout: float):
+def _gnn_model(graph, dropout: float, axis_name: str | None = None):
     """HeteroSGNN as train_gnn_embeddings builds it (GATConv, hidden 128,
-    out 32, 2 layers, sum, BN), seeded weights, on the CPU."""
+    out 32, 2 layers, sum, BN), seeded weights, on the CPU; with axis_name
+    for an edge shard."""
     from artgraph_tpu_torch.models.gnn import HeteroSGNN, feature_dims
 
     torch.manual_seed(SEED)
     return HeteroSGNN(graph.metadata, feature_dims(graph.node_features),
                       operator="GATConv", hidden_channels=128,
-                      out_channels=32, n_layers=2, dropout=dropout)
+                      out_channels=32, n_layers=2, dropout=dropout,
+                      axis_name=axis_name)
 
 
 def _graph_on(graph, device: str):
@@ -4317,6 +4343,511 @@ def run_control_phase() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 27: data parallelism (parallel/, the Trainer's mesh step, the
+# edge-sharded GNN, --data_parallel)
+# --------------------------------------------------------------------------
+
+DP_STEPS = 4                    # (a): steps of each exactness run
+DP_REL_L2 = 1e-4                # (a): world 1 against one device, 4 steps,
+                                # or DP_FLOOR_FACTOR x the rows-reversed floor
+DP_LOSS_REL = 1e-2              # (b): the loss, two ranks against one
+DP_F32_REL = 1e-3               # (b): f32 gradients (1e-4: the f32 loss)
+DP_FLOOR_FACTOR = 2.0           # (a), (b): at most this times the floor
+DP_STEM_REL = 1e-4              # (b): the stem BN's statistics' updates
+FLOOR_OF = {"resnet": "bf16 against f32", "resnet gate off":
+            "bf16 against f32", "resnet f32": "f32 against f64"}
+DP_BLOCK = B // 2               # (b): each rank's rows of the global batch
+
+
+def _dp_mesh_world1(tmp: str):
+    """A one-rank NCCL group in this process over a file in tmp, and its
+    mesh."""
+    from artgraph_tpu_torch.parallel.mesh import create_mesh, distributed_init
+
+    device = torch.device("cuda", 0)
+    distributed_init(f"file://{tmp}/rendezvous", 1, 0, "nccl", device)
+    return create_mesh(1, device)
+
+
+def _dp_trainer(spec, model, mesh=None):
+    from artgraph_tpu_torch.train import Trainer
+
+    _, _, opt, loss, transform, inputs, _, _, _ = spec
+    return Trainer(model, opt, loss, transform_type=transform, device="cuda",
+                   forward_inputs=inputs, mesh=mesh)
+
+
+class _RowsReversed:
+    """_Rows with each batch of B rows in reverse order: the same batches'
+    gradients in another summation order (the bf16 floor of (a))."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def get_batch(self, idx):
+        idx = np.asarray(idx)
+        return self.rows.get_batch(idx // B * B + B - 1 - idx % B)
+
+
+def _dp_world1(spec, mesh) -> dict:
+    """(a) for one model at dropout 0: DP_STEPS steps of train_epoch over
+    the world-1 NCCL mesh (its graphed step, the collectives captured)
+    against the one-device graphed step (phase 23's) from the same weights
+    on the same batches, under cuDNN's deterministic algorithms: the
+    losses, parameters and BN statistics, each within DP_REL_L2 or
+    DP_FLOOR_FACTOR times its distance between two one-device runs whose
+    batches differ only in row order (the floor: a random-init ResNet50's
+    bf16 steps are chaotic); then both timed in turns (GRAPH_WINDOWS
+    windows of an epoch of DP_STEPS steps each way, medians), the device's
+    busy ms, idle share and NCCL's share of the busy time by the profiler,
+    and the launches a step by the counters."""
+    import copy
+
+    from artgraph_tpu_torch.data.loader import DataLoader
+    from artgraph_tpu_torch.ops import launches
+
+    label, make, *_, gate, per_step = spec
+    rows = _Rows(DP_STEPS * B, SEED + 270)
+    src = _set_dropout(make(), 0.0)
+    trainers = {"one device": _dp_trainer(spec, copy.deepcopy(src)),
+                "rows reversed": _dp_trainer(spec, copy.deepcopy(src)),
+                "world 1": _dp_trainer(spec, src, mesh)}
+    loaders = {"one device": DataLoader(rows, B, num_workers=4),
+               "rows reversed": DataLoader(_RowsReversed(rows), B,
+                                           num_workers=4),
+               "world 1": DataLoader(rows, B, num_workers=4, mesh=mesh)}
+    with _conv_bn_gate(gate), _deterministic():
+        losses = {k: t.train_epoch(loaders[k])["loss"]
+                  for k, t in trainers.items()}
+        torch.cuda.synchronize()
+        one = trainers["one device"]
+        dist = {}
+        for k in ("world 1", "rows reversed"):
+            m = trainers[k].model
+            dist[k] = (*_state_distance(m, one.model, False),
+                       *_state_distance(m, one.model, True),
+                       abs(losses[k] - losses["one device"]))
+        p_abs, p_rel, b_abs, b_rel, loss_err = dist["world 1"]
+        _, fp, _, fb, fl = dist["rows reversed"]
+        bounds = [max(DP_REL_L2, DP_FLOOR_FACTOR * f) for f in (fp, fb)]
+        loss_bound = max(DP_REL_L2 * losses["one device"],
+                         DP_FLOOR_FACTOR * fl)
+        same = loss_err == 0 and p_abs == 0 and b_abs == 0
+        dp = trainers["world 1"]
+        print(f"dp world 1: {label}, dropout 0, {DP_STEPS} steps of "
+              f"train_epoch over a one-rank NCCL mesh (graphs "
+              f"{len(dp.graphs)}) against the one-device graphed step from "
+              f"the same weights: epoch loss {losses['world 1']:.6f} against "
+              f"{losses['one device']:.6f} (|diff| {loss_err:.3g}, bound "
+              f"{loss_bound:.3g}); parameters max |diff| {p_abs:.3g}, rel L2 "
+              f"{p_rel:.3g} (bound {bounds[0]:.3g}); BN buffers max |diff| "
+              f"{b_abs:.3g}, rel L2 {b_rel:.3g} (bound {bounds[1]:.3g}); "
+              f"the floor, one device with each batch's rows reversed: "
+              f"loss |diff| {fl:.3g}, parameters rel L2 {fp:.3g}, BN "
+              f"buffers rel L2 {fb:.3g}"
+              + ("; bit-identical" if same else ""), flush=True)
+        if len(dp.graphs) != 1 or not (
+                same or (p_rel <= bounds[0] and b_rel <= bounds[1]
+                         and loss_err <= loss_bound)):
+            raise AssertionError(f"dp world 1: {label}: the mesh's steps "
+                                 f"differ from the one device's")
+        del trainers["rows reversed"], loaders["rows reversed"]
+        ms = {k: [] for k in trainers}
+        for _ in range(GRAPH_WINDOWS):
+            for k, t in trainers.items():
+                t0 = time.perf_counter()
+                t.train_epoch(loaders[k])
+                torch.cuda.synchronize()
+                ms[k].append(1e3 * (time.perf_counter() - t0) / DP_STEPS)
+        out = {}
+        for k, t in trainers.items():
+            before = launches.snapshot()
+            events = _trace_events(lambda: t.train_epoch(loaders[k]), 1)
+            counted = launches.since(before)
+            kernels = [ev for ev in events if ev.get("cat") in DEVICE_WORK]
+            busy = sum(ev.get("dur", 0.0) for ev in kernels) / DP_STEPS / 1e3
+            nccl = sum(ev.get("dur", 0.0) for ev in kernels
+                       if "nccl" in ev.get("name", "").lower()
+                       ) / DP_STEPS / 1e3
+            step_ms = float(np.median(ms[k]))
+            per = {name: counted.get((mod.__name__, attr), 0)
+                   / (2 * DP_STEPS)
+                   for name, (mod, attr) in {**_counters(),
+                                             **_conv_bn_counters()}.items()}
+            out[k] = {"ms": step_ms, "busy_ms": busy, "nccl_ms": nccl,
+                      "idle": max(0.0, 1 - busy / step_ms) if busy else None,
+                      "launches": {n: v for n, v in per.items() if v}}
+    fmt = lambda m: (f"{m['ms']:.3f} ms/step, device busy "
+                     f"{m['busy_ms']:.3f} ms, idle share "
+                     + ("not measured" if m["idle"] is None
+                        else f"{m['idle']:.4f}")
+                     + f", NCCL {m['nccl_ms']:.4f} ms "
+                       f"({m['nccl_ms'] / max(m['busy_ms'], 1e-9):.4%} of "
+                       f"busy), launches a step {m['launches']}")
+    one, dp = out["one device"], out["world 1"]
+    print(f"dp world 1: {label}, batch {B}, in turns ({GRAPH_WINDOWS} "
+          f"windows of {DP_STEPS} steps each way, medians): one device "
+          f"{fmt(one)} | world 1 {fmt(dp)} | world 1 / one device ms "
+          f"{dp['ms'] / one['ms']:.4f}x, device busy "
+          f"{dp['busy_ms'] - one['busy_ms']:+.3f} ms a step", flush=True)
+    want = {k: float(v) for k, v in per_step.items()}
+    for k in out:
+        if out[k]["launches"] != want:
+            raise AssertionError(f"dp world 1: {label}: {k}: launches a "
+                                 f"step {out[k]['launches']}, expected "
+                                 f"{want}")
+    del trainers, src
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_resnet_spec(dtype: torch.dtype):
+    """Phase 13's ResNet50 (the same weights) in `dtype`, the gate closed;
+    in f64 its parameters too (the head's Linear takes the f64 features)."""
+    from artgraph_tpu_torch.models import ResnetSingleTask
+
+    spec = list(_graph_specs()[2])
+    spec[0] = f"ResnetSingleTask(32) ResNet50 {dtype}, gate off"
+    spec[1] = lambda: _seeded_resnet_(
+        ResnetSingleTask(32, dropout=0.4, dtype=dtype), SEED + 80).to(
+            torch.promote_types(dtype, torch.float32))
+    return tuple(spec)
+
+
+def _dp_image_specs() -> dict:
+    """(b)'s image models: phase 6's ViT-B/16, phase 13's ResNet50 (bf16)
+    with the unit's gate open and closed, and the same ResNet50 in f32."""
+    specs = _graph_specs()
+    return {"vit": specs[0], "resnet": specs[1], "resnet gate off": specs[2],
+            "resnet f32": _dp_resnet_spec(torch.float32)}
+
+
+def _dp_image_step(spec, mesh, images, labels):
+    """One eager step of spec's model at dropout 0 (over `mesh` on this
+    rank's block of the batch): (loss, {name: f32 CPU gradient}, the BN
+    statistics' updates, the counters of the step)."""
+    from artgraph_tpu_torch.parallel.mesh import batch_sharding
+
+    _, make, *_, gate, _ = spec
+    model = _set_dropout(make(), 0.0)
+    before = {n: b.double().clone() for n, b in model.named_buffers()
+              if "running" in n}
+    trainer = _dp_trainer(spec, model, mesh)
+    batch = (np.ascontiguousarray(images), np.ascontiguousarray(labels),
+             np.ones(len(labels), np.float32))
+    if mesh is not None:
+        batch = batch_sharding(mesh, batch)
+    _zero_counts()
+    with _conv_bn_gate(gate):
+        loss, _ = trainer.train_step(trainer.to_device(batch))
+        torch.cuda.synchronize()
+    counts = {**_all_counts(), **_read_counts(_csr_counters)}
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in trainer.model.named_parameters()}
+    stats = None
+    if before:
+        # every BN layer's, then the stem's alone (before any bottleneck)
+        stem = {n: t for n, t in before.items() if n.startswith("resnet.1.")}
+        stats = (_bn_updates(trainer.model, before),
+                 torch.cat([(dict(trainer.model.named_buffers())[n]
+                             .detach().cpu().double() - t).flatten()
+                            for n, t in stem.items()]))
+    return float(loss), grads, stats, {k: v for k, v in counts.items() if v}
+
+
+def _dp_gnn_step(graph, mesh=None):
+    """One GNN step of phase 9's model at dropout 0.4 with the generator
+    seeded alike (every rank draws the same masks), edge-sharded over
+    `mesh`: (loss, {name: f32 CPU gradient}, the counters)."""
+    from artgraph_tpu_torch.parallel.gnn_parallel import (
+        device_put_graph_csr, init_variables)
+    from artgraph_tpu_torch.parallel.mesh import sync_grads
+
+    model = _gnn_model(graph, 0.4, None if mesh is None
+                       else mesh.axis_name).cuda().train()
+    if mesh is None:
+        x, edges, csr, y = _graph_on(graph, "cuda")
+    else:
+        init_variables(model, mesh)
+        x, edges, csr = device_put_graph_csr(graph, mesh)
+        y = torch.from_numpy(graph.labels["y_style"].astype(np.int64)).cuda()
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    _zero_counts()
+    loss, _ = _gnn_loss(model, x, edges, csr, y, gen)
+    loss.backward()
+    if mesh is not None:
+        sync_grads(model.parameters(), mesh)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _read_counts(_csr_counters).items() if v}
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return float(loss.detach()), grads, counts
+
+
+def _flat(grads: dict, pick=lambda n: True) -> torch.Tensor:
+    return torch.cat([g.double().flatten() for n, g in sorted(grads.items())
+                      if pick(n)])
+
+
+def _dp_trunk(name: str):
+    """The trunk parameters' test of an image model of (b)."""
+    prefix = "vit." if name == "vit" else "resnet."
+    return lambda n: n.startswith(prefix) and not n.startswith("vit.head.")
+
+
+def _dp_quantities(name: str, loss, grads, stats) -> dict:
+    trunk = _dp_trunk(name)
+    out = {"loss": loss, "trunk": _flat(grads, trunk),
+           "head": _flat(grads, lambda n: not trunk(n))}
+    if stats is not None:
+        out["bn"], out["bn stem"] = stats
+    return out
+
+
+def _dp_rank_shared(mesh, tmp: str) -> None:
+    """(b)'s rank body: one eager step of each model on this rank's block
+    (the image models of _dp_image_specs) or edge shard (the GNN) over
+    gloo, every rank on cuda:0; the distances from the one-process step
+    (saved in tmp by the parent) and the rank's launches into
+    tmp/rank<r>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    specs = _dp_image_specs()
+    images, labels = specs["vit"][6](np.random.default_rng(SEED + 271), B)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    out = {}
+    for name, spec in specs.items():
+        loss, grads, stats, counts = _dp_image_step(spec, mesh, images,
+                                                    labels)
+        got = _dp_quantities(name, loss, grads, stats)
+        ref = torch.load(os.path.join(tmp, f"{name}.pt"))
+        out[name] = {q: rel(got[q], ref[q]) for q in got if q != "loss"}
+        out[name].update(loss=loss, ref_loss=ref["loss"], launches=counts)
+        del grads, got
+        torch.cuda.empty_cache()
+    graph = _bench_graph(GNN_ARTWORKS, GNN_EDGES, 5_000, 10_000, SEED)
+    loss, grads, counts = _dp_gnn_step(graph, mesh)
+    ref = torch.load(os.path.join(tmp, "gnn.pt"))
+    out["gnn"] = {"loss": loss, "ref_loss": ref["loss"],
+                  "grad": rel(_flat(grads), ref["grad"]),
+                  "launches": counts}
+    with open(os.path.join(tmp, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dp_shared_card(tmp: str) -> dict:
+    """(b): the one-process steps on the card, and each ResNet quantity's
+    floor (its dtype's own error: the one-process step in bf16 against
+    f32, f32 against f64; a rank's 16 rows get other convolution
+    algorithms than 32, whose rounding a random-init ResNet50 amplifies),
+    then two gloo ranks sharing cuda:0, each running _dp_rank_shared; each
+    quantity held to max(the dtype's bound, DP_FLOOR_FACTOR x its floor),
+    the stem BN's statistics (before any amplification) to DP_STEM_REL,
+    every kernel of the path launched on both ranks. Returns the ranks'
+    launches summed."""
+    from artgraph_tpu_torch.parallel.mesh import spawn
+
+    specs = _dp_image_specs()
+    images, labels = specs["vit"][6](np.random.default_rng(SEED + 271), B)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    refs = {}
+    for name, spec in (*specs.items(),
+                       ("resnet f64", _dp_resnet_spec(torch.float64))):
+        refs[name] = _dp_quantities(name, *_dp_image_step(
+            spec, None, images, labels)[:3])
+        if name in specs:
+            torch.save(refs[name], os.path.join(tmp, f"{name}.pt"))
+        torch.cuda.empty_cache()
+    # each ResNet quantity's floor: its own dtype's error on one process,
+    # bf16 against f32 and f32 against f64 (a random-init ResNet50 step is
+    # chaotic, PERF.md §6; the stem BN, before any bottleneck, is held
+    # tight instead)
+    floors = {}
+    for name, ref in (("resnet", "resnet f32"),
+                      ("resnet gate off", "resnet f32"),
+                      ("resnet f32", "resnet f64")):
+        a, b = refs[name], refs[ref]
+        floors[name] = {q: rel(a[q], b[q]) for q in a
+                        if q not in ("loss", "bn stem")}
+        floors[name]["loss"] = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    del refs
+    graph = _bench_graph(GNN_ARTWORKS, GNN_EDGES, 5_000, 10_000, SEED)
+    loss, grads, _ = _dp_gnn_step(graph)
+    torch.save({"loss": loss, "grad": _flat(grads)},
+               os.path.join(tmp, "gnn.pt"))
+    del graph, grads
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(_dp_rank_shared, 2, "gloo", init_file=os.path.join(tmp, "rdv"),
+          timeout=900.0, args=(tmp,), devices=["cuda:0", "cuda:0"])
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    expect = {"vit": ("fused_block_attention", "fused_block_mlp",
+                      "normalize_images", "fused_block_attention_bwd",
+                      "fused_block_mlp_bwd"),
+              "resnet": ("conv1x1_bn_stats", "conv1x1_bn_stats_bwd",
+                         "normalize_images"),
+              "resnet gate off": ("normalize_images",),
+              "resnet f32": ("normalize_images",),
+              "gnn": ("csr_segment_sum", "csr_attention_aggregate",
+                      "csr_scalar_segment_sum")}
+    least = {"vit": (DP_LOSS_REL, TRAIN_GRAD_REL_L2),
+             "resnet": (DP_LOSS_REL, TRAIN_GRAD_REL_L2),
+             "resnet gate off": (DP_LOSS_REL, TRAIN_GRAD_REL_L2),
+             "resnet f32": (1e-4, DP_F32_REL),
+             "gnn": (DP_F32_REL, GNN_GRAD_REL_L2)}
+    total: dict = {}
+    failed = []
+    for r, got in enumerate(ranks):
+        for name, res in got.items():
+            res["loss_rel"] = abs(res["loss"] - res["ref_loss"]) / \
+                abs(res["ref_loss"])
+            parts, ok = [f"loss {res['loss']:.6f} against "
+                         f"{res['ref_loss']:.6f}"], True
+            for q in ("loss_rel", "trunk", "head", "bn", "bn stem", "grad"):
+                if q not in res:
+                    continue
+                floor = floors.get(name, {}).get(
+                    "loss" if q == "loss_rel" else q)
+                low = (DP_STEM_REL if q == "bn stem"
+                       else least[name][q != "loss_rel"])
+                bound = low if floor is None else max(
+                    low, DP_FLOOR_FACTOR * floor)
+                what = {"loss_rel": "loss rel", "trunk": "trunk gradient",
+                        "head": "head gradient",
+                        "bn": "BN statistics' updates",
+                        "bn stem": "the stem BN's updates",
+                        "grad": "gradient"}[q]
+                parts.append(f"{what}" + ("" if q == "loss_rel" else
+                                          " rel L2")
+                             + f" {res[q]:.4g} (bound {bound:.4g}"
+                             + ("" if floor is None else
+                                f"; {FLOOR_OF[name]} on one process "
+                                f"{floor:.4g}") + ")")
+                ok = ok and res[q] <= bound
+            missing = [k for k in expect[name]
+                       if not res["launches"].get(k)]
+            print(f"dp shared card: rank {r} of 2 (gloo, both on cuda:0), "
+                  f"{name}, one eager step on "
+                  + ("its edge shard" if name == "gnn" else
+                     f"its {DP_BLOCK} rows of the batch of {B}")
+                  + f" against one process: {'; '.join(parts)}; launches "
+                    f"{res['launches']}", flush=True)
+            if not ok or missing:
+                failed.append(f"rank {r}, {name}: out of bounds or no "
+                              f"launch of {missing}")
+            for k, v in res["launches"].items():
+                total[k] = total.get(k, 0) + v
+    if failed:
+        raise AssertionError(f"dp shared card: {'; '.join(failed)}")
+    print(f"dp shared card: two ranks in {seconds:.1f} s (spawn, build "
+          f"load, the 8M-edge graph and its shards on each)", flush=True)
+    return total
+
+
+def _dp_cli(tmp: str) -> None:
+    """(c): cli.train_baseline --architecture vit and
+    cli.train_gnn_embeddings with --data_parallel 1 on cuda (each starts
+    one NCCL rank in a process of its own, whose graphed steps capture the
+    collectives) on phase 15's synthetic tree and phase 11's KG: the rank's
+    result, the checkpoint and the embeddings; --data_parallel 2 refused
+    with the device-count error."""
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
+    from artgraph_tpu_torch.cli import train_baseline, train_gnn_embeddings
+    from artgraph_tpu_torch.data.embeddings import load_embedding
+
+    root = Path(tmp)
+    counts = _load_synth().make_image_tree(root / "tree")
+    argv = ["--dataset_path", str(root / "tree" / "dataset"),
+            "--image_path", str(root / "tree" / "images"),
+            "--architecture", "vit", "--label", "style", "--epochs", "1",
+            "--batch", "8", "--num_workers", "4", "--device", "cuda",
+            "--results_dir", str(root / "results")]
+    t0 = time.perf_counter()
+    acc = train_baseline.main(argv + ["--data_parallel", "1"])
+    seconds = time.perf_counter() - t0
+    path = (Path(config.CHECKPOINTS_DIR) /
+            "style_vit_baseline_single-task_checkpoint.pt")
+    model = load_reference_checkpoint("ViTSingleTask", str(path), "cuda")
+    if not (root / "results" / "results.csv").exists() or \
+            not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"dp cli: train_baseline: accuracy {acc}, no "
+                             f"results.csv")
+    try:
+        train_baseline.main(argv + ["--data_parallel", "2"])
+        raise AssertionError("dp cli: --data_parallel 2 ran on one card")
+    except ValueError as e:
+        refused = str(e)
+    print(f"dp cli: train_baseline --architecture vit --data_parallel 1 "
+          f"--device cuda, 1 epoch on {counts} synthetic images in "
+          f"{seconds:.1f} s (one NCCL rank): test accuracy {acc}, "
+          f"checkpoint reloaded strict ({len(model.state_dict())} tensors); "
+          f"--data_parallel 2 refused: {refused}", flush=True)
+    kg = _write_kg(root / "kg", SEED + 272)
+    saved = {k: os.environ.get(k) for k in ("ARTGRAPH_DATASET_DIR",
+                                            "ARTGRAPH_EMBEDDINGS_DIR")}
+    os.environ["ARTGRAPH_DATASET_DIR"] = str(root / "kg")
+    os.environ["ARTGRAPH_EMBEDDINGS_DIR"] = str(root / "emb")
+    t0 = time.perf_counter()
+    try:
+        train_gnn_embeddings.main(["--device", "cuda", "--epochs", "6",
+                                   "--data_parallel", "1"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    shapes = []
+    for stem in ("test_gnn_artwork_style_embs", "test_gnn_style_embs"):
+        emb = load_embedding(str(root / "emb" / f"{stem}.pt"))
+        if emb.shape != (kg["artwork"], 128) or not np.isfinite(emb).all():
+            raise AssertionError(f"dp cli: {stem}.pt is {emb.shape} or not "
+                                 f"finite")
+        shapes.append(f"{stem}.pt {list(emb.shape)}")
+    print(f"dp cli: train_gnn_embeddings --data_parallel 1 --device cuda "
+          f"--epochs 6 on a {kg['artwork']}-artwork KG in {seconds:.1f} s "
+          f"(one NCCL rank, edge-sharded in one); reloaded "
+          f"{', '.join(shapes)}, finite", flush=True)
+
+
+def data_parallel_phase() -> dict:
+    """Phase 27: (a) the world-1 NCCL step against the one-device graphed
+    step, ViT-B/16 and ResNet50 (gate on), exact and in turns; (b) two gloo
+    ranks sharing the card against one process, ViT-B/16, ResNet50 (gate
+    on) and the 8M-edge GNN; (c) the CLIs with --data_parallel. Returns
+    every kernel's launches over (a)'s and (b)'s runs."""
+    from artgraph_tpu_torch.parallel.mesh import release_mesh
+
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = _dp_mesh_world1(tmp)
+        try:
+            specs = _graph_specs()
+            for spec in specs[:2]:
+                _zero_counts()
+                _dp_world1(spec, mesh)
+                for k, n in _all_counts().items():
+                    total[k] = total.get(k, 0) + n
+        finally:
+            release_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in _dp_shared_card(tmp).items():
+            total[k] = total.get(k, 0) + n
+    with tempfile.TemporaryDirectory() as tmp:
+        _dp_cli(tmp)
+    return total
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -4363,6 +4894,8 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         capture_phase()
         for k, n in run_control_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in data_parallel_phase().items():
             launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)

@@ -397,8 +397,13 @@ def test_cli_cpu_prints_the_jax_lines_and_saves_embeddings(
 
 
 def test_cli_refuses_what_is_not_ported(kg_dirs, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gnn_embeddings.main(["--device", "cpu", "--data_parallel", "2"])
+    # --data_parallel is ported (tests/test_torch_gnn_parallel.py): more
+    # ranks than visible CUDA devices are refused before any rank starts
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="visible CUDA devices"):
+            train_gnn_embeddings.main(["--data_parallel", "2"])
     # --resume is ported (tests/test_torch_runcontrol.py): on cuda without a
     # card it raises instead of training on the CPU, and saves nothing
     with monkeypatch.context() as m:

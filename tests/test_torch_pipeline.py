@@ -323,7 +323,8 @@ CLIS = {
 
 # the JAX CLIs' flags that the image CLIs of the port now take
 PORTED_EXTRAS = ("--resident_data", "--no_epoch_scan", "--image_cache",
-                 "--init_checkpoint", "--tracking", "--resume")
+                 "--init_checkpoint", "--tracking", "--resume",
+                 "--data_parallel")
 
 
 class _Parsed(Exception):
@@ -336,9 +337,9 @@ class _Parsed(Exception):
     ["--resume", "r"], ["--tracking"]])
 @pytest.mark.parametrize("cli", sorted(CLIS))
 def test_clis_refuse_the_tpu_extras(cli, extra, monkeypatch):
-    """The extra the port lacks (--data_parallel) is refused by the parser;
-    the ported flags parse (the CLI stops at resolve_device, right after
-    parsing), except in generate_projections, which takes --device only,
+    """Every TPU extra is ported: the flags parse (the CLI stops at
+    resolve_device, right after parsing, before --data_parallel would start
+    its ranks), except in generate_projections, which takes --device only,
     and --resume in train_projector, which has no resumable loop and says
     so."""
     def parsed(name):

@@ -380,9 +380,11 @@ def test_train_baseline_resnet_cli_cpu(synthetic_dataset, tiny_trunk,
 
 def test_train_baseline_cli_refuses_what_is_not_ported(synthetic_dataset,
                                                        tiny_trunk):
-    with pytest.raises(SystemExit):       # a TPU extra the port lacks
+    # --data_parallel is ported (tests/test_torch_parallel.py); ranks that
+    # do not divide --batch 8 are refused before any rank starts
+    with pytest.raises(ValueError, match="not divisible"):
         train_baseline.main(_cli_args(synthetic_dataset, "--device", "cpu",
-                                      "--data_parallel", "2"))
+                                      "--data_parallel", "3"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_baseline.main(_cli_args(synthetic_dataset))
