@@ -17,8 +17,9 @@ fourteen models of the reference (`vit_to_torch`, `resnet_to_torch`, the
 three head kinds: a bare Linear, Sequential(Dropout, Linear) and the
 MultiModal models' tanh encoder), which
 the port cannot import (that package pulls in jax); the tests hold the two
-equal key for key. `gnn_state_from_flax` does the same for the GNN stage's
-`HeteroSGNN`, whose port keeps the flax names.
+equal key for key. `gnn_state_from_flax` does the same for the GNN models
+(`HeteroSGNN`, `HeteroMGNN`, `HomoGNN`, `HomoSGNN`), whose port keeps the
+flax names.
 
 `import_trunk_state` renames a trunk-only or foreign checkpoint's trunk
 into a model's keys for --init_checkpoint warm starts, as the JAX
@@ -250,33 +251,53 @@ def _flat(tree: dict, prefix: str) -> dict[str, np.ndarray]:
     return out
 
 
-def gnn_state_from_flax(variables: dict) -> dict[str, np.ndarray]:
-    """A flax `HeteroSGNN`'s {'params', 'batch_stats'} -> the state_dict of
-    the port's models.gnn.HeteroSGNN (numpy). The port keeps the flax names
-    and layouts, so the map is mechanical:
+def gnn_state_from_flax(variables: dict, prefix: str = ""
+                        ) -> dict[str, np.ndarray]:
+    """The flax {'params', 'batch_stats'} of a `HeteroSGNN`, `HeteroMGNN`,
+    `HomoGNN` or `HomoSGNN` -> the state_dict of the port's model of that
+    name in models.gnn (numpy). The port keeps the flax names and layouts,
+    so the map is mechanical. HeteroSGNN (names with `__`):
 
-      <conv>__<src>__<rel>__<dst>/<leaf path> -> convs.<same name>.<leaf path>
-      bn<i>__<type>/{scale, bias}             -> bns.<same name>.{weight, bias}
-      batch_stats bn<i>__<type>/{mean, var}   -> bns.<same name>.running_*
+      <conv>__<src>__<rel>__<dst>/<leaf path> -> convs.<same>.<leaf path>
+      lin<i>__<type>/{kernel, bias}           -> lins.<same>.{kernel, bias}
+      bn<i>__<type>/{scale, bias}             -> bns.<same>.{weight, bias}
+      batch_stats bn<i>__<type>/{mean, var}   -> bns.<same>.running_*
       prelu<i>                                -> prelu.prelu<i>
+
+    HomoGNN: conv<i>, lin<i> and conv_out keep their names and leaf paths,
+    bn<i> maps as above. The wrappers' submodules, HeteroMGNN's
+    gnn_{artist,style,genre} and HomoSGNN's gnn, prefix their keys
+    (`gnn_style.convs.…`, `gnn.conv0.…`).
 
     A gradient tree of the params ({'params': grads}) maps the same way.
     """
+    stats = variables.get("batch_stats", {})
     sd: dict[str, np.ndarray] = {}
+
+    def bn(key: str, name: str, tree: dict) -> None:
+        sd[f"{key}.weight"] = _f32(tree["scale"])
+        sd[f"{key}.bias"] = _f32(tree["bias"])
+        if name in stats:
+            sd[f"{key}.running_mean"] = _f32(stats[name]["mean"])
+            sd[f"{key}.running_var"] = _f32(stats[name]["var"])
+            sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
     for name, tree in variables["params"].items():
-        if name.startswith("conv"):
-            sd.update(_flat(tree, f"convs.{name}"))
+        hetero = "__" in name
+        if name == "gnn" or name.startswith("gnn_"):
+            sd.update(gnn_state_from_flax(
+                {"params": tree, "batch_stats": stats.get(name, {})},
+                f"{prefix}{name}."))
+        elif name.startswith("conv"):
+            sd.update(_flat(tree, f"{prefix}{'convs.' * hetero}{name}"))
+        elif name.startswith("lin"):
+            sd.update(_flat(tree, f"{prefix}{'lins.' * hetero}{name}"))
         elif name.startswith("bn"):
-            sd[f"bns.{name}.weight"] = _f32(tree["scale"])
-            sd[f"bns.{name}.bias"] = _f32(tree["bias"])
+            bn(f"{prefix}{'bns.' * hetero}{name}", name, tree)
         elif name.startswith("prelu"):
-            sd[f"prelu.{name}"] = _f32(tree)
+            sd[f"{prefix}prelu.{name}"] = _f32(tree)
         else:
-            raise ValueError(f"unexpected HeteroSGNN parameter {name!r}")
-    for name, stats in variables.get("batch_stats", {}).items():
-        sd[f"bns.{name}.running_mean"] = _f32(stats["mean"])
-        sd[f"bns.{name}.running_var"] = _f32(stats["var"])
-        sd[f"bns.{name}.num_batches_tracked"] = np.zeros((), np.int64)
+            raise ValueError(f"unexpected GNN parameter {name!r}")
     return sd
 
 

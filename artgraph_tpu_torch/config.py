@@ -10,6 +10,7 @@ by setting the module attributes.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 # --- Path constants (ref: src/config.py:1-7). Same defaults, env-overridable.
@@ -20,6 +21,8 @@ EMBEDDINGS_DIR = os.environ.get(
 )
 PROJECTIONS_DIR = os.environ.get("ARTGRAPH_PROJECTIONS_DIR", "../proj")
 CHECKPOINTS_DIR = os.environ.get("ARTGRAPH_CHECKPOINTS_DIR", "../checkpoints")
+RESULTS_DIR = os.environ.get("ARTGRAPH_RESULTS_DIR", "../results")
+NOTEBOOKS_DIR = os.environ.get("ARTGRAPH_NOTEBOOKS_DIR", "../notebooks")
 
 # --- Task constants (ref: train_baseline.py:27-30 et al.).
 NUM_CLASSES = {"genre": 18, "style": 32}
@@ -44,3 +47,28 @@ GLOBAL_SEED = 1
 
 # Projector split seed (ref: src/utils.py:215-221 random_state=11).
 PROJECTION_SPLIT_SEED = 11
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Typed bundle of the shared CLI hyperparameters, the JAX package's
+    (artgraph_tpu/config.py): the reference's shared argparse names
+    (ref: src/utils.py:17-28), then that package's additions (`bf16` is
+    the compute policy, `data_axis` the mesh axis name, `num_workers` the
+    loader's threads, `prefetch` the batches copied ahead). The defaults
+    are the paths above as this module was first imported."""
+
+    image_path: str = IMAGE_DIR
+    dataset_path: str = DATASET_DIR
+    exp: str = "test"
+    epochs: int = 1
+    batch: int = 32
+    lr: float = 3e-4
+    with_weights: bool = False
+    tracking: bool = False
+
+    seed: int = GLOBAL_SEED
+    bf16: bool = True
+    data_axis: str = "data"
+    num_workers: int = 6
+    prefetch: int = 2

@@ -11,8 +11,9 @@ ref: src/data/artgraph.py:10-128) over numpy and pandas only:
   * the 9 relations load from relations/<h>___<r>___<t>/edge.csv, renamed
     '<r>_rel';
   * `to_undirected` is PyG's T.ToUndirected(); `gat_self_loops` the pyg
-    2.0.2 GATConv self-loops (PARITY.md deviation 5); `with_csr` sorts every
-    relation by destination and builds the kernels' metadata on a device.
+    2.0.2 GATConv self-loops (PARITY.md deviation 5); `del_some_nodes` the
+    reference's pruned graph; `with_csr` sorts every relation by
+    destination and builds the kernels' metadata on a device.
 """
 from __future__ import annotations
 
@@ -171,6 +172,28 @@ def gat_self_loops(graph: HeteroGraph) -> HeteroGraph:
     return HeteroGraph(node_features=graph.node_features,
                        num_nodes=graph.num_nodes, edges=edges,
                        labels=graph.labels)
+
+
+def del_some_nodes(graph: HeteroGraph) -> HeteroGraph:
+    """The graph without the node types and relations the reference's
+    del_some_nodes drops (ref: train_gnn_embeddings.py:68-80, which no
+    reference script calls): gallery, field, movement and genre, and every
+    relation that touches them or is artist teacher_rel artist."""
+    drop_nodes = {"gallery", "field", "movement", "genre"}
+    drop_edges = {("artist", "movement_rel", "movement"),
+                  ("artist", "field_rel", "field"),
+                  ("artwork", "locatedin_rel", "gallery"),
+                  ("artist", "teacher_rel", "artist"),
+                  ("artwork", "genre_rel", "genre")}
+    return HeteroGraph(
+        node_features={t: f for t, f in graph.node_features.items()
+                       if t not in drop_nodes},
+        num_nodes={t: n for t, n in graph.num_nodes.items()
+                   if t not in drop_nodes},
+        edges={et: ei for et, ei in graph.edges.items()
+               if et not in drop_edges
+               and et[0] not in drop_nodes and et[2] not in drop_nodes},
+        labels=graph.labels)
 
 
 def with_csr(graph: HeteroGraph, device="cpu"):

@@ -1,8 +1,9 @@
 """Heterogeneous GNN over the ArtGraph KG, on the CSR segment kernels.
 
-Port of artgraph_tpu/models/gnn.py (`TypedLinear`, the five conv operators
-and `HeteroSGNN`), the reference's PyG HeteroGNN under
-`to_hetero(..., aggr='sum')` (ref: src/models/models_graph.py:5-49):
+Port of artgraph_tpu/models/gnn.py (`TypedLinear`, the five conv operators,
+`HeteroSGNN`, and the variants no reference script uses: `HeteroMGNN`,
+`HomoGNN` and `HomoSGNN`), the reference's PyG HeteroGNN under
+`to_hetero(..., aggr='sum')` (ref: src/models/models_graph.py:5-106):
 
   * one conv per relation, summed per destination type (`aggr` also takes
     mean | max | min | mul); a type no relation targets gets zeros;
@@ -23,8 +24,9 @@ and `HeteroSGNN`), the reference's PyG HeteroGNN under
     rank. The dropout masks are too when every rank passes a generator in
     the same state.
 
-PyG's lazy (-1, -1) shapes become explicit input widths: `HeteroSGNN` takes
-`in_channels` per node type (`feature_dims` of a graph's features). The
+PyG's lazy (-1, -1) shapes become explicit input widths: `HeteroSGNN` and
+`HeteroMGNN` take `in_channels` per node type (`feature_dims` of a graph's
+features), `HomoGNN` one width. The
 parameters keep the JAX package's names and layouts (kernels [in, out]),
 under ModuleDicts keyed by the flax module names, so
 checkpointing.gnn_state_from_flax maps them one to one. Training and eval
@@ -291,6 +293,8 @@ class HeteroSGNN(nn.Module):
     the reference's (emb, [out_soft]). x_dict maps node type -> features
     (tensor or OneHot); edge_dict maps (src, rel, dst) -> [2, E] int64;
     csr maps the same keys to EdgeCSR metadata (then the kernels run).
+    skip adds a per-type linear of the layer's input (`lin{layer}__{type}`)
+    to each conv's output, before the BatchNorm, which bn=False leaves out.
     axis_name: the mesh axis of an edge-sharded run (edge_dict and csr then
     hold this rank's shard)."""
 
@@ -298,7 +302,8 @@ class HeteroSGNN(nn.Module):
                  operator: str = "GATConv", activation: str = "relu",
                  aggr: str = "sum", hidden_channels: int = 128,
                  out_channels: int = 32, n_layers: int = 2,
-                 dropout: float = 0.4, axis_name: Optional[str] = None):
+                 dropout: float = 0.4, bn: bool = True, skip: bool = False,
+                 axis_name: Optional[str] = None):
         super().__init__()
         if operator not in OPERATORS:
             raise ValueError(f"unknown operator {operator!r}")
@@ -309,9 +314,11 @@ class HeteroSGNN(nn.Module):
         self.activation, self.aggr = activation, aggr
         self.hidden_channels, self.out_channels = hidden_channels, out_channels
         self.n_layers, self.dropout = n_layers, dropout
+        self.bn, self.skip = bn, skip
         self.axis_name = axis_name
         conv_cls = OPERATORS[operator]
         self.convs = nn.ModuleDict()
+        self.lins = nn.ModuleDict()
         self.bns = nn.ModuleDict()
         self.prelu = nn.ParameterDict()
         dims = dict(in_channels)
@@ -324,8 +331,11 @@ class HeteroSGNN(nn.Module):
             if layer == n_layers:
                 break
             for t in node_types:
-                self.bns[f"bn{layer}__{t}"] = nn.BatchNorm1d(
-                    width, eps=1e-5, momentum=0.1)
+                if skip:
+                    self.lins[f"lin{layer}__{t}"] = TypedLinear(dims[t], width)
+                if bn:
+                    self.bns[f"bn{layer}__{t}"] = nn.BatchNorm1d(
+                        width, eps=1e-5, momentum=0.1)
             if activation == "prelu":
                 self.prelu[f"prelu{layer}"] = nn.Parameter(
                     torch.full((1,), 0.25))
@@ -367,7 +377,10 @@ class HeteroSGNN(nn.Module):
             new_x = self._hetero_conv(f"conv{layer}", self.hidden_channels, x,
                                       edge_dict, csr)
             for t in node_types:
-                new_x[t] = self.bns[f"bn{layer}__{t}"](new_x[t])
+                if self.skip:
+                    new_x[t] = new_x[t] + self.lins[f"lin{layer}__{t}"](x[t])
+                if self.bn:
+                    new_x[t] = self.bns[f"bn{layer}__{t}"](new_x[t])
             x = new_x  # the next layer consumes PRE-activation (ref quirk)
             x_emb = {}
             for t in node_types:
@@ -383,3 +396,94 @@ class HeteroSGNN(nn.Module):
                                   edge_dict, csr)
         out_soft = {t: torch.log_softmax(v, dim=1) for t, v in x_out.items()}
         return x, [out_soft]
+
+
+class HeteroMGNN(nn.Module):
+    """Three parallel HeteroSGNN heads, `gnn_artist`, `gnn_style` and
+    `gnn_genre` (ref: models_graph.py:51-64, which no reference script
+    uses), with `out_channels` a dict by task. As the JAX module does, it
+    passes no CSR metadata, so the convs take the `index_add_` path of
+    ops.segment. forward -> [(emb, [out_soft]) for each task]."""
+
+    TASKS = ("artist", "style", "genre")
+
+    def __init__(self, metadata: Tuple, in_channels: Dict[str, int],
+                 out_channels: Dict[str, int], operator: str = "GATConv",
+                 activation: str = "relu", aggr: str = "sum",
+                 hidden_channels: int = 128, n_layers: int = 2,
+                 dropout: float = 0.4, bn: bool = True, skip: bool = False):
+        super().__init__()
+        for task in self.TASKS:
+            self.add_module(f"gnn_{task}", HeteroSGNN(
+                metadata, in_channels, operator=operator,
+                activation=activation, aggr=aggr,
+                hidden_channels=hidden_channels,
+                out_channels=out_channels[task], n_layers=n_layers,
+                dropout=dropout, bn=bn, skip=skip))
+
+    def forward(self, x_dict: Dict, edge_dict: Dict,
+                generator: Optional[torch.Generator] = None) -> list:
+        return [getattr(self, f"gnn_{task}")(x_dict, edge_dict,
+                                             generator=generator)
+                for task in self.TASKS]
+
+
+class HomoGNN(nn.Module):
+    """The homogeneous variant (ref: models_graph.py:66-97), as the JAX
+    module computes it: each layer is conv{i}, plus lin{i}(x) when skip,
+    then BatchNorm bn{i} always (the reference applies it whatever `bn`
+    says), and feeds the next; then conv_out and log_softmax. No activation
+    and no dropout run, although the JAX docstring speaks of dropout:
+    `activation`, `dropout` and `bn` are accepted and unused, as there.
+    forward(x [n, in_channels], edge_index [2, E]) -> (x, log_softmax)."""
+
+    def __init__(self, in_channels: int, operator: str = "GCNConv",
+                 activation: str = "relu", hidden_channels: int = 16,
+                 out_channels: int = 300, n_layers: int = 1,
+                 dropout: float = 0.5, bn: bool = False, skip: bool = False):
+        super().__init__()
+        if operator not in OPERATORS:
+            raise ValueError(f"unknown operator {operator!r}")
+        conv_cls = OPERATORS[operator]
+        self.n_layers, self.skip = n_layers, skip
+        dim = in_channels
+        for layer in range(n_layers):
+            self.add_module(f"conv{layer}",
+                            conv_cls(dim, dim, hidden_channels))
+            if skip:
+                self.add_module(f"lin{layer}",
+                                TypedLinear(dim, hidden_channels))
+            self.add_module(f"bn{layer}", nn.BatchNorm1d(
+                hidden_channels, eps=1e-5, momentum=0.1))
+            dim = hidden_channels
+        self.conv_out = conv_cls(dim, dim, out_channels)
+
+    def forward(self, x, edge_index):
+        n = _rows(x)
+        for layer in range(self.n_layers):
+            h = getattr(self, f"conv{layer}")(x, x, edge_index, num_dst=n)
+            if self.skip:
+                h = h + getattr(self, f"lin{layer}")(x)
+            x = getattr(self, f"bn{layer}")(h)
+        x_out = self.conv_out(x, x, edge_index, num_dst=n)
+        return x, torch.log_softmax(x_out, dim=1)
+
+
+class HomoSGNN(nn.Module):
+    """HomoGNN as `gnn`, returning (emb, [out_soft])
+    (ref: models_graph.py:99-106)."""
+
+    def __init__(self, in_channels: int, operator: str = "GCNConv",
+                 activation: str = "relu", hidden_channels: int = 16,
+                 out_channels: int = 300, n_layers: int = 1,
+                 dropout: float = 0.5, bn: bool = False, skip: bool = False):
+        super().__init__()
+        self.gnn = HomoGNN(in_channels, operator=operator,
+                           activation=activation,
+                           hidden_channels=hidden_channels,
+                           out_channels=out_channels, n_layers=n_layers,
+                           dropout=dropout, bn=bn, skip=skip)
+
+    def forward(self, x, edge_index):
+        emb, out_soft = self.gnn(x, edge_index)
+        return emb, [out_soft]

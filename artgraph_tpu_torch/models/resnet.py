@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from artgraph_tpu_torch.ops.attention import at_least_f32
 from artgraph_tpu_torch.ops.conv_bn import conv1x1_bn_stats
 from artgraph_tpu_torch.parallel.mesh import psum
 
@@ -66,11 +67,6 @@ RESNET_WIDTHS = (64, 128, 256, 512)
 TORCHVISION_CHILDREN = ("conv1", "bn1", "relu", "maxpool", "layer1",
                         "layer2", "layer3", "layer4")
 _F32 = torch.float32
-
-
-def at_least_f32(dtype: torch.dtype) -> torch.dtype:
-    """f32, or wider if the compute dtype already is."""
-    return torch.promote_types(dtype, _F32)
 
 
 _BATCH_MASK: contextvars.ContextVar = contextvars.ContextVar(

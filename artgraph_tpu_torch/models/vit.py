@@ -6,6 +6,9 @@ are added in f32 and the residual stream is then cast to `dtype`; each of the
 `depth` blocks is `fused_block_attention` followed by `fused_block_mlp`; the
 final LayerNorm runs in f32 and the CLS token is pooled (timm-0.4
 `forward_features`). Parameters are f32. Inputs are normalized NHWC images.
+An f64 model (dtype and parameters; the CPU's plain versions only) keeps
+f64 where the others keep f32, as the JAX package's at_least_f32 does: the
+f64 trajectory tests' path.
 
 `ViT(fuse_qkv=False)` takes the JAX block's unfused branch instead (as the
 JAX `ViT(fuse_qkv=False)` does): x + attn(dtype(LN_f32(x))) with the qkv
@@ -34,6 +37,7 @@ from torch import nn
 
 from artgraph_tpu_torch.ops import (fused_attention, fused_block_attention,
                                     fused_block_mlp, fused_qkv_attention)
+from artgraph_tpu_torch.ops.attention import at_least_f32
 
 
 class PatchEmbed(nn.Module):
@@ -97,7 +101,7 @@ class Block(nn.Module):
 
     @staticmethod
     def _norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-        return F.layer_norm(x.to(torch.float32), ln.normalized_shape,
+        return F.layer_norm(x.to(at_least_f32(x.dtype)), ln.normalized_shape,
                             ln.weight, ln.bias, ln.eps).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -141,14 +145,20 @@ class ViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)                 # [B, patches, C]
         cls = self.cls_token.expand(B, -1, -1).to(self.dtype)
         x = torch.cat([cls, x], dim=1)
-        x = (x.to(torch.float32) + self.pos_embed).to(self.dtype)
+        x = (x.to(at_least_f32(self.dtype)) + self.pos_embed).to(self.dtype)
         for blk in self.blocks:
             x = blk(x)
         # LayerNorm is per token, so normalizing only the pooled CLS token
         # gives the CLS row of the normalized sequence
-        return F.layer_norm(x[:, 0].to(torch.float32),
+        return F.layer_norm(x[:, 0].to(at_least_f32(self.dtype)),
                             self.norm.normalized_shape, self.norm.weight,
                             self.norm.bias, self.norm.eps)
+
+
+def vit_base_patch16_224(dtype: torch.dtype = torch.bfloat16) -> ViT:
+    """timm's vit_base_patch16_224 trunk (the JAX package's factory)."""
+    return ViT(patch_size=16, embed_dim=768, depth=12, num_heads=12,
+               mlp_ratio=4.0, dtype=dtype)
 
 
 def init_random_(module: nn.Module, generator: torch.Generator

@@ -86,13 +86,20 @@ NORM_BLOCKS, COLSUM_BLOCKS = 264, 528
 _F32 = torch.float32
 
 
+def at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    """f32, or wider if the compute dtype already is: the plain versions'
+    accumulation type, f64 for f64 inputs (the f64 trajectory tests'
+    path), as the JAX package's at_least_f32."""
+    return torch.promote_types(dtype, _F32)
+
+
 # --- plain PyTorch pieces, shared with ops/mlp.py ---------------------------
 
 def ln_stats_plain(x: torch.Tensor, eps: float
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(xhat, rstd) in f32: flax-style statistics, uncentered variance
-    clipped at 0 (`_ln_rows`)."""
-    xf = x.to(_F32)
+    """(xhat, rstd) in f32 (f64 for f64 x): flax-style statistics,
+    uncentered variance clipped at 0 (`_ln_rows`)."""
+    xf = x.to(at_least_f32(x.dtype))
     mean = xf.mean(-1, keepdim=True)
     mean2 = (xf * xf).mean(-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
@@ -105,7 +112,7 @@ def ln_rows_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """LayerNorm in f32 cast back to x.dtype: the `y = ...` line of the
     Pallas kernels."""
     xhat, _ = ln_stats_plain(x, eps)
-    return (xhat * gamma.to(_F32) + beta.to(_F32)).to(x.dtype)
+    return (xhat * gamma.to(xhat.dtype) + beta.to(xhat.dtype)).to(x.dtype)
 
 
 def ln_bwd_plain(x, gamma, dy, dres, eps: float):
@@ -114,14 +121,14 @@ def ln_bwd_plain(x, gamma, dy, dres, eps: float):
     f32, dx rounded once after adding dres in f32; db_res, the f32 column
     sums of dres, is the gradient of the residual branch's bias."""
     xhat, rstd = ln_stats_plain(x, eps)
-    dyg = dy * gamma.to(_F32)
+    dyg = dy * gamma.to(xhat.dtype)
     mean_dyg = dyg.mean(-1, keepdim=True)
     mean_dyg_xhat = (dyg * xhat).mean(-1, keepdim=True)
     dx_ln = rstd * (dyg - mean_dyg - xhat * mean_dyg_xhat)
-    dx = (dres.to(_F32) + dx_ln).to(x.dtype)
+    dx = (dres.to(xhat.dtype) + dx_ln).to(x.dtype)
     rows = tuple(range(dy.dim() - 1))
     return (dx, (dy * xhat).sum(rows), dy.sum(rows),
-            dres.to(_F32).sum(rows))
+            dres.to(xhat.dtype).sum(rows))
 
 
 def linear_plain(a: torch.Tensor, w: torch.Tensor,
@@ -131,9 +138,9 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor,
     The f32 upcast before the product is exact for bf16 operands, so this is
     a bf16 product with f32 accumulation, as the Pallas kernel's jnp.dot.
     """
-    dt = a.dtype
-    acc = a.to(_F32) @ w.to(dt).to(_F32).t()
-    return (acc + b.to(dt).to(_F32)).to(dt)
+    dt, acc_t = a.dtype, at_least_f32(a.dtype)
+    acc = a.to(acc_t) @ w.to(dt).to(acc_t).t()
+    return (acc + b.to(dt).to(acc_t)).to(dt)
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
@@ -162,15 +169,17 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
 
 
 def weight_f32(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """The weight as the kernels read it (rounded to dt), in f32."""
-    return w.to(dt).to(_F32)
+    """The weight as the kernels read it (rounded to dt), in f32 (f64 for
+    dt f64)."""
+    return w.to(dt).to(at_least_f32(dt))
 
 
 def rows_t_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """f32 a^T . b over all leading (row) dimensions: a weight gradient in
-    [out, in] layout."""
-    return a.reshape(-1, a.shape[-1]).to(_F32).t() @ \
-        b.reshape(-1, b.shape[-1]).to(_F32)
+    """f32 (f64 for f64 a) a^T . b over all leading (row) dimensions: a
+    weight gradient in [out, in] layout."""
+    acc_t = at_least_f32(a.dtype)
+    return a.reshape(-1, a.shape[-1]).to(acc_t).t() @ \
+        b.reshape(-1, b.shape[-1]).to(acc_t)
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -181,8 +190,9 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _exp_scores(q: torch.Tensor, k: torch.Tensor, scale: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(e, l) of q, k [..., N, D]: s = f32(q . k^T) * scale, e = exp(s -
-    rowmax(s)) and its row sums l, all f32."""
-    s = (q.to(_F32) @ k.to(_F32).transpose(-1, -2)) * scale
+    rowmax(s)) and its row sums l, all f32 (f64 for f64 q)."""
+    acc_t = at_least_f32(q.dtype)
+    s = (q.to(acc_t) @ k.to(acc_t).transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(-1, keepdim=True))
     return e, e.sum(-1, keepdim=True)
 
@@ -192,7 +202,7 @@ def core_plain(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     dtype: (p, o) with p = dtype(e / l) and o = f32(p . v), unrounded."""
     e, l = _exp_scores(q, k, scale)
     p = (e / l).to(q.dtype)
-    return p, p.to(_F32) @ v.to(_F32)
+    return p, p.to(e.dtype) @ v.to(e.dtype)
 
 
 def core_bwd_plain(q, k, v, p, o, do, scale: float):
@@ -201,11 +211,12 @@ def core_bwd_plain(q, k, v, p, o, do, scale: float):
     d_row reads (the f32 o of `core_plain` on the block path, the saved
     output on the fused_attention path); inputs [..., N, D], rounded at
     q.dtype."""
-    qf, kf, vf, pf, dof = (t.to(_F32) for t in (q, k, v, p, do))
+    acc_t = at_least_f32(q.dtype)
+    qf, kf, vf, pf, dof = (t.to(acc_t) for t in (q, k, v, p, do))
     dv = pf.transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
-    d_row = (dof * o.to(_F32)).sum(-1, keepdim=True)
-    ds = (pf * (dp - d_row) * scale).to(q.dtype).to(_F32)
+    d_row = (dof * o.to(acc_t)).sum(-1, keepdim=True)
+    ds = (pf * (dp - d_row) * scale).to(q.dtype).to(acc_t)
     return ds @ kf, ds.transpose(-1, -2) @ qf, dv
 
 
@@ -241,16 +252,17 @@ def block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, dout,
                                               num_heads, eps)
     do = dout.to(dt)
     # proj backward: dp == do
-    do_attn = (do.to(_F32) @ weight_f32(w_proj, dt)).to(dt)
+    acc_t = at_least_f32(dt)
+    do_attn = (do.to(acc_t) @ weight_f32(w_proj, dt)).to(dt)
     grads = core_bwd_plain(q, k, v, p, o, _heads(do_attn, num_heads),
                            D ** -0.5)
     # [3, B, H, N, D] -> [B, N, 3, H, D]: the qkv column order
     dqkv = torch.stack(grads).to(dt).permute(1, 3, 0, 2, 4) \
         .reshape(B, N, 3 * C)
-    dy = dqkv.to(_F32) @ weight_f32(w_qkv, dt)          # [B, N, C] f32
+    dy = dqkv.to(acc_t) @ weight_f32(w_qkv, dt)         # [B, N, C] f32
     dx, dgamma, dbeta, db_proj = ln_bwd_plain(x, gamma, dy, do, eps)
     return (dx, dgamma, dbeta, rows_t_dot(dqkv, y),
-            dqkv.to(_F32).sum((0, 1)), rows_t_dot(do, attn), db_proj)
+            dqkv.to(acc_t).sum((0, 1)), rows_t_dot(do, attn), db_proj)
 
 
 # --- CUDA launches, shared with ops/mlp.py ----------------------------------
@@ -552,10 +564,10 @@ def fused_attention_plain(q, k, v, scale: float | None = None
     `_fwd_kernel` line by line: q, k, v [B, N, H, D] in any float dtype,
     o = dtype(f32(dtype(e) . v) / l), divided after the product. Returns
     [B, N, H, D] in q.dtype."""
-    dt = q.dtype
-    heads = lambda t: t.to(_F32).transpose(1, 2)        # [B, H, N, D]
+    dt, acc_t = q.dtype, at_least_f32(q.dtype)
+    heads = lambda t: t.to(acc_t).transpose(1, 2)       # [B, H, N, D]
     e, l = _exp_scores(heads(q), heads(k), _scale(q.shape[-1], scale))
-    o = (e.to(dt).to(_F32) @ heads(v)) / l
+    o = (e.to(dt).to(acc_t) @ heads(v)) / l
     return o.to(dt).transpose(1, 2).contiguous()
 
 
@@ -709,8 +721,9 @@ def fused_qkv_attention_bwd_plain(x, w_qkv, b_qkv, out, dout,
     grads = fused_attention_bwd_plain(*qkv.unbind(2), out.reshape(heads),
                                       dout.reshape(heads), scale)
     dqkv = torch.stack(grads, 2).reshape(B, N, 3 * C)   # qkv column order
-    dx = (dqkv.to(_F32) @ weight_f32(w_qkv, dt)).to(dt)
-    return dx, rows_t_dot(dqkv, x), dqkv.to(_F32).sum((0, 1))
+    acc_t = at_least_f32(dt)
+    dx = (dqkv.to(acc_t) @ weight_f32(w_qkv, dt)).to(dt)
+    return dx, rows_t_dot(dqkv, x), dqkv.to(acc_t).sum((0, 1))
 
 
 def _check_qkv(x, w_qkv, b_qkv, num_heads: int) -> None:

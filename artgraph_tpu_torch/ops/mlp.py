@@ -34,29 +34,29 @@ import torch
 
 from artgraph_tpu_torch.ops.attention import (
     EPI_BIAS_GELU, EPI_BIAS_GELU_AUX, EPI_BIAS_RESIDUAL, EPI_DGELU, EPI_F32,
-    LAYOUT_NN, LAYOUT_TN, bf16_contiguous, check_block_operands, colsum_cuda,
-    gemm_cuda, gemm_nt_cuda, layernorm_bwd_cuda, layernorm_cuda, linear_plain,
-    ln_bwd_plain, ln_rows_plain, rows_t_dot, weight_f32)
+    LAYOUT_NN, LAYOUT_TN, at_least_f32, bf16_contiguous, check_block_operands,
+    colsum_cuda, gemm_cuda, gemm_nt_cuda, layernorm_bwd_cuda, layernorm_cuda,
+    linear_plain, ln_bwd_plain, ln_rows_plain, rows_t_dot, weight_f32)
 
 # Launches of the CUDA forward / backward by `fused_block_mlp` since the last
 # reset (one per call of the block, however many kernels it runs).
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 
-_F32 = torch.float32
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
 
 def gelu_plain(h: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU in f32, in the kernel's order of operations."""
-    h = h.to(_F32)
+    """Exact (erf) GELU in f32 (f64 for f64 h), in the kernel's order of
+    operations."""
+    h = h.to(at_least_f32(h.dtype))
     return 0.5 * h * (1.0 + torch.erf(h * _INV_SQRT2))
 
 
 def gelu_grad_plain(h: torch.Tensor) -> torch.Tensor:
-    """d gelu(h) / dh in f32: Phi(h) + h * phi(h)."""
-    h = h.to(_F32)
+    """d gelu(h) / dh in f32 (f64 for f64 h): Phi(h) + h * phi(h)."""
+    h = h.to(at_least_f32(h.dtype))
     cdf = 0.5 * (1.0 + torch.erf(h * _INV_SQRT2))
     pdf = _INV_SQRT_2PI * torch.exp(-0.5 * h * h)
     return cdf + h * pdf
@@ -81,12 +81,13 @@ def block_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dout,
     act = gelu_plain(h).to(dt)
     do = dout.to(dt)
     # fc2 backward: block out = x + fc2(act) => d(fc2 out) == do
-    dact = do.to(_F32) @ weight_f32(w2, dt)
+    acc_t = at_least_f32(dt)
+    dact = do.to(acc_t) @ weight_f32(w2, dt)
     dh = (dact * gelu_grad_plain(h)).to(dt)
-    dy = dh.to(_F32) @ weight_f32(w1, dt)               # [B, N, C] f32
+    dy = dh.to(acc_t) @ weight_f32(w1, dt)              # [B, N, C] f32
     dx, dgamma, dbeta, db2 = ln_bwd_plain(x, gamma, dy, do, eps)
     rows = tuple(range(x.dim() - 1))
-    return (dx, dgamma, dbeta, rows_t_dot(dh, y), dh.to(_F32).sum(rows),
+    return (dx, dgamma, dbeta, rows_t_dot(dh, y), dh.to(acc_t).sum(rows),
             rows_t_dot(do, act), db2)
 
 

@@ -6,8 +6,10 @@ and the standalone Attention module, the training of the fusion model
 NewMultiModalMultiTaskViT, the four pipeline stages through their CLIs, the
 ContextNet and MultiModal context models' training, the three baseline
 CLIs, the Trainer's graphed step and its device-resident epochs, the
-trainers' run control (--resume, --init_checkpoint, -t) and data
-parallelism (--data_parallel, the edge-sharded GNN) once on one NVIDIA
+trainers' run control (--resume, --init_checkpoint, -t), data
+parallelism (--data_parallel, the edge-sharded GNN), the bf16 policy's
+drift from f32 over ten steps, the loaders' JPEG decode rate and the GNN
+variants (HeteroSGNN's skip, HeteroMGNN, HomoSGNN) once on one NVIDIA
 GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
@@ -317,6 +319,44 @@ sum's device time and launches a step.
               cli.train_gnn_embeddings with --data_parallel 1 on cuda
               (one NCCL rank in a process of its own): the result, the
               checkpoint and the embeddings; --data_parallel 2 refused.
+ 28. policy drift  ViTSingleTask(4, 0.4) ViT-B/16 and ResnetSingleTask(4,
+              0.4) ResNet50 (gate closed and open) at batch 32: DRIFT_STEPS
+              Adam(3e-4) steps of the production bf16 path (the kernels,
+              graphed one-batch train_epochs) against the same model in f32
+              through the plain versions on the card (eager, TF32 off),
+              from one init (torch's under SEED) on the same 224 px noise
+              batches with random labels over 4 classes (seed 42): each
+              step's loss within DRIFT_LOSS_REL relative and the final
+              parameters within relative L2 DRIFT_PARAM_REL, the bounds of
+              tests/test_bf16_policy.py; the bf16 runs' launches exact.
+ 29. decode   the native JPEG decode runtime (artgraph_tpu_torch/runtime,
+              g++ and libjpeg at first use) on this host: built, or why
+              not; where built, its decode and resize against PIL on 32
+              images (max |diff|, pixels that differ). Then the port's
+              DataLoader at its default DECODE_WORKERS workers over
+              DECODE_IMAGES seeded structured 1024x768 q90 JPEGs to 224 px
+              uint8, the native path and PIL's in turns (PIL alone where
+              the runtime is unavailable): img/s each with os.cpu_count(),
+              beside phase 23's graphed ViT-B/16 and ResNet50 img/s.
+ 30. gnn variants  on phase 9's 8M-edge graph: HeteroSGNN(skip=True,
+              bn=False) GATConv (hidden 128, out 32, 2 layers, dropout 0),
+              GNN_VARIANT_STEPS Adam(0.01) steps on the CSR kernels (rows
+              6, 8, 9: their launches exact) against the same model and
+              weights on the index_add path (no CSR launch): each step's
+              loss and the first step's gradient within GNN_GRAD_REL_L2
+              (the final parameters' distance printed: Adam's sign-like
+              update amplifies the paths' summation order); ms a step and
+              edges/s each. HeteroMGNN (3
+              GAT heads, hidden 128, 2 layers, BN; outputs as wide as the
+              graph has artists, 32 styles, 18 genres) forward and
+              backward on the index_add path, as the JAX module runs it,
+              on the same schema cut to the first of MGNN_SCALES (artists,
+              edges a relation) whose printed memory reckoning fits
+              MEMORY_BUDGET; and
+              HomoSGNN at the JAX defaults (GCNConv, hidden 16, out 300, 1
+              layer) on a seeded homogeneous graph of HOMO_NODES nodes and
+              HOMO_EDGES edges: finite outputs and gradients, ms and
+              edges/s.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4848,6 +4888,472 @@ def data_parallel_phase() -> dict:
     return total
 
 
+# phase 28: ten Adam steps of the production bf16 path against f32
+DRIFT_STEPS, DRIFT_CLASSES = 10, 4
+DRIFT_LOSS_REL, DRIFT_PARAM_REL = 0.2, 0.1   # tests/test_bf16_policy.py:22-23
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """The block ops' and the normalize's plain PyTorch versions on CUDA
+    tensors inside (any dtype): phase 28's f32 reference path. The
+    counters still count these calls; the phase zeroes them after."""
+    from artgraph_tpu_torch.ops import attention, mlp
+    from artgraph_tpu_torch.ops.preprocess import normalize_images_plain
+    from artgraph_tpu_torch.train import trainer
+
+    patches = (
+        (attention, "block_attention_cuda", attention.block_attention_plain),
+        (attention, "block_attention_bwd_cuda",
+         lambda x, g, b, wq, bq, wp, bp, dout, nh, eps:
+         attention.block_attention_bwd_plain(x, g, b, wq, bq, wp, dout, nh,
+                                             eps)),
+        (mlp, "block_mlp_cuda", mlp.block_mlp_plain),
+        (mlp, "block_mlp_bwd_cuda",
+         lambda x, g, b, w1, b1, w2, b2, dout, eps:
+         mlp.block_mlp_bwd_plain(x, g, b, w1, b1, w2, dout, eps)),
+        (trainer, "normalize_images", normalize_images_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _drift_run(make, state: dict, batches, transform: str,
+               dtype: torch.dtype, graphed: bool) -> tuple:
+    """DRIFT_STEPS Adam(3e-4) steps of make(dtype) from `state` on cuda,
+    one batch each: graphed one-batch train_epochs, or eager train_steps.
+    (losses, parameters in f64)."""
+    from artgraph_tpu_torch.cli._common import single_task_loss
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    model = make(dtype)
+    model.load_state_dict(state, strict=True)
+    trainer = Trainer(model, adam(3e-4), single_task_loss(None, "cuda"),
+                      transform_type=transform, device="cuda", seed=SEED)
+    model.train()
+    losses = []
+    for batch in batches:
+        if graphed:
+            losses.append(trainer.train_epoch([batch])["loss"])
+        else:
+            losses.append(trainer.train_step(trainer.to_device(batch))[0]
+                          .item())
+    params = {k: p.detach().double() for k, p in model.named_parameters()}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return np.asarray(losses), params
+
+
+def policy_drift_phase() -> dict:
+    """Phase 28: the production bf16 path (kernels, graphed train_epoch)
+    against the same model in f32 through the plain versions (TF32 off,
+    eager) over DRIFT_STEPS Adam steps from one init on the same batches,
+    ViT-B/16 and ResNet50 (gate closed and open), held to
+    tests/test_bf16_policy.py's bounds. Returns the bf16 runs' launches."""
+    from artgraph_tpu_torch.models import ResnetSingleTask, ViTSingleTask
+
+    rng = np.random.default_rng(42)
+    batches = [(rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8),
+                rng.integers(0, DRIFT_CLASSES, B).astype(np.int32),
+                np.ones(B, np.float32)) for _ in range(DRIFT_STEPS)]
+    vit = lambda dt: ViTSingleTask(DRIFT_CLASSES, 0.4, dtype=dt)
+    resnet = lambda dt: ResnetSingleTask(DRIFT_CLASSES, 0.4, dtype=dt)
+    cases = (("ViTSingleTask ViT-B/16", vit, "vit", False, VIT_STEP_LAUNCHES),
+             ("ResnetSingleTask ResNet50 gate closed", resnet, "resnet",
+              False, {"normalize_images": 1}),
+             ("ResnetSingleTask ResNet50 gate open", resnet, "resnet", True,
+              RESNET_STEP_LAUNCHES))
+    total: dict = {}
+    refs: dict = {}
+    for label, make, transform, gate, per_step in cases:
+        t0 = time.perf_counter()
+        torch.manual_seed(SEED)
+        state = make(torch.float32).state_dict()
+        if make not in refs:
+            with _plain_on_card():
+                refs[make] = _drift_run(make, state, batches, transform,
+                                        torch.float32, graphed=False)
+        losses_f32, params_f32 = refs[make]
+        _zero_counts()
+        with contextlib.ExitStack() as stack:
+            if gate:
+                stack.enter_context(_conv_bn_gate(True))
+            losses, params = _drift_run(make, state, batches, transform,
+                                        torch.bfloat16, graphed=True)
+        counts = _all_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update({k: n * DRIFT_STEPS for k, n in per_step.items()})
+        if counts != expect:
+            raise AssertionError(f"policy drift: {label}: launch counts "
+                                 f"{counts}, expected {expect}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        rel = np.abs(losses - losses_f32) / np.maximum(losses_f32, 1.0)
+        num = sum(float((params[k] - v).square().sum())
+                  for k, v in params_f32.items())
+        den = sum(float(v.square().sum()) for v in params_f32.values())
+        prel = (num / den) ** 0.5
+        print(f"policy drift: {label}, batch {B}, {DRIFT_STEPS} Adam(3e-4) "
+              f"steps, dropout 0.4, from one init on the same noise batches: "
+              f"bf16 kernels (graphed train_epoch) against f32 plain "
+              f"(eager, TF32 off): max step-loss rel drift {rel.max():.4g} "
+              f"(bound {DRIFT_LOSS_REL}), params rel L2 {prel:.4g} (bound "
+              f"{DRIFT_PARAM_REL}); bf16 losses "
+              f"{[round(v, 4) for v in losses.tolist()]}, f32 "
+              f"{[round(v, 4) for v in losses_f32.tolist()]}; launches "
+              f"{ {k: n for k, n in counts.items() if n} } "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        for run in (losses, losses_f32):
+            if not (np.isfinite(run).all() and (run < 10.0).all()):
+                raise AssertionError(f"policy drift: {label}: losses {run}")
+        if not (rel.max() < DRIFT_LOSS_REL and prel < DRIFT_PARAM_REL):
+            raise AssertionError(f"policy drift: {label}: step-loss drift "
+                                 f"{rel.max()} or params {prel} past the "
+                                 f"bounds")
+    return total
+
+
+# phase 29: the loaders' decode rate on the host
+DECODE_IMAGES, DECODE_W, DECODE_H, DECODE_QUALITY = 512, 1024, 768, 90
+DECODE_WORKERS = 6                   # the DataLoader's default
+
+
+def _structured_jpeg(path: str, seed: int) -> None:
+    """A 1024x768 JPEG at q90 with structure a photograph has: smooth
+    per-channel gradients and waves, a few flat rectangles, mild noise."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    ys = np.arange(DECODE_H, dtype=np.float32)[:, None, None]
+    xs = np.arange(DECODE_W, dtype=np.float32)[None, :, None]
+    f = rng.uniform(0.002, 0.03, (2, 3)).astype(np.float32)
+    ph = rng.uniform(0, 6.28, (2, 3)).astype(np.float32)
+    img = (128 + 60 * np.sin(ys * f[0] + ph[0]) + 60 * np.cos(xs * f[1]
+                                                              + ph[1]))
+    for _ in range(6):
+        y0, x0 = rng.integers(0, DECODE_H - 64), rng.integers(0, DECODE_W - 64)
+        h, w = rng.integers(32, 256, 2)
+        img[y0:y0 + h, x0:x0 + w] = rng.uniform(0, 255, 3)
+    img = img + rng.normal(0, 4, (DECODE_H, DECODE_W, 3)).astype(np.float32)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        path, quality=DECODE_QUALITY)
+
+
+def decode_phase(turns: dict) -> None:
+    """Phase 29: the native decode runtime on this host (built or not, and
+    why), its exactness against PIL there, and the port's DataLoader's
+    decode rate over DECODE_IMAGES seeded JPEGs at DECODE_WORKERS workers,
+    the native path and PIL's in turns, beside phase 23's graphed img/s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pandas as pd
+
+    from artgraph_tpu_torch.data import transforms
+    from artgraph_tpu_torch.data.datasets import ArtGraphSingleTask
+    from artgraph_tpu_torch.data.loader import DataLoader
+    from artgraph_tpu_torch.runtime import image_cpp
+
+    t0 = time.perf_counter()
+    available = image_cpp.native_available()
+    if available:
+        lib = image_cpp.LIBRARY
+        print(f"decode: native: built ({lib.path().relative_to(REPO)}, "
+              f"{lib.build_seconds:.1f} s)", flush=True)
+    else:
+        print(f"decode: native: unavailable: {image_cpp.native_reason()}",
+              flush=True)
+    cpus = os.cpu_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        names = [f"{i}.jpg" for i in range(DECODE_IMAGES)]
+        with ThreadPoolExecutor(cpus) as ex:
+            list(ex.map(lambda i: _structured_jpeg(
+                os.path.join(tmp, names[i]), SEED + i), range(DECODE_IMAGES)))
+        made_s = time.perf_counter() - t0
+        if available:
+            diffs = [transforms.decode_resize_pil(os.path.join(tmp, n))
+                     .astype(np.int16)
+                     - image_cpp.decode_resize_native(os.path.join(tmp, n),
+                                                      224)
+                     for n in names[:32]]
+            worst = max(int(np.abs(d).max()) for d in diffs)
+            differ = sum(int((d != 0).any(-1).sum()) for d in diffs)
+            print(f"decode: native against PIL on 32 of the JPEGs: max "
+                  f"|diff| {worst}, {differ} of {32 * 224 * 224} pixels "
+                  f"differ", flush=True)
+        ds = ArtGraphSingleTask(tmp, pd.DataFrame(
+            {"image": names, "style": np.zeros(DECODE_IMAGES, np.int64)}))
+        native_fn = transforms.decode_resize_native
+
+        def epoch(native: bool) -> float:
+            transforms.decode_resize_native = (
+                native_fn if native else lambda path, size: None)
+            try:
+                loader = DataLoader(ds, B, num_workers=DECODE_WORKERS)
+                start = time.perf_counter()
+                n = sum(int(b[-1].sum()) for b in loader)
+                seconds = time.perf_counter() - start
+            finally:
+                transforms.decode_resize_native = native_fn
+            if n != DECODE_IMAGES:
+                raise AssertionError(f"decode: {n} images decoded")
+            return DECODE_IMAGES / seconds
+
+        order = (False, True, True, False) if available else (False, False)
+        rates: dict = {False: [], True: []}
+        for native in order:
+            rates[native].append(epoch(native))
+    fmt = lambda r: ", ".join(f"{v:.1f}" for v in r)
+    pil = float(np.median(rates[False]))
+    line = (f"decode: DataLoader, {DECODE_IMAGES} JPEGs {DECODE_W}x"
+            f"{DECODE_H} q{DECODE_QUALITY} -> 224x224 uint8, "
+            f"{DECODE_WORKERS} workers, os.cpu_count() {cpus}, in turns: "
+            f"PIL {fmt(rates[False])} img/s")
+    line += (f"; native {fmt(rates[True])} img/s "
+             f"({float(np.median(rates[True])) / pil:.3f}x PIL)"
+             if available else "; native not measured (unavailable)")
+    print(f"{line} (images made in {made_s:.1f} s)", flush=True)
+    best = max(pil, float(np.median(rates[True]))) if available else pil
+    for label, t in turns.items():
+        if "ViTSingleTask" in label or "gate on (phase 13)" in label:
+            need = t["graphed"]["img_s"]
+            print(f"decode: against phase 23's graphed {label}: "
+                  f"{need:.1f} img/s; the host decode "
+                  + ("can" if best >= need else "cannot")
+                  + f" feed it ({best / need:.3f}x)", flush=True)
+
+
+# phase 30: the GNN variants on the benchmark graph
+GNN_VARIANT_STEPS = 3
+# HeteroMGNN's graph: the benchmark's, or the first cut of scale (artists,
+# edges a relation) whose reckoning fits MEMORY_BUDGET; the artist head is
+# as wide as the graph has artists
+MGNN_SCALES = ((5_000, 1_000_000), (5_000, 250_000), (1_000, 500_000),
+               (1_000, 250_000), (1_000, 125_000))
+HOMO_NODES, HOMO_EDGES = 100_000, 8_000_000
+MEMORY_BUDGET = 60e9          # bytes phase 30's reckoning allows itself
+
+
+def _mgnn_bytes(artists: int, edges_per_rel: int, n_rel: int) -> float:
+    """HeteroMGNN's f32 tensors kept for the backward, and their
+    gradients: per head, conv and relation, the gathered messages
+    [E, width] and two node tensors (projection, output) of the artworks'
+    rows, the largest type, which every relation touches."""
+    elems = 0
+    for width in (artists, 32, 18):               # the three heads' outputs
+        for w in (128, 128, width):
+            elems += n_rel * (edges_per_rel + 2 * GNN_ARTWORKS) * w
+    return 2 * 4 * elems
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return _flat({n: p.grad for n, p in model.named_parameters()
+                  if p.grad is not None})
+
+
+def _sgnn_run(graph, x, edges, csr, y, state: dict) -> dict:
+    """GNN_VARIANT_STEPS Adam(0.01) steps of HeteroSGNN(skip=True,
+    bn=False) from `state`, on the CSR kernels (csr given) or the
+    index_add path: the losses, the first step's gradient, the final
+    parameters and ms a step."""
+    from artgraph_tpu_torch.models.gnn import HeteroSGNN, feature_dims
+    from artgraph_tpu_torch.train import adam
+
+    model = HeteroSGNN(graph.metadata, feature_dims(graph.node_features),
+                       operator="GATConv", hidden_channels=128,
+                       out_channels=32, n_layers=2, dropout=0.0, bn=False,
+                       skip=True).cuda().train()
+    model.load_state_dict(state, strict=True)
+    opt = adam(0.01)(model.parameters())
+    out = {"losses": [], "ms": []}
+    _gnn_loss(model, x, edges, csr, y)[0].backward()   # warm-up, no step
+    model.zero_grad(set_to_none=True)
+    for step in range(GNN_VARIANT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = _gnn_loss(model, x, edges, csr, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if step == 0:
+            out["grad"] = _flat_grads(model)
+        opt.step()
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss.item())
+    out["params"] = torch.cat([p.detach().reshape(-1).double()
+                               for p in model.parameters()])
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fwd_bwd_ms(run, calls: int = 3) -> tuple:
+    """(median ms of `calls` forward + backward calls of run() after one
+    warm-up, the last call's loss)."""
+    loss = run()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), loss
+
+
+def gnn_variants_phase() -> dict:
+    """Phase 30: HeteroSGNN(skip=True, bn=False) on the CSR kernels against
+    the same model on the index_add path (GNN_VARIANT_STEPS Adam steps on
+    the 8M-edge benchmark graph), HeteroMGNN's forward and backward (index_
+    add, as the JAX module runs it), HomoSGNN's (the JAX defaults: GCNConv,
+    hidden 16, out 300) on a homogeneous graph of HOMO_NODES nodes and
+    HOMO_EDGES edges. Returns the CSR run's launches."""
+    from artgraph_tpu_torch.models.gnn import (HeteroMGNN, HeteroSGNN,
+                                               HomoSGNN, feature_dims)
+    from artgraph_tpu_torch.train import nll_loss
+
+    t0 = time.perf_counter()
+    graph = _bench_graph(GNN_ARTWORKS, GNN_EDGES, 5_000, 10_000, SEED)
+    x, edges, csr, y = _graph_on(graph, "cuda")
+    n_edges = sum(e.shape[1] for e in graph.edges.values())
+    torch.manual_seed(SEED + 7)
+    state = HeteroSGNN(graph.metadata, feature_dims(graph.node_features),
+                       operator="GATConv", hidden_channels=128,
+                       out_channels=32, n_layers=2, bn=False,
+                       skip=True).state_dict()
+    _zero_counts()
+    kern = _sgnn_run(graph, x, edges, csr, y, state)
+    counts = _read_counts(_csr_counters)
+    n_rel = len(graph.edges)
+    into_artwork = sum(t == "artwork" for _, _, t in graph.edges)
+    passes = GNN_VARIANT_STEPS + 1              # the steps and the warm-up
+    bwd = (2 * n_rel + into_artwork) * passes
+    expect = {"csr_segment_sum": bwd, "csr_weighted_segment_sum": 0,
+              "csr_attention_aggregate": 3 * n_rel * passes,
+              "csr_scalar_segment_sum": bwd}
+    if counts != expect:
+        raise AssertionError(f"gnn variants: CSR launches {counts}, "
+                             f"expected {expect}")
+    _zero_counts()
+    plain = _sgnn_run(graph, x, edges, None, y, state)
+    if any(_read_counts(_csr_counters).values()):
+        raise AssertionError("gnn variants: the index_add path launched a "
+                             "CSR kernel")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(kern["losses"], plain["losses"]))
+    grad_rel = _rel_l2(kern["grad"], plain["grad"])
+    param_rel = _rel_l2(kern["params"], plain["params"])
+    for label, run in (("CSR kernels", kern), ("index_add", plain)):
+        ms = float(np.median(run["ms"]))
+        print(f"gnn variants: HeteroSGNN(skip=True, bn=False) GATConv "
+              f"hidden 128, out 32, 2 layers, adam(0.01), {label}: "
+              f"{GNN_VARIANT_STEPS} steps, {ms:.3f} ms/step (median), "
+              f"{n_edges * 1e3 / ms:.4g} edges/s; losses "
+              f"{[round(v, 5) for v in run['losses']]}", flush=True)
+    # the parameters after Adam steps are printed, not held: Adam's
+    # sign-like update turns the paths' ~1e-6 gradient differences into
+    # full steps of the elements whose gradients sit near its eps
+    print(f"gnn variants: CSR against index_add: each step's loss rel "
+          f"{loss_rel:.3g}, the first step's gradient rel L2 {grad_rel:.3g} "
+          f"(bound {GNN_GRAD_REL_L2} each); the final parameters rel L2 "
+          f"{param_rel:.3g}; CSR launches {counts}", flush=True)
+    if not (loss_rel <= GNN_GRAD_REL_L2 and grad_rel <= GNN_GRAD_REL_L2
+            and np.isfinite(kern["losses"]).all()):
+        raise AssertionError("gnn variants: the CSR path disagrees with the "
+                             "index_add path")
+    del x, edges, csr, y
+    torch.cuda.empty_cache()
+
+    artists, edges_m = next(
+        (a, e) for a, e in MGNN_SCALES
+        if _mgnn_bytes(a, e, n_rel) <= MEMORY_BUDGET)
+    out_ch = {"artist": artists, "style": 32, "genre": 18}
+    print(f"gnn variants: HeteroMGNN memory reckoning (f32 kept for the "
+          f"backward and its gradients): "
+          + ", ".join(f"{a} artists x {e} edges a relation "
+                      f"{_mgnn_bytes(a, e, n_rel) / 1e9:.1f} GB"
+                      for a, e in MGNN_SCALES[:MGNN_SCALES.index(
+                          (artists, edges_m)) + 1])
+          + f" against a budget of {MEMORY_BUDGET / 1e9:.0f} GB of the "
+          f"card's 80: run at {artists} artists (the artist head "
+          f"{artists} wide), {edges_m} edges a relation", flush=True)
+    graph = _bench_graph(GNN_ARTWORKS, edges_m, artists, 10_000, SEED)
+    x, edges, _, y = _graph_on(graph, "cuda")
+    m_edges = sum(e.shape[1] for e in graph.edges.values())
+    torch.manual_seed(SEED + 8)
+    model = HeteroMGNN(graph.metadata, feature_dims(graph.node_features),
+                       out_channels=out_ch, dropout=0.0).cuda().train()
+
+    def mgnn():
+        outs = model(x, edges)
+        loss = sum(nll_loss(o[1][0]["artwork"], y % out_ch[task])
+                   for task, o in zip(HeteroMGNN.TASKS, outs))
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss.detach(), outs
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    ms, (loss, outs) = _fwd_bwd_ms(mgnn)
+    grads = _flat_grads(model)
+    if any(_read_counts(_csr_counters).values()) or not (
+            torch.isfinite(loss) and torch.isfinite(grads).all()
+            and all(o[1][0]["artwork"].shape == (GNN_ARTWORKS, out_ch[t])
+                    for t, o in zip(HeteroMGNN.TASKS, outs))):
+        raise AssertionError("gnn variants: HeteroMGNN's forward or "
+                             "backward is not finite, or a CSR kernel ran")
+    print(f"gnn variants: HeteroMGNN GATConv (3 heads, hidden 128, 2 "
+          f"layers, BN, outputs {out_ch}), index_add path, {m_edges} edges: "
+          f"forward + backward {ms:.3f} ms (median of 3), "
+          f"{m_edges * 1e3 / ms:.4g} edges/s; loss {loss.item():.4f}, "
+          f"gradients finite; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del model, outs, x, edges, y, grads
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 9)
+    hx = torch.from_numpy(rng.normal(size=(HOMO_NODES, 128))
+                          .astype(np.float32)).cuda()
+    hei = torch.from_numpy(rng.integers(0, HOMO_NODES, (2, HOMO_EDGES))).cuda()
+    hy = torch.from_numpy(rng.integers(0, 300, HOMO_NODES)).cuda()
+    torch.manual_seed(SEED + 9)
+    homo = HomoSGNN(128).cuda().train()
+
+    def homo_step():
+        emb, outs = homo(hx, hei)
+        loss = nll_loss(outs[0], hy)
+        homo.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss.detach(), emb, outs[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    ms, (loss, emb, soft) = _fwd_bwd_ms(homo_step)
+    row_sums = soft.float().exp().sum(1)
+    if any(_read_counts(_csr_counters).values()) or not (
+            torch.isfinite(loss) and torch.isfinite(_flat_grads(homo)).all()
+            and emb.shape == (HOMO_NODES, 16) and soft.shape == (HOMO_NODES,
+                                                                  300)
+            and torch.allclose(row_sums, torch.ones_like(row_sums),
+                               atol=1e-4)):
+        raise AssertionError("gnn variants: HomoSGNN's forward or backward "
+                             "is wrong")
+    print(f"gnn variants: HomoSGNN (GCNConv, hidden 16, out 300, 1 layer, "
+          f"BN) on {HOMO_NODES} nodes, {HOMO_EDGES} edges (+ self-loops): "
+          f"forward + backward {ms:.3f} ms (median of 3), "
+          f"{HOMO_EDGES * 1e3 / ms:.4g} edges/s; loss {loss.item():.4f}, "
+          f"gradients finite, log-softmax rows sum to 1; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({time.perf_counter() - t0:.1f} s for the phase)", flush=True)
+    del homo, hx, hei, hy, emb, soft
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -4889,13 +5395,18 @@ def main() -> int:
                       baseline_cli_phase):
             for k, n in phase().items():
                 launches[k] = launches.get(k, 0) + n
-        graph_train_phase()
+        turns = graph_train_phase()
         for k, n in resident_phase().items():
             launches[k] = launches.get(k, 0) + n
         capture_phase()
         for k, n in run_control_phase().items():
             launches[k] = launches.get(k, 0) + n
         for k, n in data_parallel_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in policy_drift_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        decode_phase(turns)
+        for k, n in gnn_variants_phase().items():
             launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)
