@@ -74,8 +74,8 @@ every rank. After the backward, `sync_grads` averages the gradients: each
 rank's backward through the psums holds N times its share of the global
 gradient (parallel/mesh.py), so the pmean is the global gradient, as in
 the JAX step. The optimizer then updates every rank's replica alike.
-Dropout draws from a generator seeded per rank (rank 0 keeps `seed`), the
-analog of JAX's fold_in(rng, axis_index). A ragged last batch runs its
+Dropout draws from a generator seeded per data coordinate (coordinate 0
+keeps `seed`), the analog of JAX's fold_in(rng, axis_index). A ragged last batch runs its
 masked step on every rank (the ragged test is global: the loaders give the
 global valid counts). Evaluation's metrics are global the same way; with
 collect_outputs each batch's outputs and labels are gathered from the ranks
@@ -83,6 +83,11 @@ in rank order, the global batch's order, and cut to its valid rows. Under
 NCCL the step is the graphed one, its collectives captured with it (the
 eager warm-up step runs them first); gloo collectives cannot be captured,
 so under gloo (the CPU, or ranks sharing one card) every step is eager.
+A `data` x `model` mesh (tensor parallelism: a model placed by
+parallel.mesh.shard_params with rules before the Trainer is built) runs the
+same step: each rank takes block d of every batch, the reductions above run
+over `data`, and the column-parallel Linears gather their outputs over
+`model` inside the forward.
 """
 from __future__ import annotations
 
@@ -165,6 +170,8 @@ class Trainer:
         self.mesh = mesh
         self.device = torch.device(device if mesh is None else mesh.device)
         if mesh is not None:
+            # by the data coordinate: the ranks of one `model` subgroup see
+            # the same rows and must draw the same dropout masks
             seed = seed + _RANK_SEED_STRIDE * mesh.rank
         if self.device.type == "cuda":
             if not torch.cuda.is_available():

@@ -8,9 +8,10 @@ ContextNet and MultiModal context models' training, the three baseline
 CLIs, the Trainer's graphed step and its device-resident epochs, the
 trainers' run control (--resume, --init_checkpoint, -t), data
 parallelism (--data_parallel, the edge-sharded GNN), the bf16 policy's
-drift from f32 over ten steps, the loaders' JPEG decode rate and the GNN
-variants (HeteroSGNN's skip, HeteroMGNN, HomoSGNN) once on one NVIDIA
-GPU.
+drift from f32 over ten steps, the loaders' JPEG decode rate, the GNN
+variants (HeteroSGNN's skip, HeteroMGNN, HomoSGNN), and the last modules
+(the driver entry, tensor parallelism, the six multi-rank dry runs, the
+notebook) once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -357,6 +358,29 @@ sum's device time and launches a step.
               layer) on a seeded homogeneous graph of HOMO_NODES nodes and
               HOMO_EDGES edges: finite outputs and gradients, ms and
               edges/s.
+ 31. last modules  (a) __graft_entry_torch__.entry() at full width
+              (NewMultiModalMultiTask, ResNet50 bf16, batch 8 of uint8 224
+              px): ENTRY_CALLS forwards timed by CUDA events, one normalize
+              launch each; the logits bit-identical with the plain
+              normalize on the card, and within E2E_REL_L2 of the f32
+              forward on the CPU. (b) tensor parallelism: the same model
+              seeded, dropout 0, the unit's gate open, over a data 2 x
+              model 2 mesh of four gloo ranks sharing cuda:0 (the heads
+              split over `model` by the entry's head_param_rules),
+              TP_STEPS SGD steps on global batches of TP_BATCH against the
+              one-process run on the card: each step's loss and the BN
+              statistics at phase 27's ResNet50 bounds, the gathered head
+              gradient and the trunk gradient at max(TRAIN_GRAD_REL_L2,
+              DP_FLOOR_FACTOR x the one process's bf16-vs-f32 distance);
+              gather_params' keys and shapes the one process's; the unit
+              and the normalize launched on every rank. (c)
+              dryrun_multichip(1): the six dry runs over one NCCL rank,
+              rows 1, 1b, 2, 2b, 3, 6, 8, 9, 10, 10b launched. (d) the port
+              notebook's code cells from the .ipynb JSON in one namespace
+              on cuda, ARGS set to resnet, batch 8, NB_EPOCHS epochs on
+              phase 8's synthetic tree with seeded embeddings: the train
+              loss falls, both test accuracies print, the checkpoint
+              exists.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4407,7 +4431,7 @@ def _dp_mesh_world1(tmp: str):
 
     device = torch.device("cuda", 0)
     distributed_init(f"file://{tmp}/rendezvous", 1, 0, "nccl", device)
-    return create_mesh(1, device)
+    return create_mesh(1, device=device)
 
 
 def _dp_trainer(spec, model, mesh=None):
@@ -5354,6 +5378,353 @@ def gnn_variants_phase() -> dict:
     return counts
 
 
+# phase 31: the port's last modules
+ENTRY_CALLS = 10                # (a): timed entry() forwards
+TP_BATCH = 16                   # (b): the global batch, 4 rows a rank
+TP_STEPS = 2                    # (b): SGD steps
+TP_LR = 0.01
+NB_EPOCHS = 2                   # (d): the notebook's epochs
+
+
+def _kernel_names() -> dict:
+    """`module.counter` (as dryrun_multichip returns them) -> kernel name."""
+    return {f"{mod.__name__}.{attr}": name
+            for counters in (_counters, _csr_counters, _conv_bn_counters,
+                             _mha_counters)
+            for name, (mod, attr) in counters().items()}
+
+
+def _entry_run() -> dict:
+    """(a): __graft_entry_torch__.entry() on the card at full width: warmed
+    up, then ENTRY_CALLS forwards timed by CUDA events with the counters
+    zeroed just before (one normalize launch each); the logits against the
+    same forward with the plain normalize on the card (bit-identical: the
+    normalize is bit-exact) and against the f32 forward on the CPU at phase
+    12's E2E_REL_L2."""
+    import __graft_entry_torch__ as graft
+    from artgraph_tpu_torch.models import NewMultiModalMultiTask
+    from artgraph_tpu_torch.ops import normalize_images_plain
+
+    forward, args = graft.entry()
+    model, images, emb_s, emb_g = args
+    forward(*args)
+    torch.cuda.synchronize()
+    _zero_counts()
+    ms = []
+    for _ in range(ENTRY_CALLS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        logits = forward(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    counts = {k: v for k, v in _all_counts().items() if v}
+    if counts != {"normalize_images": ENTRY_CALLS}:
+        raise AssertionError(f"last modules: entry(): launches {counts}")
+    with torch.no_grad():
+        plain = model(normalize_images_plain(images, "resnet"), emb_s, emb_g)
+    same = all(torch.equal(o, p) for o, p in zip(logits, plain))
+    cpu = NewMultiModalMultiTask(graft.EMB, graft.NUM_CLASSES, dropout=0.4,
+                                 dtype=torch.float32).eval()
+    cpu.load_state_dict(model.state_dict(), strict=True)
+    with torch.no_grad():
+        ref = cpu(normalize_images_plain(images.cpu(), "resnet"),
+                  emb_s.cpu(), emb_g.cpu())
+    rel = [((o.cpu() - r).norm() / r.norm()).item()
+           for o, r in zip(logits, ref)]
+    finite = all(torch.isfinite(o).all() for o in logits)
+    print(f"last modules: entry() NewMultiModalMultiTask ResNet50 bf16, "
+          f"batch {images.shape[0]} of uint8 {list(images.shape[1:])}: "
+          f"{float(np.median(ms)):.3f} ms a batch (median of {ENTRY_CALLS} "
+          f"CUDA-event timings, {[round(m, 3) for m in ms]}), launches "
+          f"{counts}; logits {[tuple(o.shape) for o in logits]} finite "
+          f"{finite}, bit-identical with the plain normalize on the card "
+          f"{same}; rel L2 vs f32 CPU (style, genre) "
+          f"{[round(r, 6) for r in rel]} (bound {E2E_REL_L2})", flush=True)
+    if not (same and finite and max(rel) <= E2E_REL_L2):
+        raise AssertionError("last modules: entry() disagrees")
+    del model, cpu, args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _tp_model(dtype: torch.dtype):
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.models import NewMultiModalMultiTask
+
+    return _seeded_resnet_(NewMultiModalMultiTask(
+        config.EMB_SIZE, config.NUM_CLASSES, dropout=0.0, dtype=dtype),
+        SEED + 310)
+
+
+def _tp_batches() -> list:
+    from artgraph_tpu_torch import config
+
+    rng = np.random.default_rng(SEED + 311)
+    return [(rng.integers(0, 256, (TP_BATCH, 224, 224, 3), dtype=np.uint8),
+             rng.normal(size=(TP_BATCH, config.EMB_SIZE)).astype(np.float32),
+             rng.normal(size=(TP_BATCH, config.EMB_SIZE)).astype(np.float32),
+             np.stack([rng.integers(0, 32, TP_BATCH),
+                       rng.integers(0, 18, TP_BATCH)], 1).astype(np.int32),
+             np.ones(TP_BATCH, np.float32)) for _ in range(TP_STEPS)]
+
+
+def _tp_run(dtype: torch.dtype, gate: bool, mesh=None) -> dict:
+    """TP_STEPS SGD steps of the flagship model at dropout 0 through the
+    Trainer on the card (over `mesh`, placed by the driver entry's rules,
+    on this rank's block): the losses, the last step's gradients (the
+    heads' gathered whole) as f32 CPU tensors, the state (gathered), and
+    the launches."""
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.parallel.mesh import (ColumnParallelLinear,
+                                                  batch_sharding,
+                                                  gather_params,
+                                                  global_batch_array,
+                                                  shard_params)
+    from artgraph_tpu_torch.train import Trainer
+    from __graft_entry_torch__ import head_param_rules
+
+    model = _tp_model(dtype).cuda()
+    if mesh is not None:
+        shard_params(model, mesh, head_param_rules)
+    trainer = Trainer(model, lambda p: torch.optim.SGD(p, lr=TP_LR),
+                      multi_task_loss(None, None, 0.5, 0.5, "cuda"),
+                      transform_type="resnet", device="cuda", mesh=mesh,
+                      forward_inputs=image_and_embeddings)
+    losses = []
+    _zero_counts()
+    with _conv_bn_gate(gate):
+        for batch in _tp_batches():
+            if mesh is not None:
+                batch = batch_sharding(mesh, batch)
+            loss, _ = trainer.train_step(trainer.to_device(batch))
+            losses.append(float(loss))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _all_counts().items() if v}
+    split = {n for n, m in model.named_modules()
+             if isinstance(m, ColumnParallelLinear)}
+    grads = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name.rpartition(".")[0] in split:
+            g = global_batch_array(g, mesh.model)
+        grads[name] = g.detach().float().cpu()
+    state = (model.state_dict() if mesh is None
+             else gather_params(model, mesh))
+    return {"losses": losses, "grads": grads,
+            "state": {k: v.detach().cpu() for k, v in state.items()},
+            "launches": counts}
+
+
+def _tp_quantities(run: dict) -> dict:
+    trunk = lambda n: n.startswith("resnet.")
+    out = {f"loss {i}": loss for i, loss in enumerate(run["losses"])}
+    out["trunk"] = _flat(run["grads"], trunk)
+    out["head"] = _flat(run["grads"], lambda n: not trunk(n))
+    out["bn"] = torch.cat([v.double().flatten()
+                           for k, v in sorted(run["state"].items())
+                           if "running" in k])
+    return out
+
+
+def _tp_rank_shared(_, tmp: str) -> None:
+    """(b)'s rank body: the data 2 x model 2 run on cuda:0 under gloo,
+    its results into tmp/tp_rank<r>.pt."""
+    import torch.distributed as dist
+
+    from artgraph_tpu_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(2, 2, device=torch.device("cuda", 0))
+    run = _tp_run(torch.bfloat16, True, mesh)
+    torch.save({**_tp_quantities(run), "launches": run["launches"],
+                "shapes": {k: tuple(v.shape)
+                           for k, v in run["state"].items()}},
+               os.path.join(tmp, f"tp_rank{dist.get_rank()}.pt"))
+
+
+def _tp_shared_card(tmp: str) -> dict:
+    """(b): the flagship model at 224 px (bf16, the unit's gate open, so
+    rows 10 and 10b launch) over data 2 x model 2 (four gloo ranks sharing
+    cuda:0, the heads split over `model`), TP_STEPS SGD steps on global
+    batches of TP_BATCH, against the one-process run on the card: each
+    step's loss and the BN statistics at phase 27's ResNet50 bounds, the
+    gathered head gradient and the trunk gradient of the last step at
+    max(TRAIN_GRAD_REL_L2, DP_FLOOR_FACTOR x the one process's bf16
+    distance from f32, its dtype's own error: a random-init ResNet50's
+    gradient is chaotic); gather_params against the one process's
+    state_dict: the same keys and shapes. Returns the ranks' launches."""
+    from artgraph_tpu_torch.parallel.mesh import spawn
+
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    one = _tp_run(torch.bfloat16, True)
+    ref = _tp_quantities(one)
+    f32 = _tp_quantities(_tp_run(torch.float32, False))
+    floor = {q: (abs(ref[q] - f32[q]) / abs(f32[q]) if q.startswith("loss")
+                 else rel(ref[q], f32[q])) for q in ref}
+    ref_shapes = {k: tuple(v.shape) for k, v in one["state"].items()}
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(_tp_rank_shared, 4, "gloo", init_file=os.path.join(tmp, "tp_rdv"),
+          timeout=600.0, args=(tmp,), devices=["cuda:0"] * 4)
+    seconds = time.perf_counter() - t0
+    total: dict = {}
+    failed = []
+    for r in range(4):
+        got = torch.load(os.path.join(tmp, f"tp_rank{r}.pt"))
+        parts, ok = [], True
+        for q, want in ref.items():
+            if q.startswith("loss"):
+                d = abs(got[q] - want) / abs(want)
+                least = DP_LOSS_REL
+            else:
+                d = rel(got[q], want)
+                least = TRAIN_GRAD_REL_L2
+            bound = max(least, DP_FLOOR_FACTOR * floor[q])
+            parts.append(f"{q} {d:.4g} (bound {bound:.4g}; bf16 against "
+                         f"f32 on one process {floor[q]:.4g})")
+            ok = ok and d <= bound
+        same_keys = got["shapes"] == ref_shapes
+        missing = [k for k in ("conv1x1_bn_stats", "conv1x1_bn_stats_bwd",
+                               "normalize_images")
+                   if not got["launches"].get(k)]
+        print(f"last modules: tp rank {r} of data 2 x model 2 (gloo, all on "
+              f"cuda:0), NewMultiModalMultiTask ResNet50 bf16 gate on, "
+              f"{TP_STEPS} SGD steps on its {TP_BATCH // 2} rows of "
+              f"{TP_BATCH}, heads split over model, against one process: "
+              f"losses {[round(float(got[f'loss {i}']), 6) for i in range(TP_STEPS)]} "
+              f"against {[round(ref[f'loss {i}'], 6) for i in range(TP_STEPS)]}; "
+              f"{'; '.join(parts)}; gather_params keys and shapes equal "
+              f"the one process's {same_keys}; launches {got['launches']}",
+              flush=True)
+        if not (ok and same_keys) or missing:
+            failed.append(f"rank {r}: out of bounds, other keys or no "
+                          f"launch of {missing}")
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if failed:
+        raise AssertionError(f"last modules: tp: {'; '.join(failed)}")
+    print(f"last modules: tp: four ranks in {seconds:.1f} s", flush=True)
+    return total
+
+
+def _dryrun_on_card() -> dict:
+    """(c): dryrun_multichip(1) on the card (one NCCL rank in a process of
+    its own): the six dry runs, their launches by kernel."""
+    import __graft_entry_torch__ as graft
+
+    names = _kernel_names()
+    t0 = time.perf_counter()
+    counted = graft.dryrun_multichip(1)
+    seconds = time.perf_counter() - t0
+    counts = {names[k]: v for k, v in counted.items()}
+    missing = [k for k in ("fused_block_attention", "fused_block_attention_bwd",
+                           "fused_block_mlp", "fused_block_mlp_bwd",
+                           "normalize_images", "csr_segment_sum",
+                           "csr_attention_aggregate",
+                           "csr_scalar_segment_sum", "conv1x1_bn_stats",
+                           "conv1x1_bn_stats_bwd") if not counts.get(k)]
+    print(f"last modules: dryrun_multichip(1) on cuda in {seconds:.1f} s "
+          f"(spawn included): launches {counts}", flush=True)
+    if missing:
+        raise AssertionError(f"last modules: dryrun_multichip(1): no "
+                             f"launch of {missing}")
+    return counts
+
+
+def _notebook_on_card(tmp: str) -> dict:
+    """(d): the port notebook's code cells, read from the .ipynb JSON, run
+    in order in one fresh namespace on the card, ARGS overridden after its
+    cell to resnet, batch 8, NB_EPOCHS epochs, artwork embeddings, on
+    phase 8's synthetic tree with seeded embedding tables: the loss must
+    fall, both accuracies print, the checkpoint exists."""
+    import re
+
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.data.embeddings import save_embedding
+
+    root = Path(tmp)
+    counts = _load_synth().make_image_tree(root)
+    rng = np.random.default_rng(SEED + 312)
+    files = {"train": ("gnn_style_embs_graph.pt", "gnn_genre_embs_graph.pt"),
+             "validation": ("gnn_style_valid_embs_graph.pt",
+                            "gnn_genre_valid_embs_graph.pt"),
+             "test": ("gnn_style_test_embs_graph.pt",
+                      "gnn_genre_test_embs_graph.pt")}
+    for split, n in counts.items():
+        os.makedirs(root / "dataset" / split / "embeddings", exist_ok=True)
+        for name in files[split]:
+            save_embedding(str(root / "dataset" / split / "embeddings" / name),
+                           rng.normal(size=(n, config.EMB_SIZE))
+                           .astype(np.float32))
+    with open(REPO / "notebooks" / "proposed_model_multitask_torch.ipynb") \
+            as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    override = (f"ARGS.update(batch=8, epochs={NB_EPOCHS}, "
+                f"architecture='resnet', emb_type='artwork', device='cuda', "
+                f"dataset_path={str(root / 'dataset')!r}, "
+                f"image_path={str(root / 'images')!r})")
+    at = next(i for i, c in enumerate(cells) if "ARGS = dict(" in c)
+    cells.insert(at + 1, override)
+    ckpt = Path(config.CHECKPOINTS_DIR) / \
+        "new-multimodal_multi-task_checkpoint.pt"
+    if ckpt.exists():
+        ckpt.unlink()
+    namespace: dict = {"__name__": "__notebook__"}
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        for i, cell in enumerate(cells):
+            exec(compile(cell, f"<notebook cell {i}>", "exec"), namespace)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in _all_counts().items() if v}
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"last modules: notebook: {line}")
+    losses = [float(m) for m in re.findall(r"Train loss: ([0-9.eE+-]+)",
+                                           text)]
+    tested = re.search(r"Test style accuracy: [0-9.]+; test genre "
+                       r"accuracy: [0-9.]+", text)
+    print(f"last modules: notebook proposed_model_multitask_torch.ipynb, "
+          f"{len(cells)} code cells on cuda (ResNet50, batch 8, "
+          f"{NB_EPOCHS} epochs on {counts} synthetic images) in "
+          f"{seconds:.1f} s: train losses {losses}, checkpoint "
+          f"{ckpt.name} exists {ckpt.exists()}, launches {launches}",
+          flush=True)
+    if not (len(losses) == NB_EPOCHS and losses[-1] < losses[0] and tested
+            and ckpt.exists() and launches.get("normalize_images")):
+        raise AssertionError("last modules: the notebook did not learn, "
+                             "test or save")
+    return launches
+
+
+def last_modules_phase() -> dict:
+    """Phase 31: (a) entry() at full width, (b) the TP step over data 2 x
+    model 2 against one process, (c) dryrun_multichip(1), (d) the port's
+    notebook. Returns every kernel's launches over the four."""
+    total: dict = {}
+    t0 = time.perf_counter()
+    parts = [_entry_run]
+    with tempfile.TemporaryDirectory() as tmp:
+        parts.append(lambda: _tp_shared_card(tmp))
+        parts.append(_dryrun_on_card)
+        parts.append(lambda: _notebook_on_card(tmp))
+        for part in parts:
+            for k, n in part().items():
+                total[k] = total.get(k, 0) + n
+            torch.cuda.empty_cache()
+    print(f"last modules: phase 31 in {time.perf_counter() - t0:.1f} s, "
+          f"launches {total}", flush=True)
+    return total
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -5407,6 +5778,8 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + n
         decode_phase(turns)
         for k, n in gnn_variants_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in last_modules_phase().items():
             launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)

@@ -1,8 +1,10 @@
-"""Import hygiene of the port: no file of artgraph_tpu_torch/, tools/ or
-chip_smoke.py imports the JAX package or JAX, at any nesting (a lazy import
+"""Import hygiene of the port: no file of artgraph_tpu_torch/, tools/,
+chip_smoke.py or __graft_entry_torch__.py, and no code cell of the port's
+notebook, imports the JAX package or JAX, at any nesting (a lazy import
 inside a function counts). Parsed with `ast`, so nothing is imported here.
 """
 import ast
+import json
 import pathlib
 
 import pytest
@@ -10,7 +12,9 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("artgraph_tpu", "jax", "jaxlib", "flax", "optax")
 FILES = sorted((REPO / "artgraph_tpu_torch").rglob("*.py")) + \
-    sorted((REPO / "tools").glob("*.py")) + [REPO / "chip_smoke.py"]
+    sorted((REPO / "tools").glob("*.py")) + [REPO / "chip_smoke.py",
+                                             REPO / "__graft_entry_torch__.py"]
+NOTEBOOK = REPO / "notebooks" / "proposed_model_multitask_torch.ipynb"
 
 
 def forbidden_imports(source: str) -> list[str]:
@@ -30,6 +34,14 @@ def forbidden_imports(source: str) -> list[str]:
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_no_jax(path):
     assert forbidden_imports(path.read_text()) == []
+
+
+def test_port_notebook_imports_no_jax():
+    cells = [c for c in json.loads(NOTEBOOK.read_text())["cells"]
+             if c["cell_type"] == "code"]
+    assert cells
+    for cell in cells:
+        assert forbidden_imports("".join(cell["source"])) == []
 
 
 def test_checker_sees_nested_and_lazy_imports():

@@ -389,8 +389,8 @@ def test_mesh_refusals():
         DataLoader(FakeDS(8), 7, mesh=m)
     with pytest.raises(ValueError, match="not divisible"):
         ResidentLoader(FakeDS(8), 7, mesh=m, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor"):
-        shard_params(TinyBN(), m, rules=lambda path, leaf: None)
+    with pytest.raises(ValueError, match="one entry a dimension"):
+        shard_params(TinyBN(), m, rules=lambda name, t: ("data",) * t.dim())
     trainer = make_trainer(port_state_zero(), torch.float32)
     with pytest.raises(ValueError, match="mesh"):
         trainer.train_epoch(DataLoader(FakeDS(8), 4, mesh=m))

@@ -75,7 +75,7 @@ from test_torch_resnet import STAGES
 from test_torch_train import _jax_loss
 from _torch_oracles import ResNet50Oracle, ViTOracle, randomize_bn_stats
 
-torch.set_num_threads(4)
+torch.set_num_threads(2)
 
 LR = 1e-3
 STEPS = 5
