@@ -32,7 +32,7 @@ import sys
 import numpy as np
 import torch
 
-from artgraph_tpu_torch import config
+from artgraph_tpu_torch import config, profiling
 from artgraph_tpu_torch.checkpointing import load_reference_checkpoint
 from artgraph_tpu_torch.cli._common import resolve_device
 from artgraph_tpu_torch.data.transforms import decode_resize_uint8
@@ -54,8 +54,10 @@ MODELS = {
 @torch.inference_mode()
 def infer(model: torch.nn.Module, images_u8: torch.Tensor,
           *embs: torch.Tensor, transform_type: str = "vit"):
-    """One serving batch: uint8 NHWC images -> normalize -> model logits."""
-    return model(normalize_images(images_u8, transform_type), *embs)
+    """One serving batch: uint8 NHWC images -> normalize -> model logits,
+    inside the span `ag.predict.infer` (profiling.py)."""
+    with profiling.annotate("ag.predict.infer"):
+        return model(normalize_images(images_u8, transform_type), *embs)
 
 
 def load_embedding(path: str) -> np.ndarray:

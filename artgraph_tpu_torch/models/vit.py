@@ -37,7 +37,7 @@ from torch import nn
 
 from artgraph_tpu_torch.ops import (fused_attention, fused_block_attention,
                                     fused_block_mlp, fused_qkv_attention)
-from artgraph_tpu_torch.ops.attention import at_least_f32
+from artgraph_tpu_torch.ops.attention import at_least_f32, cast_weight
 
 
 class PatchEmbed(nn.Module):
@@ -49,7 +49,7 @@ class PatchEmbed(nn.Module):
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """An f32 nn.Linear applied in x's dtype, as a flax Dense(dtype=...)."""
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    return F.linear(x, cast_weight(lin.weight, x.dtype), lin.bias.to(x.dtype))
 
 
 class Attention(nn.Module):
@@ -140,7 +140,8 @@ class ViT(nn.Module):
         B = x.shape[0]
         proj = self.patch_embed.proj
         x = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype),
-                     proj.weight.to(self.dtype), proj.bias.to(self.dtype),
+                     cast_weight(proj.weight, self.dtype),
+                     proj.bias.to(self.dtype),
                      stride=proj.stride)
         x = x.flatten(2).transpose(1, 2)                 # [B, patches, C]
         cls = self.cls_token.expand(B, -1, -1).to(self.dtype)

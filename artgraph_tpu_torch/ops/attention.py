@@ -34,7 +34,8 @@ and `block_attention_plain` / `block_attention_bwd_plain` differ only in
 accumulation order.
 
 Weights keep nn.Linear's [out, in] layout. As `_block_operands` does, the
-wrappers cast the f32 weights and biases to bf16 and keep gamma/beta f32.
+wrappers cast the f32 weights and biases to bf16 and keep gamma/beta f32;
+the weights' casts go through `cast_weight`, which counts their bytes.
 
 `fused_attention` (port of the JAX `fused_attention`, Pallas `_fwd_kernel`
 and `_bwd_kernel`) takes q, k, v as [B, N, H, D] tensors, in the model
@@ -54,6 +55,7 @@ from __future__ import annotations
 
 import torch
 
+from artgraph_tpu_torch import profiling
 from artgraph_tpu_torch.ops import _build
 
 # Launches of the CUDA forward / backward by `fused_block_attention` since the
@@ -139,7 +141,7 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor,
     a bf16 product with f32 accumulation, as the Pallas kernel's jnp.dot.
     """
     dt, acc_t = a.dtype, at_least_f32(a.dtype)
-    acc = a.to(acc_t) @ w.to(dt).to(acc_t).t()
+    acc = a.to(acc_t) @ cast_weight(w, dt).to(acc_t).t()
     return (acc + b.to(dt).to(acc_t)).to(dt)
 
 
@@ -171,7 +173,7 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
 def weight_f32(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """The weight as the kernels read it (rounded to dt), in f32 (f64 for
     dt f64)."""
-    return w.to(dt).to(at_least_f32(dt))
+    return cast_weight(w, dt).to(at_least_f32(dt))
 
 
 def rows_t_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -295,6 +297,25 @@ def bf16_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def cast_weight(w: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor:
+    """A weight matrix in `dtype` (w itself if it is in it already). The
+    copy's bytes are counted under profiling's `weight_cast_bytes`: eager
+    work only, since a copy made while a CUDA graph is captured launches
+    nothing and a replay's copies are kernels of its graph, which no host
+    code runs."""
+    out = w.to(dtype)
+    if out is not w and profiling.recording() and not (
+            out.is_cuda and torch.cuda.is_current_stream_capturing()):
+        profiling.count("weight_cast_bytes", out.numel() * out.element_size())
+    return out
+
+
+def weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """An f32 weight as the kernels' bf16 operand, its cast counted."""
+    return bf16_contiguous(cast_weight(w))
+
+
 def layernorm_cuda(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float) -> torch.Tensor:
     rows, cols = x2d.shape
@@ -356,7 +377,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, layout: int, epilogue: int,
 def gemm_nt_cuda(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  epilogue: int, residual: torch.Tensor | None = None):
     """epilogue(a . w^T + b) with a [M, K] bf16 and f32 w [N, K], b [N]."""
-    return gemm_cuda(a, bf16_contiguous(w), LAYOUT_NT, epilogue, bias=b, aux=residual)
+    return gemm_cuda(a, weight_bf16(w), LAYOUT_NT, epilogue, bias=b, aux=residual)
 
 
 def norm_groups(rows: int) -> tuple[int, int]:
@@ -497,9 +518,9 @@ def block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
     do = bf16_contiguous(dout).view(B * N, C)
     y, qkv, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv,
                                              B, N, num_heads, eps)
-    do_attn = gemm_cuda(do, bf16_contiguous(w_proj), LAYOUT_NN, EPI_NONE)
+    do_attn = gemm_cuda(do, weight_bf16(w_proj), LAYOUT_NN, EPI_NONE)
     dqkv = attention_core_bwd_cuda(qkv, do_attn, B, N, num_heads)
-    dy = gemm_cuda(dqkv, bf16_contiguous(w_qkv), LAYOUT_NN, EPI_F32)
+    dy = gemm_cuda(dqkv, weight_bf16(w_qkv), LAYOUT_NN, EPI_F32)
     dx, dgamma, dbeta, db_proj = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
     return (dx.view(B, N, C), dgamma, dbeta,
             gemm_cuda(dqkv, y, LAYOUT_TN, EPI_F32), colsum_cuda(dqkv),
@@ -763,7 +784,7 @@ def fused_qkv_attention_bwd_cuda(x, w_qkv, b_qkv, out, dout, num_heads: int,
     _attention_bwd_launch(q, k, v, out.view(heads), dout.view(heads),
                           *dqkv.view(B, N, 3, *heads[2:]).unbind(2),
                           _scale(heads[3], scale))
-    dx = gemm_cuda(dqkv, bf16_contiguous(w_qkv), LAYOUT_NN, EPI_NONE)
+    dx = gemm_cuda(dqkv, weight_bf16(w_qkv), LAYOUT_NN, EPI_NONE)
     return (dx.view(B, N, C), gemm_cuda(dqkv, x.view(B * N, C), LAYOUT_TN,
                                         EPI_F32), colsum_cuda(dqkv))
 

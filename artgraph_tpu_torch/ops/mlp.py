@@ -36,7 +36,8 @@ from artgraph_tpu_torch.ops.attention import (
     EPI_BIAS_GELU, EPI_BIAS_GELU_AUX, EPI_BIAS_RESIDUAL, EPI_DGELU, EPI_F32,
     LAYOUT_NN, LAYOUT_TN, at_least_f32, bf16_contiguous, check_block_operands,
     colsum_cuda, gemm_cuda, gemm_nt_cuda, layernorm_bwd_cuda, layernorm_cuda,
-    linear_plain, ln_bwd_plain, ln_rows_plain, rows_t_dot, weight_f32)
+    linear_plain, ln_bwd_plain, ln_rows_plain, rows_t_dot, weight_bf16,
+    weight_f32)
 
 # Launches of the CUDA forward / backward by `fused_block_mlp` since the last
 # reset (one per call of the block, however many kernels it runs).
@@ -120,8 +121,8 @@ def block_mlp_bwd_cuda(x, gamma, beta, w1, b1, w2, b2, dout, eps: float):
     do = bf16_contiguous(dout).view(B * N, C)
     y = layernorm_cuda(x2d, gamma, beta, eps)
     h, act = gemm_nt_cuda(y, w1, b1, EPI_BIAS_GELU_AUX)
-    dh = gemm_cuda(do, bf16_contiguous(w2), LAYOUT_NN, EPI_DGELU, aux=h)
-    dy = gemm_cuda(dh, bf16_contiguous(w1), LAYOUT_NN, EPI_F32)
+    dh = gemm_cuda(do, weight_bf16(w2), LAYOUT_NN, EPI_DGELU, aux=h)
+    dy = gemm_cuda(dh, weight_bf16(w1), LAYOUT_NN, EPI_F32)
     dx, dgamma, dbeta, db2 = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
     return (dx.view(B, N, C), dgamma, dbeta,
             gemm_cuda(dh, y, LAYOUT_TN, EPI_F32), colsum_cuda(dh),

@@ -54,7 +54,10 @@ The fast paths of the JAX trainer, on cuda:
     into the graph's static buffers, device to device. With
     `epoch_scan=False` the loader's per-batch `device_iter()` feeds the
     same graphed step instead.
-Off cuda every step runs eagerly, through the same code.
+Off cuda every step runs eagerly, through the same code. Under a profiler
+the step's work sits in the spans of profiling.py: `ag.trainer.replay`,
+`ag.trainer.capture`, `ag.trainer.eager_step`, and `ag.trainer.wait_batch`
+for the wait on the host loader's queue.
 
 Random state is explicit: the trainer seeds its device's generator, which
 nn.Dropout draws from, with `seed` (GLOBAL_SEED in the CLIs); a graph
@@ -99,7 +102,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from artgraph_tpu_torch import config
+from artgraph_tpu_torch import config, profiling
 from artgraph_tpu_torch.data.loader import pipeline
 from artgraph_tpu_torch.models.resnet import bn_batch_mask, bn_psum_axis
 from artgraph_tpu_torch.ops import launches, normalize_images
@@ -240,7 +243,8 @@ class Trainer:
         """One eager fwd + bwd + update on a device batch (model in train
         mode); returns the loss and metrics as device tensors. `ragged`: the
         batch's mask (its last component) has padded rows."""
-        out = self._step(batch, ragged)
+        with profiling.annotate("ag.trainer.eager_step"):
+            out = self._step(batch, ragged)
         self.host_step += 1
         return out
 
@@ -281,14 +285,19 @@ class Trainer:
         side stream (the warm-up, this call's own step) and then captures
         it."""
         if not self.graphed:
-            return body(*inputs)
+            if key[0] != "train":
+                return body(*inputs)
+            with profiling.annotate("ag.trainer.eager_step"):
+                return body(*inputs)
         g = self.graphs.get(key)
         if g is None:
-            return self._warm_up_and_capture(key, body, inputs)
-        for static, x in zip(g.inputs, inputs):
-            static.copy_(x)
-        g.graph.replay()
-        launches.add(g.counts)
+            with profiling.annotate("ag.trainer.capture"):
+                return self._warm_up_and_capture(key, body, inputs)
+        with profiling.annotate("ag.trainer.replay"):
+            for static, x in zip(g.inputs, inputs):
+                static.copy_(x)
+            g.graph.replay()
+            launches.add(g.counts)
         return g.outputs
 
     def _warm_up_and_capture(self, key: tuple, body: Callable,
@@ -333,8 +342,10 @@ class Trainer:
     def _train_batch(self, batch: Tuple[torch.Tensor, ...],
                      ragged: bool) -> None:
         if (ragged and self.has_bn) or not self.graphed:
-            loss, metrics = self._step(batch, ragged)
-            self._accumulate(self._totals["train"], loss, metrics, batch[-1])
+            with profiling.annotate("ag.trainer.eager_step"):
+                loss, metrics = self._step(batch, ragged)
+                self._accumulate(self._totals["train"], loss, metrics,
+                                 batch[-1])
         else:
             self._run(("train", _signature(batch), _conv_bn_gate()),
                       self._train_body, batch)
@@ -381,7 +392,13 @@ class Trainer:
                     yield n, size, dev, copied
 
         current = torch.cuda.current_stream(self.device) if cuda else None
-        for n, bsize, dev, copied in pipeline(produce(), size):
+        queued = pipeline(produce(), size)
+        while True:
+            with profiling.annotate("ag.trainer.wait_batch"):
+                item = next(queued, None)
+            if item is None:
+                break
+            n, bsize, dev, copied = item
             if cuda:
                 current.wait_event(copied)
                 for t in dev:

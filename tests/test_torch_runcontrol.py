@@ -29,8 +29,8 @@ artifacts.py, profiling.py).
     (timestamps and run ids aside); cli.test runs, and with -t writes it;
   * artifacts: pointers byte-identical, a push by one package pulls in the
     other;
-  * StepTimer equal to JAX's over one stop sequence; utils.__all__ equal to
-    JAX's; profiling.trace writes a Chrome trace;
+  * utils.__all__ equal to JAX's; profiling.trace writes a Chrome trace
+    (the port's spans and counters: tests/test_torch_tracing.py);
   * a --resume or --init_checkpoint run on --device cuda without a card
     raises.
 
@@ -42,7 +42,6 @@ import functools
 import io
 import json
 import os
-import time
 
 import jax
 import numpy as np
@@ -53,7 +52,6 @@ import torch
 import artgraph_tpu.checkpointing.torch_interop as jax_interop
 import artgraph_tpu.models.heads as jax_heads
 from artgraph_tpu import artifacts as jax_artifacts
-from artgraph_tpu import profiling as jax_profiling
 from artgraph_tpu import utils as jax_utils
 from artgraph_tpu.cli._common import (
     apply_init_checkpoint as jax_apply_init_checkpoint)
@@ -458,21 +456,6 @@ def test_artifacts_read_across_packages(pusher, tmp_path):
             "dirty": False}
     other.write_bytes(b"changed")
     assert artifacts.status(str(other)) == jax_artifacts.status(str(other))
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    stamps = [0.0, 0.5, 1.0, 1.25, 2.0, 2.1, 3.0, 3.4]
-    rates = []
-    for mod in (profiling, jax_profiling):
-        clock = iter(stamps)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = mod.StepTimer(warmup_steps=1)
-        for examples in (32, 32, 16, 32):
-            timer.start()
-            timer.stop(examples)
-        rates.append(timer.images_per_sec)
-    assert rates[0] == rates[1] == (32 + 16 + 32) / (0.25 + 0.1 + 0.4)
-    assert profiling.StepTimer().images_per_sec == 0.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
