@@ -18,6 +18,16 @@ in the compute dtype. Eval uses the running statistics. Its keys are
 BatchNorm2d's (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), so reference .pt files load with strict=True.
 
+On the card the chain runs on the kernels of ops/batchnorm.py wherever the
+input allows it: a CUDA bf16 channels-last activation with C a multiple of
+8, applied in bf16, under no batch mask (`_bn_kernels_take`); there a
+module whose parameters or statistics are not f32 raises. Each
+MixedBatchNorm then runs its statistics, finishing and apply (with the
+following ReLU) as one autograd Function, and each bottleneck's tail
+(bn3, the downsample's BatchNorm or the identity, the f32 add, the ReLU)
+as one more. Every other input runs the expressions of MixedBatchNorm and
+Bottleneck below, which are the kernels' reference.
+
 The ragged final batch's statistics must ignore its padded rows. As in the
 JAX package, the mask reaches every MixedBatchNorm through a context
 variable (`bn_batch_mask`), not an argument, so the model signatures stay
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import os
 from collections import OrderedDict
 from typing import Sequence
@@ -58,6 +69,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from artgraph_tpu_torch.ops import batchnorm
+from artgraph_tpu_torch.ops.batchnorm import as_nchw, as_rows
 from artgraph_tpu_torch.ops.attention import at_least_f32
 from artgraph_tpu_torch.ops.conv_bn import conv1x1_bn_stats
 from artgraph_tpu_torch.parallel.mesh import psum
@@ -96,6 +109,18 @@ def bn_psum_axis(axis: str):
         yield
     finally:
         _BN_AXIS.reset(token)
+
+
+def _bn_kernels_take(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether a BatchNorm of x, applied in `dtype`, runs on the kernels."""
+    return (dtype == torch.bfloat16 and _BATCH_MASK.get() is None
+            and batchnorm.takes(x))
+
+
+def _reduce():
+    """The sum over the ranks of bn_psum_axis's axis, or None outside it."""
+    axis = _BN_AXIS.get()
+    return None if axis is None else functools.partial(psum, axis_name=axis)
 
 
 class MixedBatchNorm(nn.Module):
@@ -165,11 +190,18 @@ class MixedBatchNorm(nn.Module):
         return tot[:C] / n, tot[C:2 * C] / n, n.to(n_dtype)
 
     def forward(self, x: torch.Tensor, raw_moments=None,
-                scale_shift_only: bool = False):
+                scale_shift_only: bool = False, relu: bool = False):
         """raw_moments=(s1, s2, n): per-channel f32 sums of x and x^2 and the
         row count, computed upstream (the fused unit); scale_shift_only
-        returns the apply coefficients (a, b) instead of applying them."""
+        returns (x, a, b), the apply coefficients beside x, instead of
+        applying them (apply them to that x: on the kernels' path it carries
+        the statistics' gradient); relu: ReLU on the output."""
         dt = self.apply_dtype or at_least_f32(x.dtype)
+        if _bn_kernels_take(x, dt):
+            if scale_shift_only:
+                return batchnorm.scale_shift(self, x, _reduce())
+            return batchnorm.batch_norm(self, x, raw_moments, relu,
+                                        _reduce())
         if self.training:
             mean, mean_sq, n = self._batch_moments(x, raw_moments)
             var = torch.clamp(mean_sq - mean.square(), min=0.0)
@@ -190,9 +222,10 @@ class MixedBatchNorm(nn.Module):
         a = (self.weight * rstd).to(dt)
         b = (self.bias - mean * self.weight * rstd).to(dt)
         if scale_shift_only:
-            return a, b
+            return x, a, b
         C = a.shape[0]
-        return x.to(dt) * a.view(1, C, 1, 1) + b.view(1, C, 1, 1)
+        y = x.to(dt) * a.view(1, C, 1, 1) + b.view(1, C, 1, 1)
+        return F.relu(y) if relu else y
 
 
 def conv_bn_kernels_on(dtype: torch.dtype, train: bool) -> bool:
@@ -207,17 +240,6 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(dtype), None, conv.stride,
                     conv.padding)
-
-
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    """NCHW (channels_last) -> its [B*H*W, C] rows."""
-    B, C, H, W = t.shape
-    return t.permute(0, 2, 3, 1).reshape(B * H * W, C)
-
-
-def _nchw(rows: torch.Tensor, B: int, H: int, W: int) -> torch.Tensor:
-    """[B*H*W, C] rows -> NCHW in channels_last memory format (a view)."""
-    return rows.view(B, H, W, rows.shape[1]).permute(0, 3, 1, 2)
 
 
 class Bottleneck(nn.Module):
@@ -241,37 +263,47 @@ class Bottleneck(nn.Module):
             nn.Conv2d(inplanes, width * 4, 1, stride=stride, bias=False),
             norm(width * 4)) if downsample else None)
 
-    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused(self, x: torch.Tensor):
         """conv1 and conv3 through the unit, the BN statistics from its raw
-        moments; conv2 on cuDNN."""
+        moments; conv2 on cuDNN. Returns conv3's output and its raw
+        moments."""
         dt = self.dtype
         B, cin, H, W = x.shape
         width = self.conv1.out_channels
         dummy = torch.zeros(cin, dtype=dt, device=x.device)
         y1, s1, s2 = conv1x1_bn_stats(
-            _rows(x), dummy, dummy, self.conv1.weight.view(width, cin), False)
-        out = self.bn1(_nchw(y1, B, H, W),
-                       raw_moments=(s1, s2, float(B * H * W)))
-        out = F.relu(out).to(dt)
+            as_rows(x), dummy, dummy, self.conv1.weight.view(width, cin),
+            False)
+        out = self.bn1(as_nchw(y1, x),
+                       raw_moments=(s1, s2, float(B * H * W)), relu=True)
         out = _conv(self.conv2, out, dt)
-        a2, b2 = self.bn2(out, scale_shift_only=True)
+        out, a2, b2 = self.bn2(out, scale_shift_only=True)
         _, _, H2, W2 = out.shape
         y3, s1, s2 = conv1x1_bn_stats(
-            _rows(out), a2, b2, self.conv3.weight.view(4 * width, width), True)
-        return self.bn3(_nchw(y3, B, H2, W2),
-                        raw_moments=(s1, s2, float(B * H2 * W2)))
+            as_rows(out), a2, b2, self.conv3.weight.view(4 * width, width),
+            True)
+        return as_nchw(y3, out), (s1, s2, float(B * H2 * W2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if conv_bn_kernels_on(dt, self.training):
-            out = self._fused(x)
+            y3, raw3 = self._fused(x)
         else:
-            out = F.relu(self.bn1(_conv(self.conv1, x, dt))).to(dt)
-            out = F.relu(self.bn2(_conv(self.conv2, out, dt))).to(dt)
-            out = self.bn3(_conv(self.conv3, out, dt))
-        identity = x
-        if self.downsample is not None:
-            identity = self.downsample[1](_conv(self.downsample[0], x, dt))
+            out = self.bn1(_conv(self.conv1, x, dt), relu=True)
+            out = self.bn2(_conv(self.conv2, out, dt), relu=True)
+            y3, raw3 = _conv(self.conv3, out, dt), None
+        if self.downsample is None:
+            bnd, yd, identity = None, None, x
+        else:
+            bnd, identity = self.downsample[1], None
+            yd = _conv(self.downsample[0], x, dt)
+        if _bn_kernels_take(y3, dt) and batchnorm.takes(
+                x if yd is None else yd):
+            return batchnorm.bottleneck_tail(self.bn3, y3, raw3, identity,
+                                             bnd, yd, _reduce())
+        out = self.bn3(y3, raw_moments=raw3)
+        if identity is None:
+            identity = bnd(yd)
         add = at_least_f32(dt)
         return F.relu(out.to(add) + identity.to(add)).to(dt)
 
@@ -306,7 +338,7 @@ class ResNet50(nn.Sequential):
         # NHWC permuted to NCHW is channels_last already: no copy
         x = x.permute(0, 3, 1, 2).to(dt).contiguous(
             memory_format=torch.channels_last)
-        x = F.relu(self[1](_conv(self[0], x, dt))).to(dt)
+        x = self[1](_conv(self[0], x, dt), relu=True)
         x = self[3](x)            # MaxPool2d pads with -inf
         for layer in list(self)[4:]:
             x = layer(x)

@@ -3,7 +3,8 @@
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises. The block ops and the conv + BN-statistics
 unit are autograd Functions whose backward is a kernel path too, as are
-the two attention ops of the unfused paths.
+the two attention ops of the unfused paths and the ResNet's BatchNorm chain
+(ops/batchnorm.py, reached from models/resnet.py).
 """
 from artgraph_tpu_torch.ops.attention import (
     block_attention_bwd_plain, block_attention_plain, fused_attention,

@@ -58,6 +58,14 @@ _SIGNATURES = {
     "ag_csr_scalar_sum_f32": ((_P, _P, _I, _I, _I, _P, _P, _I, _P), _I),
     "ag_conv_bn_fwd_bf16": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
     "ag_conv_bn_bwd_bf16": ((_P,) * 16 + (_I,) * 8 + (_P,), _I),
+    "ag_bn_stats_bf16": ((_P, _P, _I, _I, _I, _I, _P), _I),
+    "ag_bn_finish": ((_P, _P, _I, _I, _P, _F) + (_P,) * 9
+                     + (_I, _I, _F, _F, _F, _P), _I),
+    "ag_bn_apply_bf16": ((_P,) * 8 + (_I,) * 5 + (_P,), _I),
+    "ag_bn_colsum_bf16": ((_P,) * 5 + (_I,) * 4 + (_P,), _I),
+    "ag_bn_finish_bwd": ((_P, _P, _I, _I) + (_P,) * 5 + (_F, _P, _P, _P, _I,
+                                                         _I, _P), _I),
+    "ag_bn_dx_bf16": ((_P,) * 11 + (_I,) * 4 + (_P,), _I),
     "ag_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,16 +1,17 @@
 """The port's CUDA kernels' source run on the host, against the plain twins:
 the attention cores, the conv + BN-statistics unit, the LayerNorm
-backward and column sums of the transformer blocks' backward, and the CSR
-scalar sum.
+backward and column sums of the transformer blocks' backward, the CSR
+scalar sum and the BatchNorm chain.
 
     python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
 
 (default: 1,197,2 1,600,1; then the unit at two shapes each way, the
-LayerNorm backward and a column sum at two shapes each, and the scalar
-sum on hubs and on short segments). No GPU and no nvcc: g++ (C++20)
+LayerNorm backward and a column sum at two shapes each, the scalar
+sum on hubs and on short segments, and the BatchNorm chain at C = 64 and
+2048). No GPU and no nvcc: g++ (C++20)
 compiles csrc/block_attention.cu, csrc/block_attention_bwd.cu,
-csrc/conv_bn.cu, csrc/block_norm_bwd.cu, csrc/csr_segment.cu and
-the headers they include as host code into build/emulate_attention/, with
+csrc/conv_bn.cu, csrc/block_norm_bwd.cu, csrc/csr_segment.cu,
+csrc/batchnorm.cu and the headers they include as host code into build/emulate_attention/, with
 the PTX helpers of
 csrc/ptx_helpers.cuh (cp.async, ldmatrix, mma.sync, dynamic shared memory)
 replaced by the warp-cooperative host versions of
@@ -24,7 +25,9 @@ products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16` runs
 them, block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
 `ag_colsum_bf16` run them (norm_sequence, colsum_sequence, with the row
 splits of ops/attention.py) and csr_segment.cu's two passes as
-`ag_csr_scalar_sum_f32` runs them over a CSR's plan (scalar_sequence). It
+`ag_csr_scalar_sum_f32` runs them over a CSR's plan (scalar_sequence), and
+batchnorm.cu's six entry points (`*_entry`) as the `ag_bn_*` functions run
+them, each from the same inputs as its twin in ops/batchnorm.py. It
 prints their max abs error against the plain twins and the worst error
 over the card's tolerance (bf16 outputs: atol + rtol |ref|, both 3e-2; f32
 sums and dw: relative L2 over 2e-2; the scalar sum against its twin in f64
@@ -35,8 +38,9 @@ The block GEMM (csrc/block_gemm.cu: wgmma fed by TMA and mbarriers) has no
 host version: those instructions act on shared memory and barriers behind
 the threads' backs, so only the card checks it (tests/test_torch_cuda.py,
 chip_smoke.py). The port never calls this module;
-tests/test_torch_emulated_{attention,conv_bn,norm,csr}.py do.
+tests/test_torch_emulated_{attention,conv_bn,norm,csr,batchnorm}.py do.
 """
+import copy
 import ctypes
 import subprocess
 import sys
@@ -53,6 +57,7 @@ OUT = Path(__file__).resolve().parents[2] / "build" / "emulate_attention"
 TOL = 3e-2
 GRAD_REL_L2 = 2e-2
 CSR_RTOL, CSR_ATOL = 1e-4, 1e-3
+SUM_REL_L2 = 1e-5
 
 
 def _kernels_only(src: str, marker: str) -> str:
@@ -83,6 +88,8 @@ def build(out: Path = OUT) -> ctypes.CDLL:
         (CSRC / "block_norm_bwd.cu").read_text(), "// Host side: launches."))
     (out / "csr_segment.cu").write_text(_kernels_only(
         (CSRC / "csr_segment.cu").read_text(), "// Host side: launches."))
+    (out / "batchnorm.cu").write_text(_kernels_only(
+        (CSRC / "batchnorm.cu").read_text(), "// Host side: launches."))
     (out / "sum_groups.cuh").write_text(_kernels_only(
         (CSRC / "sum_groups.cuh").read_text(),
         "// Launches the pass on stream s"))
@@ -101,6 +108,14 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     handle.emu_layernorm_bwd.argtypes = (P,) * 7 + (I, I, F, I, I)
     handle.emu_colsum.argtypes = (P,) * 3 + (I,) * 4
     handle.emu_csr_scalar_sum.argtypes = (P, P, I, I, P, P, I)
+    handle.emu_bn_stats.argtypes = (P, P) + (I,) * 4
+    handle.emu_bn_finish.argtypes = ((P, P, I, I, P, F) + (P,) * 9
+                                     + (I, I, F, F, F))
+    handle.emu_bn_apply.argtypes = (P,) * 8 + (I,) * 5
+    handle.emu_bn_colsum.argtypes = (P,) * 5 + (I,) * 4
+    handle.emu_bn_finish_bwd.argtypes = ((P, P, I, I) + (P,) * 5
+                                         + (F, P, P, P, I, I))
+    handle.emu_bn_dx.argtypes = (P,) * 11 + (I,) * 4
     return handle
 
 
@@ -351,6 +366,181 @@ def check_csr_scalar(lib: ctypes.CDLL, counts, lanes: int | None = None
     return ratio
 
 
+def _batchnorm(rng, C: int):
+    """A train-mode MixedBatchNorm with seeded parameters and buffers."""
+    from artgraph_tpu_torch.models.resnet import MixedBatchNorm
+
+    f32 = lambda s, m: torch.from_numpy(
+        (m + s * rng.normal(size=C)).astype(np.float32))
+    bn = MixedBatchNorm(C).requires_grad_(False)
+    for name, s, m in (("weight", 0.1, 1.0), ("bias", 0.1, 0.0),
+                       ("running_mean", 0.1, 0.0), ("running_var", 0.1, 1.0)):
+        getattr(bn, name).copy_(f32(s, m))
+    bn.num_batches_tracked.fill_(3)
+    return bn
+
+
+def check_batchnorm(lib: ctypes.CDLL, M: int, C: int, branches: int,
+                    identity: bool) -> float:
+    """batchnorm.cu's entry points at one shape, each from the inputs of its
+    twin in ops/batchnorm.py: the statistics' and column sums' run
+    partials, added, at relative L2 <= SUM_REL_L2 of the twin's sums and
+    bit-identical on a second call; the finishing (train, eval, the merge
+    of the runs' partials), apply, backward finishing (from sums and from a
+    unit's bf16 da, db) and dx bit-identical to the twins. Returns the worst
+    error over tolerance (inf for an inexact one)."""
+    from artgraph_tpu_torch.ops import batchnorm as T
+
+    rng = np.random.default_rng(M * 31 + C + 7 * branches + identity)
+    f32 = lambda *shape, s=1.0, m=0.0: torch.from_numpy(
+        (m + s * rng.normal(size=shape)).astype(np.float32))
+    bf16 = torch.bfloat16
+    nan = lambda *shape, dt=torch.float32: torch.full(shape, float("nan"),
+                                                      dtype=dt)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    xs = [f32(M, C, s=2.0, m=0.3).to(bf16) for _ in range(branches)]
+    bns = [_batchnorm(rng, C) for _ in range(branches)]
+    ident = f32(M, C).to(bf16) if identity else None
+    g = f32(M, C).to(bf16)
+    per, runs = T.row_chunks(M, C)
+    n = float(M)
+    results = {}
+
+    def exact(name, ours, ref):
+        results[name] = 0.0 if (ours.dtype == ref.dtype
+                                and torch.equal(ours, ref)) else float("inf")
+
+    def summed(name, parts, ref):
+        a, again = parts
+        err = ((a.double().sum(0) - ref.double()).norm()
+               / ref.double().norm()).item() / SUM_REL_L2
+        results[name] = err if torch.equal(a, again) else float("inf")
+
+    def finish(mode, bn, sums, groups, stride, n_dev=None):
+        a, b, saved, merged = (nan(C, dt=bf16), nan(C, dt=bf16), nan(3, C),
+                               nan(2 * C + 1))
+        lib.emu_bn_finish(
+            sums.data_ptr(), sums.data_ptr() + 4 * C, groups, stride,
+            ptr(n_dev), n, bn.weight.data_ptr(), bn.bias.data_ptr(),
+            bn.running_mean.data_ptr(), bn.running_var.data_ptr(),
+            bn.num_batches_tracked.data_ptr(), a.data_ptr(), b.data_ptr(),
+            saved.data_ptr(), merged.data_ptr(), C, mode, bn.eps,
+            bn.momentum, 1.0 - bn.momentum)
+        return a, b, saved, merged
+
+    coefs, twin_coefs = [], []
+    for i, (x, bn) in enumerate(zip(xs, bns)):
+        parts = []
+        for _ in range(2):
+            parts.append(nan(runs, 2 * C))
+            lib.emu_bn_stats(x.data_ptr(), parts[-1].data_ptr(), M, C, per,
+                             runs)
+        sums = T.stats_plain(x)[0]
+        summed(f"statistics {i}", parts, sums)
+        merged = finish(T.FIN_MERGE, bn, parts[0], runs, 2 * C)[3]
+        exact(f"merged sums {i}", merged[:2 * C],
+              torch.cat([T.merge_plain(parts[0][:, :C]),
+                         T.merge_plain(parts[0][:, C:])]))
+        exact(f"merged n {i}", merged[2 * C:], torch.tensor([n]))
+        ours, twin = copy.deepcopy(bn), copy.deepcopy(bn)
+        a, b, saved, _ = finish(T.FIN_TRAIN, ours, sums, 1, 2 * C)
+        ref = T.finish_plain(sums[:C], sums[C:], n, twin, twin.weight,
+                             twin.bias, True)
+        for name, o, r in (("a", a, ref[0]), ("b", b, ref[1]),
+                           ("saved", saved, ref[2]),
+                           ("running mean", ours.running_mean,
+                            twin.running_mean),
+                           ("running var", ours.running_var,
+                            twin.running_var),
+                           ("batches", ours.num_batches_tracked,
+                            twin.num_batches_tracked)):
+            exact(f"finish {name} {i}", o, r)
+        # the count summed over the ranks, on the device: divided exactly
+        n_dev, dev_twin = torch.tensor([n]), copy.deepcopy(bn)
+        got = finish(T.FIN_TRAIN, copy.deepcopy(bn), sums, 1, 2 * C, n_dev)
+        ref = T.finish_plain(sums[:C], sums[C:], n_dev[0], dev_twin,
+                             dev_twin.weight, dev_twin.bias, True)
+        exact(f"finish with n on the device {i}", torch.cat(
+            [got[0], got[1]]), torch.cat(ref[:2]))
+        exact(f"finish saved with n on the device {i}", got[2], ref[2])
+        ev = finish(T.FIN_EVAL, bn, sums, 1, 2 * C)
+        ref_ev = T.finish_plain(None, None, n, bn, bn.weight, bn.bias, False)
+        exact(f"finish eval {i}", torch.cat([ev[0], ev[1]]),
+              torch.cat(ref_ev[:2]))
+        coefs.append((a, b))
+        twin_coefs.append((ref[0], ref[1], ref[2], sums))
+
+    out = nan(M, C, dt=bf16)
+    relu = True
+    lib.emu_bn_apply(xs[0].data_ptr(), coefs[0][0].data_ptr(),
+                     coefs[0][1].data_ptr(),
+                     *(ptr(t) for t in ((xs[1], *coefs[1]) if branches == 2
+                                        else (None, None, None))),
+                     ptr(ident), out.data_ptr(), M, C, int(relu), per, runs)
+    exact("apply", out, T.apply_plain(xs, coefs, ident, relu))
+
+    o = out
+    cparts = []
+    for _ in range(2):
+        cparts.append(nan(runs, (branches + 1) * C))
+        lib.emu_bn_colsum(g.data_ptr(), o.data_ptr(), xs[0].data_ptr(),
+                          ptr(xs[1] if branches == 2 else None),
+                          cparts[-1].data_ptr(), M, C, per, runs)
+    csums = T.colsum_plain(g, o, xs)[0]
+    summed("column sums", cparts, csums)
+    css = []
+    for i, (bn, (_, _, saved, _)) in enumerate(zip(bns, twin_coefs)):
+        col = torch.stack([csums[i * C:(i + 1) * C],
+                           csums[branches * C:]]).contiguous()
+        dw, db, cs = nan(C), nan(C), nan(2, C)
+        lib.emu_bn_finish_bwd(col.data_ptr(), col.data_ptr() + 4 * C, 1, C,
+                              None, None, saved.data_ptr(),
+                              bn.weight.data_ptr(), None, n, dw.data_ptr(),
+                              db.data_ptr(), cs.data_ptr(), C, 1)
+        da16, db16 = T._bf(col[0]), T._bf(col[1])
+        ref = T.finish_bwd_plain(da16, db16, saved, bn.weight, n, True)
+        for name, ours_t, r in (("dgamma", dw, ref[0]), ("dbeta", db, ref[1]),
+                                ("cs", cs, ref[2])):
+            exact(f"finish bwd {name} {i}", ours_t, r)
+        # from a unit's bf16 da, db
+        da_b, db_b = da16.to(bf16), db16.to(bf16)
+        dw2, db2, cs2 = nan(C), nan(C), nan(2, C)
+        lib.emu_bn_finish_bwd(None, None, 0, C, da_b.data_ptr(),
+                              db_b.data_ptr(), saved.data_ptr(),
+                              bn.weight.data_ptr(), None, n, dw2.data_ptr(),
+                              db2.data_ptr(), cs2.data_ptr(), C, 1)
+        exact(f"finish bwd from bf16 {i}", dw2, ref[0])
+        css.append(ref[2])
+
+    dxs = [nan(M, C, dt=bf16) for _ in range(branches)]
+    did = nan(M, C, dt=bf16) if identity else None
+    a_s = [c[0] for c in coefs]
+    second = lambda seq: seq[1] if branches == 2 else None
+    lib.emu_bn_dx(g.data_ptr(), o.data_ptr(), xs[0].data_ptr(),
+                  a_s[0].data_ptr(), css[0].data_ptr(), ptr(second(xs)),
+                  ptr(second(a_s)), ptr(second(css)), dxs[0].data_ptr(),
+                  ptr(second(dxs)), ptr(did), M, C, per, runs)
+    ref_dx, ref_did = T.dx_plain(g, o, xs, a_s, css, identity)
+    for i, (d, r) in enumerate(zip(dxs, ref_dx)):
+        exact(f"dx {i}", d, r)
+    if identity:
+        exact("identity gradient", did, ref_did)
+    # the coefficients' own backward: the consumer's gradient unscaled
+    dxc = nan(M, C, dt=bf16)
+    lib.emu_bn_dx(g.data_ptr(), None, xs[0].data_ptr(), None,
+                  css[0].data_ptr(), None, None, None, dxc.data_ptr(), None,
+                  None, M, C, per, runs)
+    exact("dx unscaled", dxc,
+          T.dx_plain(g, None, xs[:1], [None], css[:1], False)[0][0])
+
+    worst = max(results.values())
+    bad = [k for k, v in results.items() if v > 1.0]
+    print(f"batchnorm M={M} C={C} branches={branches} identity={identity} "
+          f"({runs} runs of {per} rows): worst {worst:.4g} over tolerance"
+          + (f", failing {bad}" if bad else ""), flush=True)
+    return worst
+
+
 def main(shapes: list[str]) -> int:
     lib = build()
     worst = max(check(lib, *map(int, s.split(","))) for s in shapes)
@@ -363,6 +553,9 @@ def main(shapes: list[str]) -> int:
                     check_colsum(lib, rows, 4 * cols))
     for counts in ([0, 1, 255, 256, 257, 31250, 0], [10] * 500):
         worst = max(worst, check_csr_scalar(lib, counts))
+    for M, C, branches, identity in ((300, 64, 1, True), (130, 2048, 2,
+                                                          False)):
+        worst = max(worst, check_batchnorm(lib, M, C, branches, identity))
     return 0 if worst <= 1.0 else 1
 
 

@@ -18,6 +18,8 @@
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static  // blocks run one after another
 
+constexpr int cudaErrorInvalidValue = 1;  // the entry points' refusal
+
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)

@@ -1,8 +1,8 @@
 // Runs the port's CUDA kernels on the host: the attention cores, the
 // conv + BN-statistics unit (conv_bn.cu), the LayerNorm backward and
-// column sums (block_norm_bwd.cu) and the CSR scalar sum (csr_segment.cu),
-// each of the last three in its own namespace, with the second pass of
-// sum_groups.cuh. The patched sources
+// column sums (block_norm_bwd.cu), the CSR scalar sum (csr_segment.cu) and
+// the BatchNorm chain (batchnorm.cu), each of the last four in its own
+// namespace, with the second pass of sum_groups.cuh. The patched sources
 // are included here, and every block of a grid runs as one host thread per
 // CUDA thread, one block after another. Built and driven by
 // ops/attention_emulation.py.
@@ -32,6 +32,10 @@ namespace norm {
 
 namespace csr {
 #include "csr_segment.cu"
+}
+
+namespace bn {
+#include "batchnorm.cu"
 }
 
 thread_local std::vector<ptx::EmuCopy> ptx::emu_copies;
@@ -296,4 +300,72 @@ extern "C" int emu_csr_scalar_sum(const void* w, const void* plan, int C,
   return scalar_sequence(run, (const float*)w,
                          make_plan((const int*)plan, C, M), C, M,
                          (float*)scratch, (float*)out, lanes);
+}
+
+// batchnorm.cu's entry points with a launcher that runs each grid here.
+namespace bn {
+
+struct EmuRun {
+  template <class A>
+  int go(void (*kernel)(const A), dim3 grid, dim3 block, const A& args) {
+    run_grid(grid, block, [&] { kernel(args); });
+    return 0;
+  }
+};
+
+}  // namespace bn
+
+extern "C" int emu_bn_stats(const void* x, void* part, int M, int C,
+                            int rows_per_chunk, int chunks) {
+  bn::EmuRun run;
+  return bn::stats_entry(run, x, part, M, C, rows_per_chunk, chunks);
+}
+
+extern "C" int emu_bn_finish(const void* p1, const void* p2, int groups,
+                             int stride, const void* n_dev, float n_host,
+                             const void* w, const void* bias, void* rm,
+                             void* rv, void* nbt, void* a, void* b,
+                             void* saved, void* sums, int C, int mode,
+                             float eps, float momentum, float keep) {
+  bn::EmuRun run;
+  return bn::finish_entry(run, p1, p2, groups, stride, n_dev, n_host, w, bias,
+                          rm, rv, nbt, a, b, saved, sums, C, mode, eps,
+                          momentum, keep);
+}
+
+extern "C" int emu_bn_apply(const void* x0, const void* a0, const void* b0,
+                            const void* x1, const void* a1, const void* b1,
+                            const void* id, void* out, int M, int C, int relu,
+                            int rows_per_chunk, int chunks) {
+  bn::EmuRun run;
+  return bn::apply_entry(run, x0, a0, b0, x1, a1, b1, id, out, M, C, relu,
+                         rows_per_chunk, chunks);
+}
+
+extern "C" int emu_bn_colsum(const void* g, const void* o, const void* x0,
+                             const void* x1, void* part, int M, int C,
+                             int rows_per_chunk, int chunks) {
+  bn::EmuRun run;
+  return bn::colsum_entry(run, g, o, x0, x1, part, M, C, rows_per_chunk,
+                          chunks);
+}
+
+extern "C" int emu_bn_finish_bwd(const void* p1, const void* p2, int groups,
+                                 int stride, const void* da, const void* db,
+                                 const void* saved, const void* w,
+                                 const void* n_dev, float n_host, void* dw,
+                                 void* dbias, void* cs, int C, int train) {
+  bn::EmuRun run;
+  return bn::finish_bwd_entry(run, p1, p2, groups, stride, da, db, saved, w,
+                              n_dev, n_host, dw, dbias, cs, C, train);
+}
+
+extern "C" int emu_bn_dx(const void* g, const void* o, const void* x0,
+                         const void* a0, const void* cs0, const void* x1,
+                         const void* a1, const void* cs1, void* dx0,
+                         void* dx1, void* did, int M, int C,
+                         int rows_per_chunk, int chunks) {
+  bn::EmuRun run;
+  return bn::dx_entry(run, g, o, x0, a0, cs0, x1, a1, cs1, dx0, dx1, did, M,
+                      C, rows_per_chunk, chunks);
 }

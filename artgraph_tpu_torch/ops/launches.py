@@ -1,9 +1,9 @@
 """The kernels' launch counters, read, restored and added as one.
 
 Each wrapper adds one to its module's counter where it launches its kernel:
-the `LAUNCHES*` ints of ops.preprocess, ops.attention, ops.mlp, ops.conv_bn
-and ops.csr_segment. A CUDA graph replays its kernels without running the
-wrappers, and capturing one launches nothing. So the Trainer takes a
+the `LAUNCHES*` ints of ops.preprocess, ops.attention, ops.mlp, ops.conv_bn,
+ops.batchnorm and ops.csr_segment. A CUDA graph replays its kernels without
+running the wrappers, and capturing one launches nothing. So the Trainer takes a
 snapshot before a capture, restores it after, and adds the captured step's
 counts at each replay: the counters keep counting launches on the card.
 """
@@ -11,8 +11,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from artgraph_tpu_torch.ops import attention, conv_bn, csr_segment, mlp, \
-    preprocess
+from artgraph_tpu_torch.ops import attention, batchnorm, conv_bn, \
+    csr_segment, mlp, preprocess
 
 COUNTERS = (
     (preprocess, "LAUNCHES"),
@@ -21,6 +21,9 @@ COUNTERS = (
     (attention, "LAUNCHES_QKV"), (attention, "LAUNCHES_QKV_BWD"),
     (mlp, "LAUNCHES"), (mlp, "LAUNCHES_BWD"),
     (conv_bn, "LAUNCHES"), (conv_bn, "LAUNCHES_BWD"),
+    (batchnorm, "LAUNCHES_STATS"), (batchnorm, "LAUNCHES_FINISH"),
+    (batchnorm, "LAUNCHES_APPLY"), (batchnorm, "LAUNCHES_COLSUM"),
+    (batchnorm, "LAUNCHES_FINISH_BWD"), (batchnorm, "LAUNCHES_DX"),
     (csr_segment, "LAUNCHES_SUM"), (csr_segment, "LAUNCHES_WEIGHTED"),
     (csr_segment, "LAUNCHES_SOFTMAX"), (csr_segment, "LAUNCHES_SCALAR"),
 )

@@ -111,7 +111,15 @@ s1, s2, da, db, dw at relative L2 <= GRAD_REL_L2, bit-identical from call to
 call; timed beside the plain twins and torch.matmul with the column sums,
 the backward also beside a full-function yardstick (dyt, the prologue, two
 torch.matmul and the two column sums), and each direction's device time
-broken down by launch (torch.profiler) (conv_bn_kernel_phases); and the kernels of fused_attention and
+broken down by launch (torch.profiler) (conv_bn_kernel_phases); and
+ops/batchnorm.py's six launches at ResNet50's stem (32x112x112x64, BN +
+ReLU) and layer4's downsample tail (32x7x7x2048, two BatchNorms + add +
+ReLU): one layer's chain each way, every launch against its plain twin on
+its inputs (_bn_held_to_plain: the statistics' and column sums' partials
+at relative L2 <= 1e-5, the rest bit-identical), the chain bit-identical
+on repeat, each launch timed beside its twin and native BatchNorm's
+primitive for its part, with its byte bound, and the chain each way beside
+F.batch_norm (cuDNN) with the add and ReLU (bn_kernel_phases); and the kernels of fused_attention and
 fused_qkv_attention, forward and backward, at B=32, N=197, H=12, D=64 (q, k,
 v strided views of one [B, N, 3, H, D] bf16 tensor, never copied; x
 [B, N, 768]) against their plain twins on the card: outputs, dq/dk/dv and
@@ -134,16 +142,23 @@ sum's device time and launches a step.
               at full ResNet50 size with seeded weights, saved as reference
               .pt files and loaded through load_reference_checkpoint; 3
               batches of 32 through cli.predict.infer on cuda: the normalize
-              counter 3 per model, the other kernels 0 (eval runs no unit);
+              counter 3 per model, the BatchNorm kernels' eval finishing
+              and apply 53 and 49 a batch, the other kernels 0 (eval runs
+              no unit);
               logits on 2 images within relative L2 5e-2 of the f32 CPU
               path; img/s over the 3 batches, then the median img/s of
               SERVE_WINDOWS windows of SERVE_WINDOW_BATCHES batches each.
  13. resnet train  ResnetSingleTask(32), dropout 0.4, adam(3e-4), batch 32 on
               cuda with ARTGRAPH_CONVBN=1: 2 warm-up steps, then 8 timed
-              steps, 32 forward and 32 backward unit launches a step; losses
-              finite and falling; img/s, peak memory, 2 profiled steps. Then
-              the same steps from the same weights with the gate closed (no
-              unit launch), img/s and the profile beside.
+              steps, 32 forward and 32 backward unit launches a step and
+              the BatchNorm kernels' RESNET_BN_STEP; losses finite and
+              falling; img/s, peak memory, 2 profiled steps; one more step
+              with each BatchNorm launch held against its twin in situ
+              (_bn_held_to_plain; the stem's [32*112*112, 64] and layer4's
+              [32*7*7, 2048] among its inputs). Then the same steps from
+              the same weights with the gate closed (no unit launch, the
+              gate-closed BatchNorm counts), img/s, the profile and the
+              held step beside.
  14. resnet grads  one step on 4 images (dropout 0) with the unit in bf16 on
               the card, each of its 32 + 32 unit launches held against the
               plain twin on its own inputs at the kernel tolerances (y and
@@ -153,13 +168,18 @@ sum's device time and launches a step.
               L2 <= max(
               TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR x the unfused bf16 CPU
               path's own distance from the f32 one) (the random-init trunk's
-              gradient is chaotic: resnet_grad_phase); then one ragged step
-              (half the rows masked) on the card: no unit launch, and the BN
-              statistics' updates against the CPU path over the valid rows.
+              gradient is chaotic: resnet_grad_phase); its BatchNorm
+              launches RESNET_BN_STEP's, each held against its twin in situ
+              (_bn_held_to_plain); then one ragged step (half the rows
+              masked) on the card: no unit and no BatchNorm launch, and the
+              BN statistics' updates against the CPU path over the valid
+              rows.
  15. resnet cli  cli.train_baseline --architecture resnet --device cuda with
               ARTGRAPH_CONVBN=1, 1 epoch at --batch 10 (the last of the 24
               training images' batches ragged): its lines, the unit's
-              launches on the full batches only, the checkpoint reloaded.
+              launches on the full batches only, the BatchNorm kernels' on
+              the full train batches and every eval batch, the checkpoint
+              reloaded.
  16. vit unfused serve  the ViTSingleTask trunk of phase 5's weights loaded
               strict into ViT(fuse_qkv=False) at full ViT-B/16 width and
               depth (qkv Linear, fused_attention on strided q/k/v views,
@@ -430,6 +450,28 @@ GNN_GRAD_REL_L2 = 1e-3     # one GNN step, kernels on cuda vs plain on the CPU
 CONV_BN_SHAPES = ((100352, 64, 256, True), (6272, 1024, 256, False),
                   (1568, 512, 2048, True))
 RESNET_UNITS = 32
+# ops/batchnorm.py's launches in one unmasked ResNet50 train step, by
+# counter (_bn_counters), gate open and closed: 53 BatchNorms (the stem, 16
+# bn1, 16 bn2, 16 bn3, 4 downsample). Gate open, the unit gives bn1's and
+# bn3's sums and applies bn2's coefficients in its prologue: statistics for
+# the other 21, applies for the stem, 16 bn1 and 16 tails (one each for
+# bn3, the downsample's BatchNorm, the add and the ReLU); gate closed,
+# statistics for all 53 and an apply for bn2 too. An eval batch applies
+# the running statistics; a masked (ragged) train step runs the plain path.
+RESNET_BN_STEP = {
+    True: {"batchnorm_stats": 21, "batchnorm_finish": 53,
+           "batchnorm_apply": 33, "batchnorm_colsum": 33,
+           "batchnorm_finish_bwd": 53, "batchnorm_dx": 49},
+    False: {"batchnorm_stats": 53, "batchnorm_finish": 53,
+            "batchnorm_apply": 49, "batchnorm_colsum": 49,
+            "batchnorm_finish_bwd": 53, "batchnorm_dx": 49}}
+RESNET_BN_EVAL = {"batchnorm_finish": 53, "batchnorm_apply": 49}
+# the BatchNorm kernels alone at ResNet50's stem (BN + ReLU) and layer4's
+# downsample tail (bn3 + the downsample's BatchNorm + add + ReLU), batch 32:
+# (label, B, H, W, C, branches)
+BN_SHAPES = (("stem", 32, 112, 112, 64, 1),
+             ("layer4 tail", 32, 7, 7, 2048, 2))
+BN_SUM_REL_L2 = 1e-5       # the statistics' and column sums' run partials
 # a sequence length past what a [64, N] score tile in shared memory allows
 LONG_N = 600
 
@@ -977,6 +1019,15 @@ def _conv_bn_counters():
             "conv1x1_bn_stats_bwd": (conv_bn, "LAUNCHES_BWD")}
 
 
+def _bn_counters():
+    """The BatchNorm chain's counters (ops/batchnorm.py), by launch."""
+    from artgraph_tpu_torch.ops import batchnorm
+
+    return {f"batchnorm_{step.lower()}": (batchnorm, f"LAUNCHES_{step}")
+            for step in ("STATS", "FINISH", "APPLY", "COLSUM", "FINISH_BWD",
+                         "DX")}
+
+
 def _mha_counters():
     from artgraph_tpu_torch.ops import attention
 
@@ -986,9 +1037,19 @@ def _mha_counters():
             "fused_qkv_attention_bwd": (attention, "LAUNCHES_QKV_BWD")}
 
 
+def _resnet_bn(full: int, evals: int, gate: bool = True) -> dict:
+    """The BatchNorm kernels' launches of a ResNet50 run of `full` unmasked
+    train steps and `evals` eval batches (RESNET_BN_STEP, RESNET_BN_EVAL)."""
+    out = {k: n * full for k, n in RESNET_BN_STEP[gate].items()}
+    for k, n in RESNET_BN_EVAL.items():
+        out[k] += n * evals
+    return out
+
+
 def _zero_counts() -> None:
     for mod, attr in (*_counters().values(), *_csr_counters().values(),
                       *_conv_bn_counters().values(),
+                      *_bn_counters().values(),
                       *_mha_counters().values()):
         setattr(mod, attr, 0)
 
@@ -1390,6 +1451,361 @@ def conv_bn_kernel_phases() -> dict:
         torch.cuda.empty_cache()
     for row in rows.values():
         del row["_largest"]
+    return rows
+
+
+BN_STEPS = ("_stats", "_finish", "_apply", "_colsum", "_finish_bwd", "_dx")
+
+
+@contextlib.contextmanager
+def _bn_held_to_plain(worst: dict):
+    """Inside, every launch of ops/batchnorm.py's kernels is held against
+    its plain twin on the same in-situ inputs: the statistics' and column
+    sums' run partials, added, at relative L2 <= BN_SUM_REL_L2 of the
+    twin's sums; the finishing (from the partials merged in the kernel's
+    order, merge_plain, and the running statistics as they were before the
+    launch), the apply, the backward's finishing and dx bit-identical to
+    the twins, as tests/test_torch_cuda.py holds them on seeded inputs.
+    `worst` collects each launch's largest relative L2 (the sums) or
+    number of differing elements (the rest: 0), its calls, and the [M, C]
+    of the statistics' and apply's inputs."""
+    from types import SimpleNamespace
+
+    from artgraph_tpu_torch.ops import batchnorm as T
+
+    real = {name: getattr(T, name) for name in BN_STEPS}
+
+    def note(step, value, limit, shape=None):
+        if not value <= limit:
+            raise AssertionError(f"batchnorm {step} in situ: {value} > "
+                                 f"{limit} against its plain twin")
+        worst[step] = max(worst.get(step, 0), value)
+        worst[f"{step} calls"] = worst.get(f"{step} calls", 0) + 1
+        if shape is not None:
+            worst.setdefault("shapes", set()).add(shape)
+
+    def exact(step, ours, refs, shape=None):
+        differ = sum(int((o != r).sum()) if o.dtype == r.dtype
+                     and o.shape == r.shape else o.numel()
+                     for o, r in zip(ours, refs) if o is not None)
+        note(step, differ, 0, shape)
+
+    def stats(x):
+        part = real["_stats"](x)
+        note("_stats", _rel_l2(part.double().sum(0), T.stats_plain(x)[0]),
+             BN_SUM_REL_L2, tuple(x.shape))
+        return part
+
+    def finish(mode, bn, p1, p2, n, n_dev):
+        twin = SimpleNamespace(
+            running_mean=bn.running_mean.clone(),
+            running_var=bn.running_var.clone(),
+            num_batches_tracked=bn.num_batches_tracked.clone(),
+            momentum=bn.momentum, eps=bn.eps)
+        out = real["_finish"](mode, bn, p1, p2, n, n_dev)
+        if mode == T.FIN_MERGE:
+            exact("_finish", [out], [torch.cat([
+                T.merge_plain(p1), T.merge_plain(p2), p1.new_full((1,), n)])])
+            return out
+        train = mode == T.FIN_TRAIN
+        ref = T.finish_plain(T.merge_plain(p1) if train else None,
+                             T.merge_plain(p2) if train else None,
+                             n if n_dev is None else n_dev[0], twin,
+                             bn.weight, bn.bias, train)
+        exact("_finish", [*out, bn.running_mean, bn.running_var,
+                          bn.num_batches_tracked],
+              [*ref, twin.running_mean, twin.running_var,
+               twin.num_batches_tracked])
+        return out
+
+    def apply(xs, coefs, ident, relu):
+        out = real["_apply"](xs, coefs, ident, relu)
+        exact("_apply", [out], [T.apply_plain(xs, coefs, ident, relu)],
+              tuple(xs[0].shape))
+        return out
+
+    def colsum(g, o, xs):
+        part = real["_colsum"](g, o, xs)
+        note("_colsum", _rel_l2(part.double().sum(0),
+                                T.colsum_plain(g, o, xs)[0]), BN_SUM_REL_L2)
+        return part
+
+    def finish_bwd(p1, p2, da, db, saved, w, n, n_dev, train):
+        out = real["_finish_bwd"](p1, p2, da, db, saved, w, n, n_dev, train)
+        if da is None:
+            da, db = T._bf(T.merge_plain(p1)), T._bf(T.merge_plain(p2))
+        exact("_finish_bwd", out, T.finish_bwd_plain(
+            da.float(), db.float(), saved, w,
+            n if n_dev is None else n_dev[0], train))
+        return out
+
+    def dx(g, o, xs, coefs_a, css, want_identity):
+        dxs, did = real["_dx"](g, o, xs, coefs_a, css, want_identity)
+        ref, ref_did = T.dx_plain(g, o, xs, coefs_a, css, want_identity)
+        exact("_dx", [*dxs, did], [*ref, ref_did])
+        return dxs, did
+
+    for name, fn in zip(BN_STEPS, (stats, finish, apply, colsum, finish_bwd,
+                                   dx)):
+        setattr(T, name, fn)
+    try:
+        yield worst
+    finally:
+        for name, fn in real.items():
+            setattr(T, name, fn)
+
+
+def _bn_worst(worst: dict) -> dict:
+    """_bn_held_to_plain's `worst` to print, without the shapes."""
+    return {k: (float(f"{v:.4g}") if isinstance(v, float) else v)
+            for k, v in worst.items() if k != "shapes"}
+
+
+def _check_bn_held(label: str, worst: dict, calls: dict,
+                   shapes=()) -> None:
+    """Every launch counted in `calls` (_bn_counters' names) was held to
+    its twin (_bn_held_to_plain), and the [M, C] `shapes` were among its
+    inputs."""
+    held = {f"batchnorm{step}": worst.get(f"{step} calls", 0)
+            for step in BN_STEPS}
+    seen = worst.get("shapes", set())
+    if held != {k: calls.get(k, 0) for k in held} or \
+            not set(shapes) <= seen:
+        raise AssertionError(f"{label}: BatchNorm launches {calls}, held to "
+                             f"the twins {held}, shapes {sorted(seen)} "
+                             f"(wanted {list(shapes)})")
+    print(f"{label}: the step's BatchNorm launches {calls}, each against its "
+          f"plain twin on its own inputs (sums: worst rel L2, limit "
+          f"{BN_SUM_REL_L2}; the rest: elements that differ, limit 0): "
+          f"{_bn_worst(worst)}; {len(seen)} [M, C] input shapes"
+          + (f", {list(shapes)} among them" if shapes else ""), flush=True)
+
+
+def _tensors(tree) -> list:
+    """The tensors of nested lists and tuples, in order (None left out)."""
+    if tree is None or torch.is_tensor(tree):
+        return [] if tree is None else [tree]
+    return [t for x in tree for t in _tensors(x)]
+
+
+def bn_kernel_phases() -> dict:
+    """Phases 3 and 4 for ops/batchnorm.py's six launches at BN_SHAPES: one
+    layer's chain (statistics, finishing, apply; column sums, backward
+    finishing, dx), each launch held against its plain twin
+    (_bn_held_to_plain), the whole chain bit-identical on repeat; then
+    each launch timed beside its twin and the PyTorch primitive that does
+    its part of native BatchNorm (torch.batch_norm_stats,
+    batch_norm_gather_stats_with_counts, batch_norm_elemt with the add and
+    ReLU, batch_norm_backward_reduce, batch_norm_backward_elemt; the
+    backward's finishing has none), inputs rotated past the L2, with its
+    byte bound; and the chain each way beside F.batch_norm (cuDNN) with
+    the add and ReLU on the same channels-last bf16 input, and its autograd
+    backward. A launch's row in the kernels line sums its two shapes."""
+    import torch.nn.functional as F
+
+    from artgraph_tpu_torch.models import MixedBatchNorm
+    from artgraph_tpu_torch.ops import batchnorm as T
+
+    rng = np.random.default_rng(SEED + 62)
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "artgraph_tpu_torch/ops/csrc/batchnorm.cu",
+                   "replaces": "artgraph_tpu/models/resnet.py:76",
+                   "launches": 0, "max_abs_err": 0.0, "ms": 0.0,
+                   "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+                   "library_ms": 0.0}
+            for name in _bn_counters()}
+    rows["batchnorm_finish_bwd"]["library_ms"] = None
+    bf = torch.bfloat16
+    for label, b, h, w, c, nb in BN_SHAPES:
+        M, n = b * h * w, float(b * h * w)
+        runs = T.row_chunks(M, c)[1]
+
+        def nchw():
+            return torch.from_numpy((0.3 + 2.0 * rng.normal(
+                size=(b, h, w, c))).astype(np.float32)).to(
+                    "cuda", bf).permute(0, 3, 1, 2)
+
+        xs, g = [nchw() for _ in range(nb)], nchw()
+        bns = []
+        for _ in range(nb):
+            bn = MixedBatchNorm(c).cuda().train()
+            with torch.no_grad():
+                bn.weight.copy_(torch.from_numpy(
+                    1.0 + 0.2 * rng.normal(size=c)))
+                bn.bias.copy_(torch.from_numpy(0.2 * rng.normal(size=c)))
+            bns.append(bn)
+        xr, gr = [T.as_rows(x) for x in xs], T.as_rows(g)
+        cut = lambda p, i: p[:, i * c:(i + 1) * c]
+
+        def chain():
+            parts = [T._stats(x) for x in xr]
+            coefs = [T._finish(T.FIN_TRAIN, bn, cut(p, 0), cut(p, 1), n, None)
+                     for bn, p in zip(bns, parts)]
+            out = T._apply(xr, [k[:2] for k in coefs], None, True)
+            part = T._colsum(gr, out, xr)
+            bwd = [T._finish_bwd(cut(part, i), cut(part, nb), None, None,
+                                 k[2], bn.weight, n, None, True)
+                   for i, (bn, k) in enumerate(zip(bns, coefs))]
+            dxs, _ = T._dx(gr, out, xr, [k[0] for k in coefs],
+                           [d[2] for d in bwd], False)
+            return parts, coefs, out, part, bwd, dxs
+
+        held: dict = {}
+        with _bn_held_to_plain(held):
+            first = chain()
+        again = chain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(_tensors(first),
+                                                      _tensors(again))):
+            raise AssertionError(f"batchnorm {label}: the chain differs "
+                                 f"from call to call")
+        print(f"check: batchnorm {label} [{M}, {c}] x {nb}, each launch "
+              f"against its plain twin on its inputs (sums: rel L2, limit "
+              f"{BN_SUM_REL_L2}; the rest: elements that differ, limit 0): "
+              f"{_bn_worst(held)}; the chain bit-identical on repeat",
+              flush=True)
+        for step in ("_stats", "_colsum"):
+            row = rows[f"batchnorm{step}"]
+            row["max_abs_err"] = max(row["max_abs_err"], held[step])
+        stat_parts, coefs, out, part, bwd, _ = first
+        css = [d[2] for d in bwd]
+        copies = _copies((nb + 2) * M * c * 2)
+        sets = [([x.clone() for x in xr], gr.clone(), out.clone())
+                for _ in range(copies)]
+        # native BatchNorm's own per-channel statistics and column sums
+        mv = [torch.batch_norm_stats(x, bn.eps) for x, bn in zip(xs, bns)]
+        counts = torch.full((1,), M, dtype=torch.float32, device="cuda")
+        counts_i = torch.full((1,), M, dtype=torch.int32, device="cuda")
+        sums = [torch.batch_norm_backward_reduce(
+            g, x, m, v, bn.weight, True, False, False)[:2]
+            for x, bn, (m, v) in zip(xs, bns, mv)]
+        as4 = lambda r: T.as_nchw(r, xs[0])
+
+        def lib_apply(xl, _g, _o):
+            y = sum(torch.batch_norm_elemt(as4(x), bn.weight, bn.bias, m, v,
+                                           bn.eps).float()
+                    for x, bn, (m, v) in zip(xl, bns, mv))
+            return torch.relu_(y).to(bf)
+
+        cases = {
+            "batchnorm_stats": (
+                lambda xl, _g, _o: [T._stats(x) for x in xl],
+                lambda xl, _g, _o: [T.stats_plain(x) for x in xl],
+                lambda xl, _g, _o: [torch.batch_norm_stats(as4(x), bn.eps)
+                                    for x, bn in zip(xl, bns)],
+                nb * (M * c * 2 + runs * 2 * c * 4)),
+            "batchnorm_finish": (
+                lambda *_: [T._finish(T.FIN_TRAIN, bn, cut(p, 0), cut(p, 1),
+                                      n, None)
+                            for bn, p in zip(bns, stat_parts)],
+                lambda *_: [T.finish_plain(
+                    cut(p, 0).sum(0), cut(p, 1).sum(0), n, bn, bn.weight,
+                    bn.bias, True) for bn, p in zip(bns, stat_parts)],
+                lambda *_: [torch.batch_norm_gather_stats_with_counts(
+                    x, m.view(1, c), v.view(1, c), bn.running_mean,
+                    bn.running_var, bn.momentum, bn.eps, counts)
+                    for x, bn, (m, v) in zip(xs, bns, mv)],
+                # the partials; w, bias, the running statistics read and
+                # written; a, b; saved
+                nb * (runs * 2 * c * 4 + 6 * c * 4 + 2 * c * 2
+                      + 3 * c * 4)),
+            "batchnorm_apply": (
+                lambda xl, _g, _o: T._apply(xl, [k[:2] for k in coefs], None,
+                                            True),
+                lambda xl, _g, _o: T.apply_plain(xl, [k[:2] for k in coefs],
+                                                 None, True),
+                lib_apply, (nb + 1) * M * c * 2 + nb * 2 * c * 2),
+            "batchnorm_colsum": (
+                lambda xl, gl, ol: T._colsum(gl, ol, xl),
+                lambda xl, gl, ol: T.colsum_plain(gl, ol, xl),
+                lambda xl, gl, _o: [torch.batch_norm_backward_reduce(
+                    as4(gl), as4(x), m, v, bn.weight, True, True, True)
+                    for x, bn, (m, v) in zip(xl, bns, mv)],
+                (nb + 2) * M * c * 2 + runs * (nb + 1) * c * 4),
+            "batchnorm_finish_bwd": (
+                lambda *_: [T._finish_bwd(cut(part, i), cut(part, nb), None,
+                                          None, k[2], bn.weight, n, None,
+                                          True)
+                            for i, (bn, k) in enumerate(zip(bns, coefs))],
+                lambda *_: [T.finish_bwd_plain(
+                    T._bf(cut(part, i).sum(0)), T._bf(cut(part, nb).sum(0)),
+                    k[2], bn.weight, n, True)
+                    for i, (bn, k) in enumerate(zip(bns, coefs))],
+                None,
+                # the partials; saved, w; dgamma, dbeta, c1, c2
+                nb * (runs * 2 * c * 4 + 4 * c * 4 + 4 * c * 4)),
+            "batchnorm_dx": (
+                lambda xl, gl, ol: T._dx(gl, ol, xl, [k[0] for k in coefs],
+                                         css, False),
+                lambda xl, gl, ol: T.dx_plain(gl, ol, xl,
+                                              [k[0] for k in coefs], css,
+                                              False),
+                lambda xl, gl, _o: [torch.batch_norm_backward_elemt(
+                    as4(gl), as4(x), m, v, bn.weight, s[0], s[1], counts_i)
+                    for x, bn, (m, v), s in zip(xl, bns, mv, sums)],
+                (2 * nb + 2) * M * c * 2 + nb * (c * 2 + 2 * c * 4)),
+        }
+        for name, (kernel, plain, library, nbytes) in cases.items():
+            ms = _time_ms(_rotating(kernel, sets))
+            plain_ms = _time_ms(_rotating(plain, sets))
+            lib_ms = (None if library is None
+                      else _time_ms(_rotating(library, sets)))
+            bound_ms, _ = _bound(0, nbytes)
+            row = rows[name]
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += bound_ms
+            if lib_ms is not None:
+                row["library_ms"] += lib_ms
+            print(f"time: {name} {label} [{M}, {c}] x {nb} kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, library "
+                  + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+                  + f", bound {bound_ms:.4f} ms (bytes), "
+                  f"{100 * bound_ms / ms:.1f}% of the bound (median of 10 "
+                  f"CUDA-event timings of 10 calls, inputs rotated over "
+                  f"{copies} copies)", flush=True)
+
+        # the chain each way beside F.batch_norm (cuDNN), the add and ReLU
+        def lib_forward(xl, _g, _o):
+            y = sum(F.batch_norm(as4(x), bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, True, bn.momentum,
+                                 bn.eps).float() for x, bn in zip(xl, bns))
+            return torch.relu_(y).to(bf)
+
+        def chain_forward(xl, _g, _o):
+            ks = [T._finish(T.FIN_TRAIN, bn, cut(p, 0), cut(p, 1), n, None)
+                  for bn, p in zip(bns, [T._stats(x) for x in xl])]
+            return T._apply(xl, [k[:2] for k in ks], None, True)
+
+        def chain_backward(xl, gl, ol):
+            p = T._colsum(gl, ol, xl)
+            cs = [T._finish_bwd(cut(p, i), cut(p, nb), None, None, k[2],
+                                bn.weight, n, None, True)[2]
+                  for i, (bn, k) in enumerate(zip(bns, coefs))]
+            return T._dx(gl, ol, xl, [k[0] for k in coefs], cs, False)
+
+        graphs = []
+        for xl, gl, _ in sets:
+            leaves = [as4(x).detach().requires_grad_() for x in xl]
+            y = torch.relu(sum(F.batch_norm(
+                x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).float()
+                for x, bn in zip(leaves, bns))).to(bf)
+            graphs.append((leaves, y, as4(gl)))
+        times = {"forward": (_time_ms(_rotating(chain_forward, sets)),
+                             _time_ms(_rotating(lib_forward, sets))),
+                 "backward": (_time_ms(_rotating(chain_backward, sets)),
+                              _time_ms(_rotating(
+                                  lambda ls, y, gg: torch.autograd.grad(
+                                      y, ls, gg, retain_graph=True),
+                                  graphs)))}
+        for way, (ours, lib) in times.items():
+            print(f"time: batchnorm chain {label} [{M}, {c}] x {nb} {way}: "
+                  f"the kernels {ours:.4f} ms, F.batch_norm (cuDNN) with "
+                  f"the add and ReLU {lib:.4f} ms (autograd's backward of it "
+                  f"for the backward) (median of 10 CUDA-event timings of 10 "
+                  f"calls, inputs rotated over {copies} copies)", flush=True)
+        del xs, g, xr, gr, first, again, sets, graphs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2147,7 +2563,7 @@ def _seeded_resnet_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 def _all_counts() -> dict:
     return {**_read_counts(), **_read_counts(_conv_bn_counters),
-            **_read_counts(_mha_counters)}
+            **_read_counts(_bn_counters), **_read_counts(_mha_counters)}
 
 
 def resnet_serve_phase() -> dict:
@@ -2160,6 +2576,7 @@ def resnet_serve_phase() -> dict:
 
     expect = dict.fromkeys(_all_counts(), 0)
     expect["normalize_images"] = BATCHES
+    expect.update(_resnet_bn(0, BATCHES))
     specs = [
         ("ResnetSingleTask", lambda: ResnetSingleTask(32), 0),
         ("NewMultiModalMultiTask",
@@ -2167,7 +2584,7 @@ def resnet_serve_phase() -> dict:
          2),
     ]
     rng = np.random.default_rng(SEED + 70)
-    launches = 0
+    launches: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, ctor, n_emb) in enumerate(specs):
             path = os.path.join(tmp, f"{name}.pt")
@@ -2194,7 +2611,8 @@ def resnet_serve_phase() -> dict:
             if counts != expect:
                 raise AssertionError(f"{name}: launch counts {counts}, "
                                      f"expected {expect}")
-            launches += counts["normalize_images"]
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
             outs = [o if isinstance(o, list) else [o] for o in outs]
             for logits in (t for o in outs for t in o):
                 if logits.dtype != torch.float32 or logits.shape[0] != B \
@@ -2232,7 +2650,7 @@ def resnet_serve_phase() -> dict:
                   f"of {B}: {[round(r, 1) for r in rates]})", flush=True)
             del model, cpu
             torch.cuda.empty_cache()
-    return {"normalize_images": launches}
+    return launches
 
 
 @contextlib.contextmanager
@@ -2284,6 +2702,7 @@ def _resnet_train_steps(gate: bool) -> tuple[dict, float, float | None]:
         if gate:
             expect["conv1x1_bn_stats"] = RESNET_UNITS * TRAIN_STEPS
             expect["conv1x1_bn_stats_bwd"] = RESNET_UNITS * TRAIN_STEPS
+        expect.update(_resnet_bn(TRAIN_STEPS, 0, gate))
         if counts != expect:
             raise AssertionError(f"resnet train (gate {label}): launch "
                                  f"counts {counts}, expected {expect}")
@@ -2304,6 +2723,18 @@ def _resnet_train_steps(gate: bool) -> tuple[dict, float, float | None]:
         work = _profile_steps(step, PROFILED_STEPS,
                               1e3 * seconds / TRAIN_STEPS,
                               label=f"resnet gate {label}")
+        # one more step, each BatchNorm launch held to its twin in situ
+        held: dict = {}
+        _zero_counts()
+        with _bn_held_to_plain(held):
+            step()
+        torch.cuda.synchronize()
+        calls = _read_counts(_bn_counters)
+        if calls != RESNET_BN_STEP[gate]:
+            raise AssertionError(f"resnet train (gate {label}): BatchNorm "
+                                 f"launches {calls} in the held step")
+        _check_bn_held(f"resnet train (gate {label}), batch {B}", held, calls,
+                       ((B * 112 * 112, 64), (B * 7 * 7, 2048)))
     busy = sum(ms for ms, _ in work.values())
     del trainer, model
     torch.cuda.empty_cache()
@@ -2370,14 +2801,17 @@ def _units_held_to_plain(worst: dict):
 
 
 def _resnet_step(src, build, loss_of, device: str, dtype: torch.dtype,
-                 gate: bool, images, held: dict | None = None) -> dict:
+                 gate: bool, images, held: dict | None = None,
+                 held_bn: dict | None = None) -> dict:
     """One train-mode forward and backward of a copy of `src`, build(dtype)
     with dropout 0, on `device` in `dtype` with the fused unit's gate as
     given. loss_of(outputs, device) -> (loss, {name: output tensor}).
     Returns the loss, those outputs, the trunk (`resnet.*`) and head (the
     rest) gradients and the BN statistics' updates, in f64 on the CPU; and
-    the unit's launches. With `held`, each launch of the unit is held
-    against its plain twin (_units_held_to_plain)."""
+    the unit's and the BatchNorm kernels' launches. With `held`, each
+    launch of the unit is held against its plain twin
+    (_units_held_to_plain); with `held_bn`, each BatchNorm launch
+    (_bn_held_to_plain)."""
     from artgraph_tpu_torch.ops import normalize_images
 
     before = {n: b.double().clone() for n, b in src.named_buffers()
@@ -2391,7 +2825,9 @@ def _resnet_step(src, build, loss_of, device: str, dtype: torch.dtype,
     _zero_counts()
     check = (_units_held_to_plain(held) if held is not None
              else contextlib.nullcontext())
-    with _conv_bn_gate(gate), check:
+    check_bn = (_bn_held_to_plain(held_bn) if held_bn is not None
+                else contextlib.nullcontext())
+    with _conv_bn_gate(gate), check, check_bn:
         loss, outputs = loss_of(
             model(normalize_images(images.to(device), "resnet")), device)
         loss.backward()
@@ -2407,7 +2843,8 @@ def _resnet_step(src, build, loss_of, device: str, dtype: torch.dtype,
             "trunk gradient": cat(True),
             "head gradient": cat(False),
             "BN statistics' updates": _bn_updates(model, before),
-            "units": _read_counts(_conv_bn_counters)}
+            "units": _read_counts(_conv_bn_counters),
+            "bn": _read_counts(_bn_counters)}
 
 
 def _hold_step(label: str, src, build, loss_of, images, n_img: int,
@@ -2419,8 +2856,9 @@ def _hold_step(label: str, src, build, loss_of, images, n_img: int,
     bf16 CPU path's own distance from the f32 one) (resnet_grad_phase)."""
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     held: dict = {}
+    held_bn: dict = {}
     card = _resnet_step(src, build, loss_of, "cuda", torch.bfloat16, True,
-                        images, held)
+                        images, held, held_bn)
     ref = _resnet_step(src, build, loss_of, "cpu", torch.float32, False,
                        images)
     floor = _resnet_step(src, build, loss_of, "cpu", torch.bfloat16, False,
@@ -2437,6 +2875,10 @@ def _hold_step(label: str, src, build, loss_of, images, n_img: int,
           f"limit 1; s1, s2, dw, da, db: worst rel L2, limit {GRAD_REL_L2}; "
           f"da, db without the prologue exactly 0): "
           f"{ {k: round(v, 6) for k, v in held.items()} }", flush=True)
+    if card["bn"] != RESNET_BN_STEP[True]:
+        raise AssertionError(f"{label}: BatchNorm launches {card['bn']}, "
+                             f"expected {RESNET_BN_STEP[True]}")
+    _check_bn_held(label, held_bn, card["bn"])
     parts = []
     for q in quantities:
         got, base = rel(card[q], ref[q]), rel(floor[q], ref[q])
@@ -2508,9 +2950,10 @@ def resnet_grad_phase() -> None:
         trainer.train_step(trainer.to_device(
             (images.numpy(), labels.numpy(), mask)), ragged=True)
     torch.cuda.synchronize()
-    counts = _read_counts(_conv_bn_counters)
+    counts = {**_read_counts(_conv_bn_counters), **_read_counts(_bn_counters)}
     if any(counts.values()):
-        raise AssertionError(f"resnet ragged step: unit launches {counts}")
+        raise AssertionError(f"resnet ragged step: unit or BatchNorm "
+                             f"launches {counts}")
     updates = {}
     for dtype in (torch.float32, torch.bfloat16):
         cpu = ResnetSingleTask(32, dropout=0.0, dtype=dtype)
@@ -2522,7 +2965,8 @@ def resnet_grad_phase() -> None:
     base = rel(updates[torch.bfloat16], updates[torch.float32])
     bound = max(TRAIN_GRAD_REL_L2, BF16_FLOOR_FACTOR * base)
     print(f"resnet grads: one ragged step ({valid} of {n_img} rows valid) on "
-          f"cuda, gate open: unit launches {counts}; BN statistics' updates "
+          f"cuda, gate open: unit and BatchNorm launches {counts} (the "
+          f"masked step runs the plain path); BN statistics' updates "
           f"vs the f32 CPU path over the {valid} valid rows: rel L2 "
           f"{got:.4g} (unfused bf16 on the CPU {base:.4g}, bound "
           f"{bound:.4g})", flush=True)
@@ -2555,6 +2999,7 @@ def resnet_cli_phase(checkpoints_dir: Path) -> None:
                 "--device", "cuda", "--results_dir", str(root / "results")])
         seconds = time.perf_counter() - t0
         units = _read_counts(_conv_bn_counters)
+        bn = _read_counts(_bn_counters)
         text = out.getvalue()
         for line in text.splitlines():
             print(f"resnet cli: {line}")
@@ -2567,11 +3012,19 @@ def resnet_cli_phase(checkpoints_dir: Path) -> None:
             raise AssertionError(f"resnet cli: unit launches {units}, "
                                  f"expected {RESNET_UNITS * full} each (the "
                                  f"{full} full batches)")
+        evals = -(-counts["validation"] // batch) + -(-counts["test"]
+                                                       // batch)
+        if bn != _resnet_bn(full, evals):
+            raise AssertionError(f"resnet cli: BatchNorm launches {bn}, "
+                                 f"expected {_resnet_bn(full, evals)} (the "
+                                 f"{full} full train batches, {evals} eval "
+                                 f"batches)")
     path = checkpoints_dir / "style_resnet_baseline_single-task_checkpoint.pt"
     model = load_reference_checkpoint("ResnetSingleTask", str(path), "cuda")
     print(f"resnet cli: train_baseline --architecture resnet --device cuda "
           f"ARTGRAPH_CONVBN=1, 1 epoch on {counts} synthetic images at "
           f"--batch {batch} in {seconds:.1f} s; unit launches {units}; "
+          f"BatchNorm launches {bn}; "
           f"checkpoint {path.name} reloaded strict "
           f"({len(model.state_dict())} tensors); test accuracy {acc}",
           flush=True)
@@ -2988,6 +3441,7 @@ def pipeline_cli_phase() -> dict:
             _expect_launches("2", c, {
                 "conv1x1_bn_stats": RESNET_UNITS * full,
                 "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                **_resnet_bn(full, nb(n_valid) + nb(n_test)),
                 "normalize_images": nb(n_train) + nb(n_valid) + nb(n_test)})
             ckpt = root / "proj" / "smoke_checkpoint_projector.pt"
             projector = load_reference_checkpoint("LabelProjector", str(ckpt),
@@ -3018,7 +3472,8 @@ def pipeline_cli_phase() -> dict:
             add(c)
             _expect_lines("3", text, "Generating projections for validation",
                           "Generating projections for test")
-            _expect_launches("3", c, {"normalize_images": 2})
+            _expect_launches("3", c, {"normalize_images": 2,
+                                      **_resnet_bn(0, 2)})
             worst = 0.0
             for split in ("validation", "test"):
                 proj = load_embedding(os.path.join(ds, split, "embeddings",
@@ -3087,6 +3542,8 @@ def pipeline_cli_phase() -> dict:
             _expect_launches("5", c, {
                 "conv1x1_bn_stats": RESNET_UNITS * full,
                 "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                **_resnet_bn(full, nb(counts["validation"])
+                             + nb(counts["test"])),
                 "normalize_images": nb(counts["train"])
                 + nb(counts["validation"]) + nb(counts["test"])})
             load_reference_checkpoint(
@@ -3107,7 +3564,7 @@ def pipeline_cli_phase() -> dict:
 
 RESNET_STEP_LAUNCHES = {"conv1x1_bn_stats": RESNET_UNITS,
                         "conv1x1_bn_stats_bwd": RESNET_UNITS,
-                        "normalize_images": 1}
+                        "normalize_images": 1, **RESNET_BN_STEP[True]}
 
 
 def _context_nets() -> tuple:
@@ -3219,12 +3676,14 @@ def context_train_phase(resnet_train: dict) -> dict:
         with _conv_bn_gate(True):
             loss, _ = trainer.train_step(
                 trainer.to_device((*one[:3], mask)), ragged=True)
-        units = _read_counts(_conv_bn_counters)
+        units = {**_read_counts(_conv_bn_counters),
+                 **_read_counts(_bn_counters)}
         if any(units.values()) or not torch.isfinite(loss):
-            raise AssertionError(f"context ragged step: {name}: unit "
-                                 f"launches {units}, loss {loss}")
+            raise AssertionError(f"context ragged step: {name}: unit or "
+                                 f"BatchNorm launches {units}, loss {loss}")
         print(f"context grads: {name}: one ragged step ({n_img // 2} of "
-              f"{n_img} rows valid) on cuda, gate open: unit launches "
+              f"{n_img} rows valid) on cuda, gate open: unit and BatchNorm "
+              f"launches "
               f"{units}, loss {loss.item():.4f}", flush=True)
 
         # the reference .pt: indexed trunk keys for ContextNet, torchvision's
@@ -3289,11 +3748,12 @@ def baseline_cli_phase() -> dict:
         emb = ["--emb_train", "emb.pt"]
         evals = {1: nb(counts["validation"]) + nb(counts["test"]),
                  2: nb(counts["validation"]) + 2 * nb(counts["test"])}
+        resnet = lambda k: {**units, **_resnet_bn(full, evals[k]),
+                            "normalize_images": n_train + evals[k]}
         runs = (
             ("multitask resnet", train_baseline_multitask.main,
              ["--architecture", "resnet"], multi, "ResnetMultiTask",
-             "resnet_baseline_single-task_checkpoint.pt", 2,
-             {**units, "normalize_images": n_train + evals[2]}),
+             "resnet_baseline_single-task_checkpoint.pt", 2, resnet(2)),
             ("multitask vit", train_baseline_multitask.main,
              ["--architecture", "vit"], multi, "ViTMultiTask",
              "vit_baseline_single-task_checkpoint.pt", 2,
@@ -3302,18 +3762,15 @@ def baseline_cli_phase() -> dict:
             ("context context-net", train_baseline_context.main,
              ["--net", "context-net", "--label", "genre", *emb], single,
              "ContextNetSingleTask",
-             "genre_context-net_single-task_checkpoint.pt", 1,
-             {**units, "normalize_images": n_train + evals[1]}),
+             "genre_context-net_single-task_checkpoint.pt", 1, resnet(1)),
             ("context multi-modal", train_baseline_context.main,
              ["--net", "multi-modal", "--label", "style", *emb], single,
              "MultiModalSingleTask",
-             "style_multi-modal_single-task_checkpoint.pt", 1,
-             {**units, "normalize_images": n_train + evals[1]}),
+             "style_multi-modal_single-task_checkpoint.pt", 1, resnet(1)),
             ("context multitask multi-modal",
              train_baseline_context_multitask.main,
              ["--net", "multi-modal", *emb], multi, "MultiModalMultiTask",
-             "multi-modal_multi-task_checkpoint.pt", 2,
-             {**units, "normalize_images": n_train + evals[2]}),
+             "multi-modal_multi-task_checkpoint.pt", 2, resnet(2)),
         )
         for label, main, extra, lines, model_name, ckpt, tasks, expect \
                 in runs:
@@ -3408,7 +3865,7 @@ def _graph_specs() -> list:
          RESNET_STEP_LAUNCHES),
         ("ResnetSingleTask(32) ResNet50 gate off (phase 13)", resnet,
          adam(3e-4), single, "resnet", image_only, images_labels, False,
-         {"normalize_images": 1}),
+         {"normalize_images": 1, **RESNET_BN_STEP[False]}),
         ("NewMultiModalMultiTaskViT ViT-B/16 (phase 19)",
          lambda: init_random_(
              NewMultiModalMultiTaskViT(config.EMB_SIZE, config.NUM_CLASSES,
@@ -3622,7 +4079,8 @@ def _graph_exact(spec) -> None:
     counted = {k: n / (calls + 1) for k, n in counted.items()}
     expect = _counters_as_kernels(counted)
     per_replay = {k: counted.get((mod.__name__, attr), 0) for k, (mod, attr)
-                  in {**_counters(), **_conv_bn_counters()}.items()}
+                  in {**_counters(), **_conv_bn_counters(),
+                      **_bn_counters()}.items()}
     per_replay = {k: v for k, v in per_replay.items() if v}
     print(f"graph counts: {label}: counters per replay {per_replay}; the "
           f"profiler's kernels per replay {seen}; per eager step "
@@ -3881,6 +4339,7 @@ def _resident_cli() -> dict:
         expect = {
             "resnet": {"conv1x1_bn_stats": RESNET_UNITS * full,
                        "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                       **_resnet_bn(full, evals),
                        "normalize_images": n_train + evals},
             "vit": {"fused_block_attention": 12 * (n_train + evals),
                     "fused_block_mlp": 12 * (n_train + evals),
@@ -4062,6 +4521,7 @@ def _rc_image_launches(arch: str, counts: dict, train_epochs: int,
         full = train_epochs * (counts["train"] // RC_BATCH)
         return {"conv1x1_bn_stats": RESNET_UNITS * full,
                 "conv1x1_bn_stats_bwd": RESNET_UNITS * full,
+                **_resnet_bn(full, evals),
                 "normalize_images": train + evals}
     return {"fused_block_attention": 12 * (train + evals),
             "fused_block_mlp": 12 * (train + evals),
@@ -4541,7 +5001,8 @@ def _dp_world1(spec, mesh) -> dict:
             per = {name: counted.get((mod.__name__, attr), 0)
                    / (2 * DP_STEPS)
                    for name, (mod, attr) in {**_counters(),
-                                             **_conv_bn_counters()}.items()}
+                                             **_conv_bn_counters(),
+                                             **_bn_counters()}.items()}
             out[k] = {"ms": step_ms, "busy_ms": busy, "nccl_ms": nccl,
                       "idle": max(0.0, 1 - busy / step_ms) if busy else None,
                       "launches": {n: v for n, v in per.items() if v}}
@@ -4989,7 +5450,7 @@ def policy_drift_phase() -> dict:
     resnet = lambda dt: ResnetSingleTask(DRIFT_CLASSES, 0.4, dtype=dt)
     cases = (("ViTSingleTask ViT-B/16", vit, "vit", False, VIT_STEP_LAUNCHES),
              ("ResnetSingleTask ResNet50 gate closed", resnet, "resnet",
-              False, {"normalize_images": 1}),
+              False, {"normalize_images": 1, **RESNET_BN_STEP[False]}),
              ("ResnetSingleTask ResNet50 gate open", resnet, "resnet", True,
               RESNET_STEP_LAUNCHES))
     total: dict = {}
@@ -5390,7 +5851,7 @@ def _kernel_names() -> dict:
     """`module.counter` (as dryrun_multichip returns them) -> kernel name."""
     return {f"{mod.__name__}.{attr}": name
             for counters in (_counters, _csr_counters, _conv_bn_counters,
-                             _mha_counters)
+                             _bn_counters, _mha_counters)
             for name, (mod, attr) in counters().items()}
 
 
@@ -5419,7 +5880,8 @@ def _entry_run() -> dict:
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
     counts = {k: v for k, v in _all_counts().items() if v}
-    if counts != {"normalize_images": ENTRY_CALLS}:
+    if counts != {"normalize_images": ENTRY_CALLS,
+                  **{k: n * ENTRY_CALLS for k, n in RESNET_BN_EVAL.items()}}:
         raise AssertionError(f"last modules: entry(): launches {counts}")
     with torch.no_grad():
         plain = model(normalize_images_plain(images, "resnet"), emb_s, emb_g)
@@ -5741,6 +6203,7 @@ def main() -> int:
         kernels.update(csr_kernel_phases())
         scalar_normalize_phases()
         kernels.update(conv_bn_kernel_phases())
+        kernels.update(bn_kernel_phases())
         kernels.update(attention_kernel_phases())
         launches = serve_phase()
         counts, vit_train = train_phase()
@@ -5751,8 +6214,8 @@ def main() -> int:
         launches.update(gnn_train_phase())
         gnn_grad_phase()
         gnn_cli_phase()
-        launches["normalize_images"] += \
-            resnet_serve_phase()["normalize_images"]
+        for k, n in resnet_serve_phase().items():
+            launches[k] = launches.get(k, 0) + n
         counts, resnet_train = resnet_train_phase()
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n

@@ -838,3 +838,358 @@ def test_cuda_resumed_graphed_epoch_equals_an_uninterrupted_one(tmp_path,
         for k, v in resumed.optimizer.state[p].items():
             assert torch.equal(v, straight.optimizer.state[q][k]), k
             assert v.device == p.device, k
+
+
+def _bn_module(C, seed, device="cuda"):
+    """A train-mode MixedBatchNorm with seeded parameters and buffers."""
+    from artgraph_tpu_torch.models import MixedBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    bn = MixedBatchNorm(C)
+    bn.weight.data = 1.0 + 0.2 * torch.randn(C, generator=g)
+    bn.bias.data = 0.2 * torch.randn(C, generator=g)
+    bn.running_mean.data = 0.1 * torch.randn(C, generator=g)
+    bn.running_var.data = 1.0 + 0.1 * torch.rand(C, generator=g)
+    return bn.to(device).train()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,branches,identity", [
+    (32, 112, 112, 64, 1, False), (32, 56, 56, 256, 1, True),
+    (32, 7, 7, 2048, 2, False), (3, 5, 7, 96, 2, False)])
+def test_cuda_batchnorm_kernels_match_plain(B, H, W, C, branches, identity,
+                                            monkeypatch):
+    """Each launch of ops/batchnorm.py against its twin on the same CUDA
+    inputs, at ResNet50's stem (32x112x112x64), a layer1 tail with the
+    identity and layer4's downsample tail (32x7x7x2048), and a ragged
+    one: the statistics' and column sums' run partials, added, at relative
+    L2 <= 1e-5 of the twins' sums and bit-identical on a second call; the
+    finishing (train and eval), apply, backward finishing and dx
+    bit-identical to the twins (they round where MixedBatchNorm rounds,
+    and the twins' f32 ops on the card are the kernels' own); one launch
+    counted a call."""
+    from artgraph_tpu_torch.ops import batchnorm as T
+
+    _need_cuda()
+    for name in ("LAUNCHES_STATS", "LAUNCHES_FINISH", "LAUNCHES_APPLY",
+                 "LAUNCHES_COLSUM", "LAUNCHES_FINISH_BWD", "LAUNCHES_DX"):
+        monkeypatch.setattr(T, name, 0)
+    rng = np.random.default_rng(B * H + C)
+    M = B * H * W
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        "cuda", torch.bfloat16)
+    xs = [dev(rng.normal(size=(M, C)) * 2.0 + 0.3) for _ in range(branches)]
+    ident = dev(rng.normal(size=(M, C))) if identity else None
+    g = dev(rng.normal(size=(M, C)))
+    n = float(M)
+
+    def summed(parts, ref, name):
+        assert torch.equal(parts[0], parts[1]), name
+        rel = ((parts[0].double().sum(0) - ref.double()).norm()
+               / ref.double().norm())
+        assert rel <= 1e-5, (name, float(rel))
+
+    coefs, saveds, bns = [], [], []
+    for i, x in enumerate(xs):
+        bn, twin = _bn_module(C, i), _bn_module(C, i)
+        sums = T.stats_plain(x)[0]
+        summed([T._stats(x) for _ in range(2)], sums, "statistics")
+        p1, p2 = sums[:C].view(1, C), sums[C:].view(1, C)
+        a, b, saved = T._finish(T.FIN_TRAIN, bn, p1, p2, n, None)
+        ref = T.finish_plain(sums[:C], sums[C:], n, twin, twin.weight,
+                             twin.bias, True)
+        for name, o, r in (("a", a, ref[0]), ("b", b, ref[1]),
+                           ("saved", saved, ref[2]),
+                           ("running_mean", bn.running_mean,
+                            twin.running_mean),
+                           ("running_var", bn.running_var, twin.running_var),
+                           ("batches", bn.num_batches_tracked,
+                            twin.num_batches_tracked)):
+            assert torch.equal(o, r), name
+        bn.eval()
+        ev = T._finish(T.FIN_EVAL, bn, None, None, n, None)
+        ref_ev = T.finish_plain(None, None, n, bn, bn.weight, bn.bias, False)
+        assert torch.equal(ev[0], ref_ev[0]) and torch.equal(ev[1], ref_ev[1])
+        coefs.append((a, b))
+        saveds.append(saved)
+        bns.append(bn)
+    out = T._apply(xs, coefs, ident, True)
+    assert torch.equal(out, T.apply_plain(xs, coefs, ident, True)), "apply"
+    csums = T.colsum_plain(g, out, xs)[0]
+    summed([T._colsum(g, out, xs) for _ in range(2)], csums, "column sums")
+    css = []
+    for i, (bn, saved) in enumerate(zip(bns, saveds)):
+        col = torch.stack([csums[i * C:(i + 1) * C], csums[branches * C:]])
+        got = T._finish_bwd(col[:1], col[1:], None, None, saved, bn.weight,
+                            n, None, True)
+        ref = T.finish_bwd_plain(T._bf(col[0]), T._bf(col[1]), saved,
+                                 bn.weight, n, True)
+        for name, o, r in zip(("dgamma", "dbeta", "cs"), got, ref):
+            assert torch.equal(o, r), name
+        css.append(ref[2])
+    a_s = [c[0] for c in coefs]
+    dxs, did = T._dx(g, out, xs, a_s, css, identity)
+    ref_dxs, ref_did = T.dx_plain(g, out, xs, a_s, css, identity)
+    for d, r in zip(dxs, ref_dxs):
+        assert torch.equal(d, r), "dx"
+    if identity:
+        assert torch.equal(did, ref_did), "identity gradient"
+    torch.cuda.synchronize()
+    assert (T.LAUNCHES_STATS, T.LAUNCHES_FINISH, T.LAUNCHES_APPLY,
+            T.LAUNCHES_COLSUM, T.LAUNCHES_FINISH_BWD, T.LAUNCHES_DX) == (
+        2 * branches, 2 * branches, 1, 2, branches, 1)
+    with pytest.raises(ValueError):          # not channels-last NCHW
+        T.batch_norm(bns[0], xs[0].view(B, H, W, C).permute(0, 3, 1, 2)
+                     .contiguous())
+
+
+def _set_dropout(model, p):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = p
+    return model
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_resnet_fusion_step_launches_the_batchnorm_kernels(
+        monkeypatch):
+    """NewMultiModalMultiTask on the full ResNet50 (stage sizes 3, 4, 6, 3),
+    the unit's gate open, batch 8 of 64x64 images, through train_epoch (an
+    eager warm-up, then graph replays): each replayed step counts 21
+    statistics, 53 finishing and 33 apply launches forward and 33 column
+    sums, 53 finishing and 49 dx launches backward (the stem, 16 bn1, 16
+    bn2 and 16 tails); with the gate closed 53, 53, 49 and 49, 53, 49; an
+    eval batch 53 finishing and 49 apply launches. Two trainers from the
+    same weights run the graphed epoch bit-identically."""
+    import copy
+
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import heads, init_random_
+    from artgraph_tpu_torch.ops import batchnorm, launches
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    nc = {"style": 32, "genre": 18}
+    src = _set_dropout(init_random_(heads.NewMultiModalMultiTask(128, nc),
+                                    torch.Generator().manual_seed(3)), 0.0)
+    rng = np.random.default_rng(4)
+    batches = [(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8),
+                rng.normal(size=(8, 128)).astype(np.float32),
+                rng.normal(size=(8, 128)).astype(np.float32),
+                np.stack([rng.integers(0, 32, 8), rng.integers(0, 18, 8)], 1)
+                .astype(np.int32), np.ones(8, np.float32)) for _ in range(3)]
+
+    def trainer():
+        return Trainer(copy.deepcopy(src), adam(3e-4),
+                       multi_task_loss(None, None, 0.5, 0.5, "cuda"),
+                       transform_type="resnet", device="cuda",
+                       forward_inputs=image_and_embeddings)
+
+    names = ("LAUNCHES_STATS", "LAUNCHES_FINISH", "LAUNCHES_APPLY",
+             "LAUNCHES_COLSUM", "LAUNCHES_FINISH_BWD", "LAUNCHES_DX")
+    key = lambda name: ("artgraph_tpu_torch.ops.batchnorm", name)
+    runs = {}
+    for gate, per_step in ((True, (21, 53, 33, 33, 53, 49)),
+                           (False, (53, 53, 49, 49, 53, 49))):
+        if gate:
+            monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
+        else:
+            monkeypatch.delenv("ARTGRAPH_CONVBN", raising=False)
+        t = trainer()
+        before = launches.snapshot()
+        metrics = t.train_epoch(batches)
+        counts = launches.since(before)
+        torch.cuda.synchronize()
+        assert len(t.graphs) == 1
+        assert tuple(counts.get(key(n), 0) for n in names) == tuple(
+            3 * k for k in per_step), gate
+        runs[gate] = (metrics, t)
+    before = launches.snapshot()
+    runs[True][1].eval_epoch(batches[:1])
+    counts = launches.since(before)
+    assert tuple(counts.get(key(n), 0) for n in names) == (0, 53, 49, 0, 0,
+                                                           0)
+    monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
+    again = trainer()
+    assert again.train_epoch(batches) == runs[True][0]
+    torch.cuda.synchronize()
+    for (name, p), q in zip(again.model.state_dict().items(),
+                            runs[True][1].model.state_dict().values()):
+        assert torch.equal(p, q), name
+    assert batchnorm.LAUNCHES_APPLY > 0
+
+
+class _TwoRanks(torch.autograd.Function):
+    """psum over two ranks that hold the same tensor: 2x each way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return 2.0 * x
+
+    @staticmethod
+    def backward(ctx, g):
+        return 2.0 * g
+
+
+@pytest.mark.cuda
+def test_cuda_data_parallel_batchnorm_sums_before_finishing(monkeypatch):
+    """A downsampling Bottleneck (layer3's first at batch 8, the unit's gate
+    open) under bn_psum_axis with psum standing for two ranks holding the
+    same batch: on the kernels the raw sums and n of each BatchNorm, the
+    unit's included, are summed in one [2C + 1] buffer before its
+    finishing (merge-only launch, the sum, then the finishing), and (c1,
+    c2) after the backward's; output, input gradient, parameter gradients
+    and running statistics against the same block on the plain path."""
+    import copy
+
+    from artgraph_tpu_torch.models import resnet
+    from artgraph_tpu_torch.models.resnet import Bottleneck, bn_psum_axis
+    from artgraph_tpu_torch.ops import batchnorm
+
+    _need_cuda()
+    monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
+    seen = []
+
+    def psum(x, axis_name):
+        seen.append((torch.is_grad_enabled(), x.shape[0]))
+        return _TwoRanks.apply(x)
+
+    monkeypatch.setattr(resnet, "psum", psum)
+    torch.manual_seed(5)
+    block = Bottleneck(512, 256, stride=2, downsample=True).cuda()
+    for i, m in enumerate(block.modules()):
+        if isinstance(m, resnet.MixedBatchNorm):
+            m.load_state_dict(_bn_module(m.weight.shape[0], i).state_dict())
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(8, 28, 28, 512)).astype(
+        np.float32)).to("cuda", torch.bfloat16).permute(0, 3, 1, 2)
+    g = torch.from_numpy(rng.normal(size=(8, 14, 14, 1024)).astype(
+        np.float32)).to("cuda", torch.bfloat16).permute(0, 3, 1, 2)
+    results = {}
+    for kernels in (True, False):
+        b = copy.deepcopy(block)
+        seen.clear()
+        with monkeypatch.context() as m:
+            if not kernels:
+                m.setattr(batchnorm, "takes", lambda t: False)
+            xi = x.clone().requires_grad_()
+            with bn_psum_axis("data"):
+                y = b(xi)
+            (y.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        results[kernels] = (y, xi.grad, b, list(seen))
+    (y, dx, b, fused), (y_p, dx_p, b_p, plain) = results[True], results[False]
+    widths = sorted(2 * c + 1 for c in (256, 256, 1024, 1024))
+    assert sorted(w for _, w in plain) == widths
+    assert sorted(fused[:4]) == [(False, w) for w in widths]
+    assert sorted(fused[4:]) == [(False, w) for w in widths]
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(dx.float(), dx_p.float(), rtol=3e-2,
+                               atol=3e-2)
+    for (name, p), q in zip(b_p.named_parameters(), b.parameters()):
+        rel = (q.grad.double() - p.grad.double()).norm() / p.grad.double() \
+            .norm()
+        assert rel <= GRAD_REL_L2, (name, float(rel))
+    for (name, u), v in zip(b_p.named_buffers(), b.buffers()):
+        if u.dtype == torch.long:
+            assert torch.equal(u, v), name
+        else:
+            rel = (u.double() - v.double()).norm() / u.double().norm()
+            assert rel <= 1e-4, (name, float(rel))
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_eval_forward_takes_the_batchnorm_kernels(monkeypatch):
+    """ResNet50 (stage sizes 3, 4, 6, 3) in eval mode under inference_mode,
+    as predict runs it: 53 eval finishing and 49 apply launches (the stem,
+    16 bn1, 16 bn2, 16 tails) and no other BatchNorm kernel; the pooled
+    feature bit-identical to the plain path's (no sum differs in eval)."""
+    from artgraph_tpu_torch.models import ResNet50
+    from artgraph_tpu_torch.ops import batchnorm, launches
+
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.manual_seed(7)
+    trunk = ResNet50().cuda().eval()
+    for i, m in enumerate(trunk.modules()):
+        if isinstance(m, torch.nn.Module) and hasattr(m, "running_var"):
+            m.load_state_dict(_bn_module(m.weight.shape[0], i).state_dict())
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)).cuda()
+    before = launches.snapshot()
+    with torch.inference_mode():
+        y = trunk(x)
+    counts = launches.since(before)
+    with monkeypatch.context() as m, torch.inference_mode():
+        m.setattr(batchnorm, "takes", lambda t: False)
+        y_plain = trunk(x)
+    torch.cuda.synchronize()
+    assert counts == {("artgraph_tpu_torch.ops.batchnorm", "LAUNCHES_FINISH"):
+                      53, ("artgraph_tpu_torch.ops.batchnorm",
+                           "LAUNCHES_APPLY"): 49}
+    assert torch.equal(y, y_plain)
+
+
+@pytest.mark.cuda
+def test_cuda_batchnorm_kernels_take_a_saved_checkpoint(tmp_path,
+                                                        monkeypatch):
+    """A LabelProjector (ResNet50) saved by save_reference_checkpoint and
+    loaded by load_reference_checkpoint, as generate_projections loads it:
+    every tensor of the file is f32, num_batches_tracked too. Eval under
+    inference_mode launches the eval finishing and apply kernels, equal to
+    the plain path bit for bit; a train step launches the train kernels,
+    and num_batches_tracked (f32) counts as on the plain path. A module
+    cast to bf16 raises on an input the kernels take, before any launch."""
+    from artgraph_tpu_torch.checkpointing.torch_interop import (
+        load_reference_checkpoint, save_reference_checkpoint)
+    from artgraph_tpu_torch.models import heads, init_random_
+    from artgraph_tpu_torch.ops import batchnorm, launches
+
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    path = str(tmp_path / "projector.pt")
+    save_reference_checkpoint(init_random_(heads.LabelProjector(128),
+                                           torch.Generator().manual_seed(9)),
+                              path)
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)).cuda()
+    key = lambda name: ("artgraph_tpu_torch.ops.batchnorm", name)
+    plain = lambda m: m.setattr(batchnorm, "takes", lambda t: False)
+    outs = {}
+    for kernels in (True, False):
+        model = load_reference_checkpoint("LabelProjector", path, "cuda")
+        nbt = [m.num_batches_tracked for m in model.modules()
+               if hasattr(m, "num_batches_tracked")]
+        assert nbt and all(t.dtype == torch.float32 for t in nbt)
+        with monkeypatch.context() as m:
+            if not kernels:
+                plain(m)
+            before = launches.snapshot()
+            with torch.inference_mode():
+                y_eval = model(x)
+            eval_counts = launches.since(before)
+            model.train()
+            before = launches.snapshot()
+            model(x).float().square().sum().backward()
+            train_counts = launches.since(before)
+        torch.cuda.synchronize()
+        outs[kernels] = (y_eval, [t.item() for t in nbt], eval_counts,
+                         train_counts)
+    (y, nbt_k, eval_k, train_k), (y_p, nbt_p, eval_p, train_p) = \
+        outs[True], outs[False]
+    assert torch.equal(y, y_p)
+    assert nbt_k == nbt_p == [1.0] * len(nbt_k)
+    assert eval_k == {key("LAUNCHES_FINISH"): 53, key("LAUNCHES_APPLY"): 49}
+    assert train_k[key("LAUNCHES_FINISH")] == 53 and train_k[
+        key("LAUNCHES_DX")] == 49
+    assert not any(k[0] == key("LAUNCHES_APPLY")[0] for k in {**eval_p,
+                                                             **train_p})
+    cast = _bn_module(64, 0).bfloat16()
+    before = launches.snapshot()
+    with pytest.raises(ValueError, match="weight must be"):
+        cast(torch.ones((2, 64, 4, 4), device="cuda", dtype=torch.bfloat16)
+             .contiguous(memory_format=torch.channels_last))
+    assert launches.since(before) == {}
