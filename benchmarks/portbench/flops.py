@@ -11,6 +11,8 @@ outputs once, whatever kernels implement it.
 """
 from __future__ import annotations
 
+from portbench import trunks
+
 BF16, F32 = 2, 4
 
 
@@ -71,9 +73,7 @@ def resnet_forward_flops(cfg: dict) -> float:
 
 
 def trunk_dim(cfg: dict) -> int:
-    if cfg["trunk"] == "vit":
-        return cfg["embed_dim"]
-    return cfg["widths"][-1] * cfg["expansion"]
+    return trunks.get(cfg).feature_dim(cfg)
 
 
 def heads_forward_flops(cfg: dict) -> float:
@@ -84,9 +84,7 @@ def heads_forward_flops(cfg: dict) -> float:
 
 def forward_flops(cfg: dict) -> float:
     """Model FLOPs of one image's forward: trunk and heads."""
-    trunk = (vit_forward_flops(cfg) if cfg["trunk"] == "vit"
-             else resnet_forward_flops(cfg))
-    return trunk + heads_forward_flops(cfg)
+    return trunks.get(cfg).forward_flops(cfg) + heads_forward_flops(cfg)
 
 
 def train_flops(cfg: dict) -> float:

@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import check, inputs, reference, trace
+from portbench import check, inputs, reference, trace, trunks
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -85,11 +85,8 @@ def load_run(cell: str, seed: int, seconds: float, traced: bool, device,
 def program_model(run: Run, weights: dict, train: bool):
     """The port's fusion model of the configuration on the run's device,
     with the seeded weights (its unused timm head keeps its own)."""
-    from artgraph_tpu_torch.models import (NewMultiModalMultiTask,
-                                           NewMultiModalMultiTaskViT)
     cfg = run.cfg
-    cls = (NewMultiModalMultiTaskViT if cfg["trunk"] == "vit"
-           else NewMultiModalMultiTask)
+    cls = trunks.get(cfg).fusion_class()
     with torch.device(run.device):
         model = cls(emb_size=cfg["emb_size"],
                     num_classes=dict(cfg["num_classes"]),

@@ -15,6 +15,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from portbench import trunks
+
 
 def sub_seed(seed: int, tag: str) -> int:
     """A 63-bit seed for the stream `tag` of run seed `seed`."""
@@ -30,17 +32,15 @@ def rng(seed: int, tag: str) -> np.random.Generator:
     return np.random.default_rng(sub_seed(seed, tag))
 
 
-def _scale(name: str, shape: tuple, cfg: dict) -> tuple[float, float]:
-    """(offset, std) of a leaf drawn as offset + std * N(0, 1): matrices and
-    kernels std 1/sqrt(fan_in), the class token and position embedding std
-    0.02, norm weights offset 1 and std 0.1, biases std 0.1; the last
-    BatchNorm weight of each residual branch (bn3) offset g and std 0.1 g
-    where the configuration gives g as init_residual_gamma."""
-    g = cfg.get("init_residual_gamma")
-    if g is not None and name.endswith("bn3.weight"):
-        return g, 0.1 * g
-    if name.endswith(("cls_token", "pos_embed")):
-        return 0.0, 0.02
+def _scale(name: str, shape: tuple, cfg: dict, trunk) -> tuple[float, float]:
+    """(offset, std) of a leaf drawn as offset + std * N(0, 1): the trunk
+    module's own rule (`init_scale`) where it has one for the leaf, else
+    matrices and kernels std 1/sqrt(fan_in), norm weights offset 1 and std
+    0.1, biases std 0.1."""
+    own = getattr(trunk, "init_scale", None)
+    rule = own and own(name, shape, cfg)
+    if rule is not None:
+        return rule
     if len(shape) >= 2:
         return 0.0, 1.0 / math.sqrt(math.prod(shape[1:]))
     if name.endswith("weight"):
@@ -51,13 +51,14 @@ def _scale(name: str, shape: tuple, cfg: dict) -> tuple[float, float]:
 def make_weights(named_shapes: list, seed: int, device, cfg: dict) -> dict:
     """{name: f32 tensor} for [(name, shape)] of configuration `cfg`, from
     one normal draw on `device`."""
+    trunk = trunks.get(cfg)
     total = sum(math.prod(s) for _, s in named_shapes)
     flat = torch.randn(total, generator=generator(seed, "weights", device),
                        device=device, dtype=torch.float32)
     out, at = {}, 0
     for name, shape in named_shapes:
         n = math.prod(shape)
-        offset, std = _scale(name, shape, cfg)
+        offset, std = _scale(name, shape, cfg, trunk)
         out[name] = flat[at:at + n].view(shape).mul_(std).add_(offset)
         at += n
     return out

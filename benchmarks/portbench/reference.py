@@ -1,14 +1,13 @@
-"""The plain reference of the two fusion models, and its lower-precision
+"""The plain reference of the fusion models, and its lower-precision
 control.
 
 Plain PyTorch in float32 (TF32 off: `plain_math`), written from the
-published descriptions and nothing of the port: timm's
-vit_base_patch16_224 (pre-norm blocks, exact GELU, LayerNorm eps 1e-6, the
-normed CLS token pooled), torchvision's ResNet50 v1.5 (the stride on the
-3x3, BatchNorm on the batch's biased variance in training), and the
-reference repository's NewMultiModalMultiTask(ViT) heads: Dropout then
-Linear on cat([trunk feature, KG embedding]) for style and genre, the
-0.5/0.5 cross-entropy, and torch's Adam. Parameter names are the reference
+published descriptions and nothing of the port: the configuration's trunk
+(`Plain` of its module under portbench/trunks/: timm's
+vit_base_patch16_224, torchvision's ResNet50 v1.5), and the reference
+repository's NewMultiModalMultiTask(ViT) heads: Dropout then Linear on
+cat([trunk feature, KG embedding]) for style and genre, the 0.5/0.5
+cross-entropy, and torch's Adam. Parameter names are the reference
 state_dict's, so one set of seeded weights loads into the port's model and
 into this one by name.
 
@@ -25,12 +24,13 @@ program's masks.
 from __future__ import annotations
 
 import contextlib
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from portbench import trunks
 
 E4M3_MAX, E5M2_MAX = 448.0, 57344.0
 
@@ -123,145 +123,6 @@ def conv(p: Precision, x, c: nn.Conv2d):
                              c.stride, c.padding))
 
 
-# --- ViT-B/16 ----------------------------------------------------------------
-
-class _Attn(nn.Module):
-    def __init__(self, d: int):
-        super().__init__()
-        self.qkv, self.proj = nn.Linear(d, 3 * d), nn.Linear(d, d)
-
-
-class _Mlp(nn.Module):
-    def __init__(self, d: int, f: int):
-        super().__init__()
-        self.fc1, self.fc2 = nn.Linear(d, f), nn.Linear(f, d)
-
-
-class _Block(nn.Module):
-    def __init__(self, d: int, f: int, eps: float):
-        super().__init__()
-        self.norm1, self.norm2 = nn.LayerNorm(d, eps=eps), nn.LayerNorm(
-            d, eps=eps)
-        self.attn, self.mlp = _Attn(d), _Mlp(d, f)
-
-
-class _PatchEmbed(nn.Module):
-    def __init__(self, c: int, d: int, patch: int):
-        super().__init__()
-        self.proj = nn.Conv2d(c, d, patch, stride=patch)
-
-
-class PlainViT(nn.Module):
-    """timm's vit_base_patch16_224 trunk: NHWC normalized images in, the
-    normed CLS token [B, D] out."""
-
-    def __init__(self, cfg: dict):
-        super().__init__()
-        d, self.heads = cfg["embed_dim"], cfg["num_heads"]
-        n = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
-        self.patch_embed = _PatchEmbed(cfg["in_chans"], d, cfg["patch_size"])
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
-        self.pos_embed = nn.Parameter(torch.zeros(1, n, d))
-        self.blocks = nn.ModuleList(
-            _Block(d, int(d * cfg["mlp_ratio"]), cfg["norm_eps"])
-            for _ in range(cfg["depth"]))
-        self.norm = nn.LayerNorm(d, eps=cfg["norm_eps"])
-
-    def forward(self, x, p: Precision):
-        x = conv(p, x.permute(0, 3, 1, 2), self.patch_embed.proj)
-        x = x.flatten(2).transpose(1, 2)
-        B, _, d = x.shape
-        x = p.act(torch.cat([self.cls_token.expand(B, -1, -1), x], 1)
-                  + self.pos_embed)
-        for blk in self.blocks:
-            x = p.act(x + self._attention(blk, blk.norm1(x), p))
-            x = p.act(x + linear(p, F.gelu(linear(p, blk.norm2(x),
-                                                  blk.mlp.fc1)),
-                                 blk.mlp.fc2))
-        return self.norm(x[:, 0])
-
-    def _attention(self, blk: _Block, y, p: Precision):
-        B, N, d = y.shape
-        h = self.heads
-        qkv = linear(p, y, blk.attn.qkv).view(B, N, 3, h, d // h)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)                 # [B, h, N, dh]
-        s = p.output(p.operand(q) @ p.operand(k).transpose(-1, -2))
-        a = torch.softmax(s / math.sqrt(d // h), dim=-1)
-        o = p.output(p.operand(a) @ p.operand(v))
-        return linear(p, o.transpose(1, 2).reshape(B, N, d), blk.attn.proj)
-
-
-# --- ResNet50 ----------------------------------------------------------------
-
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d's parameters and buffers; the forward normalizes by the
-    batch's mean and biased variance in training, the running statistics
-    in eval."""
-
-    def forward(self, x):
-        if self.training:
-            mean = x.mean((0, 2, 3), keepdim=True)
-            var = x.var((0, 2, 3), unbiased=False, keepdim=True)
-        else:
-            mean = self.running_mean.view(1, -1, 1, 1)
-            var = self.running_var.view(1, -1, 1, 1)
-        return ((x - mean) * torch.rsqrt(var + self.eps)
-                * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1))
-
-
-class _Bottleneck(nn.Module):
-    def __init__(self, cin: int, width: int, stride: int, down: bool,
-                 e: int, eps: float):
-        super().__init__()
-        self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = BatchNorm(width, eps=eps)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm(width, eps=eps)
-        self.conv3 = nn.Conv2d(width, width * e, 1, bias=False)
-        self.bn3 = BatchNorm(width * e, eps=eps)
-        self.downsample = (nn.Sequential(
-            nn.Conv2d(cin, width * e, 1, stride, bias=False),
-            BatchNorm(width * e, eps=eps)) if down else None)
-
-    def forward(self, x, p: Precision):
-        out = F.relu(p.act(self.bn1(conv(p, x, self.conv1))))
-        out = F.relu(p.act(self.bn2(conv(p, out, self.conv2))))
-        out = p.act(self.bn3(conv(p, out, self.conv3)))
-        idt = x if self.downsample is None else p.act(self.downsample[1](
-            conv(p, x, self.downsample[0])))
-        return p.act(F.relu(out + idt))
-
-
-class PlainResNet50(nn.Sequential):
-    """torchvision's resnet50 without avgpool and fc, indexed 0-7 as the
-    reference repository's nn.Sequential(*children[:-1]): NHWC normalized
-    images in, the pooled feature [B, 2048] out."""
-
-    def __init__(self, cfg: dict):
-        eps, e = cfg["bn_eps"], cfg["expansion"]
-        layers, cin = [], cfg["widths"][0]
-        for stage, (n, w) in enumerate(zip(cfg["stage_sizes"],
-                                           cfg["widths"])):
-            blocks = []
-            for b in range(n):
-                stride = 2 if (b == 0 and stage > 0) else 1
-                blocks.append(_Bottleneck(cin, w, stride, b == 0, e, eps))
-                cin = w * e
-            layers.append(nn.Sequential(*blocks))
-        super().__init__(
-            nn.Conv2d(3, cfg["widths"][0], 7, 2, 3, bias=False),
-            BatchNorm(cfg["widths"][0], eps=eps), nn.ReLU(),
-            nn.MaxPool2d(3, 2, 1), *layers)
-
-    def forward(self, x, p: Precision):
-        x = F.relu(p.act(self[1](conv(p, x.permute(0, 3, 1, 2), self[0]))))
-        x = self[3](x)
-        for layer in list(self)[4:]:
-            for blk in layer:
-                x = blk(x, p)
-        return x.mean((2, 3))
-
-
 # --- the fusion model ----------------------------------------------------------
 
 def _head(in_dim: int, n: int) -> nn.Sequential:
@@ -275,11 +136,10 @@ class PlainFusion(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
         self.cfg = cfg
-        self.trunk_name = "vit" if cfg["trunk"] == "vit" else "resnet"
-        trunk = PlainViT(cfg) if cfg["trunk"] == "vit" else PlainResNet50(cfg)
-        setattr(self, self.trunk_name, trunk)
-        dim = (cfg["embed_dim"] if cfg["trunk"] == "vit"
-               else cfg["widths"][-1] * cfg["expansion"])
+        trunk = trunks.get(cfg)
+        self.trunk_name = trunk.PREFIX
+        setattr(self, self.trunk_name, trunk.Plain(cfg))
+        dim = trunk.feature_dim(cfg)
         self.class_style = _head(dim + cfg["emb_size"],
                                  cfg["num_classes"]["style"])
         self.class_genre = _head(dim + cfg["emb_size"],

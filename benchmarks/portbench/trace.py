@@ -76,6 +76,34 @@ def idle_share(intervals: list, t0: float, t1: float) -> float:
     return 1.0 - busy(intervals) / (t1 - t0)
 
 
+def idle_inside(view, span: str) -> float | None:
+    """The device's idle time inside the host spans named `span` (cat
+    user_annotation; their gpu_user_annotation twins are left out) in the
+    traced part of `view` (a harness.View), summed and divided by its
+    steps, in ms. Idle is the complement of the union of the device's work.
+    None when the trace has no device work or no such span."""
+    if not view.work:
+        return None
+    clipped = ((max(float(ev["ts"]), view.t0),
+                min(float(ev["ts"]) + float(ev["dur"]), view.t1))
+               for ev in view.events
+               if ev.get("name") == span
+               and ev.get("cat") == "user_annotation")
+    spans = merged((s, e) for s, e in clipped if e > s)
+    if not spans:
+        return None
+    work = merged(view.work)
+    starts = [s for s, _ in work]
+    idle = 0.0
+    for s, e in spans:
+        idle += e - s
+        i = max(0, bisect.bisect_right(starts, s) - 1)
+        while i < len(work) and work[i][0] < e:
+            idle -= max(0.0, min(work[i][1], e) - max(work[i][0], s))
+            i += 1
+    return idle / 1e3 / view.steps
+
+
 def pattern_time(intervals: list, patterns: Iterable[str]
                  ) -> tuple[float, dict]:
     """(summed duration of the work whose name matches any pattern, {pattern:

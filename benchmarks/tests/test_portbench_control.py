@@ -23,8 +23,8 @@ def _calibrate(run):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct_on_the_cpu(monkeypatch, cell):
-    patch_trunks(monkeypatch)
     run = tiny_run(cell, seed=11)
+    patch_trunks(monkeypatch, run.cfg)
     readings = _calibrate(run)
     limits = run.workload["limits"]
     numbers = {k: v for k, v in readings["control_fp8"].items()

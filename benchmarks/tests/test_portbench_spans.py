@@ -64,3 +64,59 @@ def test_weight_cast_mb_reads_the_counter(monkeypatch):
     assert harness.read_metric("weight_cast_mb.serve", v) is None
     monkeypatch.delattr(profiling, "counters")
     assert harness.read_metric("weight_cast_mb.serve", v) is None
+
+
+def _parent_read(view, span):
+    """The two span metrics' read, as each file had it before
+    trace.idle_inside."""
+    import bisect
+    if not view.work:
+        return None
+    clipped = ((max(float(e["ts"]), view.t0),
+                min(float(e["ts"]) + float(e["dur"]), view.t1))
+               for e in view.events
+               if e.get("name") == span and e.get("cat") == "user_annotation")
+    spans = trace.merged((s, e) for s, e in clipped if e > s)
+    if not spans:
+        return None
+    busy = trace.merged(view.work)
+    starts = [s for s, _ in busy]
+    idle = 0.0
+    for s, e in spans:
+        idle += e - s
+        i = max(0, bisect.bisect_right(starts, s) - 1)
+        while i < len(busy) and busy[i][0] < e:
+            idle -= max(0.0, min(busy[i][1], e) - max(busy[i][0], s))
+            i += 1
+    return idle / 1e3 / view.steps
+
+
+def _random_events(span, seed):
+    """A 10 ms window with spans (overlapping, and past both of its edges)
+    and kernels on two streams, drawn from `seed`."""
+    import random
+    r = random.Random(seed)
+    out = [ev("user_annotation", trace.WINDOW_MARK, 1_000.0, 10_000.0)]
+    for _ in range(r.randint(0, 12)):
+        out.append(ev(r.choice(("user_annotation", "gpu_user_annotation")),
+                      span, r.uniform(0.0, 11_500.0), r.uniform(1.0, 900.0)))
+    for k in range(r.randint(0, 40)):
+        out.append(ev(r.choice(("kernel", "gpu_memcpy", "gpu_memset")),
+                      f"k{k}", r.uniform(0.0, 11_500.0),
+                      r.uniform(1.0, 400.0)))
+    return out
+
+
+@pytest.mark.parametrize("metric, span", SPAN_METRICS)
+def test_idle_inside_reads_as_the_metrics_read_before(metric, span):
+    cases = [events(span, (1_500.0, 2_500.0)), events(span, (8_000.0,
+                                                             9_000.0))]
+    cases += [_random_events(span, seed) for seed in range(200)]
+    read = 0
+    for evs in cases:
+        v = view(evs, steps=3)
+        want = _parent_read(v, span)
+        assert trace.idle_inside(v, span) == want
+        assert harness.read_metric(metric, v) == want
+        read += want is not None
+    assert read > 100
