@@ -14,8 +14,9 @@ ones, with the 0.5/0.5 task loss (ref :79-81), Adam and patience 3:
         --emb_train_genre <f> --emb_valid_genre <f> --emb_test_genre <f>
 
 The embeddings are read from <dataset>/{train,validation,test}/embeddings/.
-`--architecture vit` trains NewMultiModalMultiTaskViT, anything else
-NewMultiModalMultiTask (ResNet50). The reference's test() always rebuilds
+`--architecture vit` trains NewMultiModalMultiTaskViT, `swin`
+NewMultiModalMultiTaskSwin (Swin-B at 384 px, images decoded at 384; not in
+the reference), anything else NewMultiModalMultiTask (ResNet50). The reference's test() always rebuilds
 the ResNet variant (ref :131); as the JAX package, the port reloads the
 architecture that was trained (PARITY.md deviation 3). The test split
 writes results_style*.csv and results_genre*.csv with --results_dir.
@@ -34,6 +35,7 @@ from artgraph_tpu_torch.cli._common import (
 from artgraph_tpu_torch.data.factories import (
     get_class_weights, load_dataset_multitask_new_multimodal)
 from artgraph_tpu_torch.models import (NewMultiModalMultiTask,
+                                       NewMultiModalMultiTaskSwin,
                                        NewMultiModalMultiTaskViT)
 from artgraph_tpu_torch.tracking import tracker_multitask
 from artgraph_tpu_torch.train import EarlyStopping
@@ -75,7 +77,7 @@ def main(argv=None):
                         help='Embedding style test file name.')
     parser.add_argument('--dropout', type=float, default=0.4, help='Dropout.')
     parser.add_argument('--architecture', type=str, default='vit',
-                        help='Architecture (resnet|vit).')
+                        help='Architecture (resnet|vit|swin).')
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if needs_launch(args):
@@ -101,8 +103,9 @@ def main(argv=None):
                             mesh=mesh)
 
     torch.manual_seed(config.GLOBAL_SEED)   # as the reference, before init
-    model = (NewMultiModalMultiTask if args.architecture == 'resnet'
-             else NewMultiModalMultiTaskViT)(
+    model = {'resnet': NewMultiModalMultiTask,
+             'swin': NewMultiModalMultiTaskSwin}.get(
+        args.architecture, NewMultiModalMultiTaskViT)(
         emb_size=config.EMB_SIZE, num_classes=NUM_CLASSES,
         dropout=args.dropout)
     if args.with_weights:

@@ -33,13 +33,24 @@ EMB_SIZE = 128
 
 # Image geometry (ref: src/data/data.py:14 Resize((224,224))).
 IMAGE_SIZE = 224
+# The transforms that decode at another size: Swin-B at 384 px (timm's
+# swin_base_patch4_window12_384), which the reference does not train.
+IMAGE_SIZES = {"swin": 384}
 
 # Per-architecture normalization statistics
-# (ref: src/data/data.py:11-27 transform / vit_transform).
+# (ref: src/data/data.py:11-27 transform / vit_transform; swin: timm's
+# ImageNet mean and std for swin_base_patch4_window12_384).
 NORM_STATS = {
     "resnet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
     "vit": ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)),
+    "swin": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
 }
+
+
+def image_size(transform_type: str) -> int:
+    """The side images of a transform are decoded at (IMAGE_SIZES, read
+    when called, else IMAGE_SIZE)."""
+    return IMAGE_SIZES.get(transform_type, IMAGE_SIZE)
 
 # Global seed of every reference trainer (ref: train_baseline.py:10
 # torch.manual_seed(1)).

@@ -63,7 +63,8 @@ def wrap_with_cache(dataset, cache_dir: str, name: str):
                         f"_image(idx); it cannot be cached")
     if getattr(base, "_decoded_cache", None) is not None:
         return dataset
-    cache = DecodedImageCache(cache_dir, name, len(base))
+    cache = DecodedImageCache(cache_dir, name, len(base),
+                              getattr(base, "image_size", config.IMAGE_SIZE))
     original = base._image
 
     def cached_image(self, idx: int):

@@ -1,4 +1,4 @@
-"""The port's models: the ViT-B/16 and ResNet50 trunks, the classifier,
+"""The port's models: the ViT-B/16, ResNet50 and Swin-B trunks, the classifier,
 fusion and context (ContextNet, MultiModal) models and the two projectors;
 and the GNNs of `models.gnn`: the KG-embedding stage's HeteroSGNN and the
 variants HeteroMGNN, HomoGNN and HomoSGNN."""
@@ -10,12 +10,14 @@ from artgraph_tpu_torch.models.heads import (ContextNetlMultiTask,
                                              MultiModalMultiTask,
                                              MultiModalSingleTask,
                                              NewMultiModalMultiTask,
+                                             NewMultiModalMultiTaskSwin,
                                              NewMultiModalMultiTaskViT,
                                              NewMultiModalSingleTask,
                                              NewMultiModalSingleTaskVit,
                                              ResnetMultiTask, ResnetSingleTask,
                                              ViTMultiTask, ViTSingleTask)
 from artgraph_tpu_torch.models.resnet import MixedBatchNorm, ResNet50
+from artgraph_tpu_torch.models.swin import SwinTransformer
 from artgraph_tpu_torch.models.vit import (ViT, init_random_,
                                            vit_base_patch16_224)
 
@@ -23,7 +25,9 @@ _GNN = ("HeteroSGNN", "HeteroMGNN", "HomoGNN", "HomoSGNN")
 
 __all__ = ["ViT", "ResNet50", "MixedBatchNorm", "ViTSingleTask",
            "ViTMultiTask", "NewMultiModalSingleTaskVit",
-           "NewMultiModalMultiTaskViT", "ResnetSingleTask", "ResnetMultiTask",
+           "NewMultiModalMultiTaskViT", "NewMultiModalMultiTaskSwin",
+           "SwinTransformer",
+           "ResnetSingleTask", "ResnetMultiTask",
            "NewMultiModalSingleTask", "NewMultiModalMultiTask",
            "ContextNetSingleTask", "ContextNetlMultiTask",
            "ContextNetMultiTask", "MultiModalSingleTask",

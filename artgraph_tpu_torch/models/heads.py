@@ -5,7 +5,9 @@ Port of artgraph_tpu/models/heads.py (ResnetSingleTask, ResnetMultiTask,
 ViTSingleTask, ViTMultiTask, ContextNetSingleTask, ContextNetlMultiTask,
 MultiModalSingleTask, MultiModalMultiTask, NewMultiModalSingleTask,
 NewMultiModalMultiTask, NewMultiModalSingleTaskVit,
-NewMultiModalMultiTaskViT, LabelProjector, LabelProjectorVit). Module
+NewMultiModalMultiTaskViT, LabelProjector, LabelProjectorVit), and
+NewMultiModalMultiTaskSwin, the same fusion heads on a Swin-B trunk at 384
+px (models/swin.py), which the reference has not. Module
 nesting
 reproduces the reference state_dict exactly (artgraph_tpu/checkpointing/
 torch_interop.py `_MODEL_SPECS`):
@@ -17,7 +19,8 @@ torch_interop.py `_MODEL_SPECS`):
   * ViTSingleTask replaces timm's `vit.head` with Sequential(Dropout, Linear),
     so its classifier keys are `vit.head.1.*`;
   * the other three ViT models keep timm's unused 1000-class `vit.head` and
-    carry their own Sequential(Dropout, Linear) heads;
+    carry their own Sequential(Dropout, Linear) heads; the Swin fusion
+    model likewise keeps timm's unused `swin.head.fc`;
   * the projectors are the trunk (ResNet as `resnet`, ViT as `vit` with
     timm's unused head) and a bare Linear `encoder` onto the embedding
     width, computed in f32 on the f32 feature (the JAX package's Dense with
@@ -43,6 +46,7 @@ import torch
 from torch import nn
 
 from artgraph_tpu_torch.models.resnet import ResNet50
+from artgraph_tpu_torch.models.swin import SwinTransformer
 from artgraph_tpu_torch.models.vit import ViT
 
 RESNET_DIM = 2048
@@ -58,6 +62,14 @@ def _vit_with_timm_head(dtype: torch.dtype) -> ViT:
     # present, never called
     vit.head = nn.Linear(vit.embed_dim, TIMM_HEAD_CLASSES)
     return vit
+
+
+def _swin_with_timm_head(dtype: torch.dtype) -> SwinTransformer:
+    swin = SwinTransformer(dtype=dtype)
+    # present, never called: timm's ClassifierHead keeps its Linear as fc
+    swin.head = nn.Module()
+    swin.head.fc = nn.Linear(swin.num_features, TIMM_HEAD_CLASSES)
+    return swin
 
 
 def _cat_f32(feat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -250,6 +262,25 @@ class NewMultiModalMultiTaskViT(nn.Module):
     def forward(self, img: torch.Tensor, embedding_style: torch.Tensor,
                 embedding_genre: torch.Tensor) -> list[torch.Tensor]:
         feat = self.vit(img)
+        return [self.class_style(_cat_f32(feat, embedding_style)),
+                self.class_genre(_cat_f32(feat, embedding_genre))]
+
+
+class NewMultiModalMultiTaskSwin(nn.Module):
+    """NewMultiModalMultiTaskViT's heads on a Swin trunk (Swin-B at 384 px
+    by default): cat([the 1024-wide feature, embedding]) per task."""
+
+    def __init__(self, emb_size: int, num_classes: dict[str, int],
+                 dropout: float = 0.4, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.swin = _swin_with_timm_head(dtype)
+        dim = self.swin.num_features + emb_size
+        self.class_style = _head(dim, num_classes["style"], dropout)
+        self.class_genre = _head(dim, num_classes["genre"], dropout)
+
+    def forward(self, img: torch.Tensor, embedding_style: torch.Tensor,
+                embedding_genre: torch.Tensor) -> list[torch.Tensor]:
+        feat = self.swin(img)
         return [self.class_style(_cat_f32(feat, embedding_style)),
                 self.class_genre(_cat_f32(feat, embedding_genre))]
 

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "ag_attention_core_bf16": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "ag_attention_core_bwd_bf16": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
                                    _I),
+    "ag_window_attention_bf16": ((_P,) * 4 + (_I,) * 5 + (_F, _P), _I),
+    "ag_window_attention_bwd_bf16": ((_P,) * 7 + (_I, _P, _P) + (_I,) * 5
+                                     + (_F, _P), _I),
     "ag_attention_bf16": ((_P,) * 4 + (_I,) * 8 + (_F, _P), _I),
     "ag_attention_bwd_bf16": ((_P,) * 9 + (_I,) * 12 + (_F, _P), _I),
     "ag_layernorm_bwd_bf16": ((_P,) * 7 + (_I, _I, _F, _I, _I, _P), _I),

@@ -33,6 +33,20 @@ them is later work. Rounding points are the Pallas kernels', so the kernels
 and `block_attention_plain` / `block_attention_bwd_plain` differ only in
 accumulation order.
 
+Windows (Swin's blocks): x is [B*nW, N, C], each window one "image" of N
+tokens, and two optional inputs join the scores before the softmax: `bias`,
+an f32 [H, N, N] (the relative-position bias gathered from its table),
+differentiable, and `regions`, the int32 [nW, N] shift region of each token
+of window b mod nW, from which the shift mask adds MASKED (-100, timm's)
+between tokens of different regions (`region_mask`), not learned: s =
+((f32(q . k) * scale) + bias) + mask. At head dim WINDOW_D = 32 (c) and
+(f) are the windowed cores (`ag_window_attention_bf16`,
+`ag_window_attention_bwd_bf16`, for windows of at most WINDOW_MAX_N
+tokens), with or without either input, whose backward also returns dBias =
+the sum over the windows of dS in f32, summed in a fixed order; they count
+under LAUNCHES_WINDOW / LAUNCHES_WINDOW_BWD. At D = 64 (ViT) the block runs
+the kernels above, which take neither input.
+
 Weights keep nn.Linear's [out, in] layout. As `_block_operands` does, the
 wrappers cast the f32 weights and biases to bf16 and keep gamma/beta f32;
 the weights' casts go through `cast_weight`, which counts their bytes.
@@ -67,6 +81,10 @@ LAUNCHES_ATTENTION = 0
 LAUNCHES_ATTENTION_BWD = 0
 LAUNCHES_QKV = 0
 LAUNCHES_QKV_BWD = 0
+# The same for `fused_block_attention` calls that take the windowed cores
+# (head dim WINDOW_D), instead of LAUNCHES / LAUNCHES_BWD.
+LAUNCHES_WINDOW = 0
+LAUNCHES_WINDOW_BWD = 0
 
 # GEMM operand layouts and epilogues of csrc/block_gemm.cu (enums Layout,
 # Epilogue)
@@ -84,6 +102,15 @@ COLSUM_COLS, COLSUM_LANES = 256, 8
 # (its registers allow three; at ViT-B/16's 6304 rows the third's gain is
 # lost to the second pass over more partial rows), four column-sum blocks
 NORM_BLOCKS, COLSUM_BLOCKS = 264, 528
+# csrc/block_attention_bwd.cu, windowed: the blocks of phases 1 and 3 that
+# fill the card (132 SMs, 8 each), each running a run of windows and adding
+# their dS into the run's dBias partial
+WINDOW_BLOCKS = 1056
+# the windowed cores' one head dim (WIN_D, csrc/attention_tiles.cuh:
+# Swin's) and their windows of at most 160 tokens (WIN_MAX_N; Swin's 12x12
+# windows are 144): a block holds a window's keys
+WINDOW_D, WINDOW_MAX_N = 32, 160
+HEAD_DIMS = (64, WINDOW_D)
 
 _F32 = torch.float32
 
@@ -189,82 +216,125 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.view(B, N, num_heads, C // num_heads).transpose(1, 2)
 
 
-def _exp_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+MASKED = -100.0   # the shift mask's score between regions (timm's)
+
+
+def region_mask(regions: torch.Tensor) -> torch.Tensor:
+    """[nW, N, N] f32: 0 where query i's and key j's shift regions agree,
+    MASKED where they differ: timm's attn_mask from its region ids."""
+    diff = regions[:, :, None] != regions[:, None, :]
+    return torch.where(diff, MASKED, 0.0).to(torch.float32)
+
+
+def add_scores_plain(s: torch.Tensor, bias: torch.Tensor | None = None,
+                     regions: torch.Tensor | None = None) -> torch.Tensor:
+    """((s + bias) + mask) on scores s [B, H, N, N] in s's dtype: bias
+    [H, N, N], mask the region_mask of regions [nW, N], taken by window b
+    as row b mod nW (B a multiple of nW); either may be None."""
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    if regions is not None:
+        B, H, N, _ = s.shape
+        nW = regions.shape[0]
+        s = (s.view(B // nW, nW, H, N, N)
+             + region_mask(regions).to(s.dtype)[:, None]).view(B, H, N, N)
+    return s
+
+
+def _exp_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+                bias: torch.Tensor | None = None,
+                regions: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(e, l) of q, k [..., N, D]: s = f32(q . k^T) * scale, e = exp(s -
-    rowmax(s)) and its row sums l, all f32 (f64 for f64 q)."""
+    """(e, l) of q, k [..., N, D]: s = f32(q . k^T) * scale (plus the
+    windows' bias and mask, `add_scores_plain`), e = exp(s - rowmax(s)) and
+    its row sums l, all f32 (f64 for f64 q)."""
     acc_t = at_least_f32(q.dtype)
     s = (q.to(acc_t) @ k.to(acc_t).transpose(-1, -2)) * scale
+    if bias is not None or regions is not None:
+        s = add_scores_plain(s, bias, regions)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     return e, e.sum(-1, keepdim=True)
 
 
-def core_plain(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """The block path's attention core on [..., N, D] heads in any float
-    dtype: (p, o) with p = dtype(e / l) and o = f32(p . v), unrounded."""
-    e, l = _exp_scores(q, k, scale)
+def core_plain(q, k, v, scale: float, bias: torch.Tensor | None = None,
+               regions: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block path's attention core on [B, H, N, D] heads in any float
+    dtype: (p, o) with p = dtype(e / l) and o = f32(p . v), unrounded; the
+    windows' bias [H, N, N] and the mask of regions [nW, N] join the scaled
+    scores."""
+    e, l = _exp_scores(q, k, scale, bias, regions)
     p = (e / l).to(q.dtype)
     return p, p.to(e.dtype) @ v.to(e.dtype)
 
 
-def core_bwd_plain(q, k, v, p, o, do, scale: float):
+def core_bwd_plain(q, k, v, p, o, do, scale: float, bias_grad: bool = False):
     """The core's backward, the Pallas backward kernels line by line: (dq,
     dk, dv) in f32 from the rounded probabilities p and the output o that
     d_row reads (the f32 o of `core_plain` on the block path, the saved
     output on the fused_attention path); inputs [..., N, D], rounded at
-    q.dtype."""
+    q.dtype. `bias_grad` appends dBias = the sum over dim 0 (the windows)
+    of p (dp - d_row), f32 and unrounded: the scores' gradient before the
+    scale."""
     acc_t = at_least_f32(q.dtype)
     qf, kf, vf, pf, dof = (t.to(acc_t) for t in (q, k, v, p, do))
     dv = pf.transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
     d_row = (dof * o.to(acc_t)).sum(-1, keepdim=True)
-    ds = (pf * (dp - d_row) * scale).to(q.dtype).to(acc_t)
-    return ds @ kf, ds.transpose(-1, -2) @ qf, dv
+    g = pf * (dp - d_row)
+    ds = (g * scale).to(q.dtype).to(acc_t)
+    grads = (ds @ kf, ds.transpose(-1, -2) @ qf, dv)
+    return (*grads, g.sum(0)) if bias_grad else grads
 
 
 def _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads: int,
-                     eps: float):
+                     eps: float, bias=None, regions=None):
     """Forward up to the attention output: (y, q, k, v, p, o f32, attn)."""
     B, N, C = x.shape
     D = C // num_heads
     y = ln_rows_plain(x, gamma, beta, eps)
     qkv = linear_plain(y, w_qkv, b_qkv)                  # [B, N, 3C]
     q, k, v = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
-    p, o = core_plain(q, k, v, D ** -0.5)
+    p, o = core_plain(q, k, v, D ** -0.5, bias, regions)
     attn = o.to(x.dtype).transpose(1, 2).reshape(B, N, C)
     return y, q, k, v, p, o, attn
 
 
 def block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+                          num_heads: int, eps: float = 1e-6, bias=None,
+                          regions=None) -> torch.Tensor:
     """The plain PyTorch version of `fused_block_attention`'s forward."""
-    attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads, eps)[-1]
+    attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv, num_heads, eps,
+                            bias, regions)[-1]
     return x + linear_plain(attn, w_proj, b_proj)
 
 
 def block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv, w_proj, dout,
-                              num_heads: int, eps: float = 1e-6):
+                              num_heads: int, eps: float = 1e-6, bias=None,
+                              regions=None):
     """The plain PyTorch version of the backward, `_block_bwd_kernel` line
     by line: (dx, dgamma, dbeta, dw_qkv, db_qkv, dw_proj, db_proj), dx in
-    x.dtype, the rest f32, weights in [out, in] layout."""
+    x.dtype, the rest f32, weights in [out, in] layout; with a bias, its
+    f32 gradient dBias [H, N, N] last."""
     B, N, C = x.shape
     D = C // num_heads
     dt = x.dtype
     y, q, k, v, p, o, attn = _attention_plain(x, gamma, beta, w_qkv, b_qkv,
-                                              num_heads, eps)
+                                              num_heads, eps, bias, regions)
     do = dout.to(dt)
     # proj backward: dp == do
     acc_t = at_least_f32(dt)
     do_attn = (do.to(acc_t) @ weight_f32(w_proj, dt)).to(dt)
     grads = core_bwd_plain(q, k, v, p, o, _heads(do_attn, num_heads),
-                           D ** -0.5)
+                           D ** -0.5, bias_grad=bias is not None)
     # [3, B, H, N, D] -> [B, N, 3, H, D]: the qkv column order
-    dqkv = torch.stack(grads).to(dt).permute(1, 3, 0, 2, 4) \
+    dqkv = torch.stack(grads[:3]).to(dt).permute(1, 3, 0, 2, 4) \
         .reshape(B, N, 3 * C)
     dy = dqkv.to(acc_t) @ weight_f32(w_qkv, dt)         # [B, N, C] f32
     dx, dgamma, dbeta, db_proj = ln_bwd_plain(x, gamma, dy, do, eps)
     return (dx, dgamma, dbeta, rows_t_dot(dqkv, y),
-            dqkv.to(acc_t).sum((0, 1)), rows_t_dot(do, attn), db_proj)
+            dqkv.to(acc_t).sum((0, 1)), rows_t_dot(do, attn), db_proj,
+            *grads[3:])
 
 
 # --- CUDA launches, shared with ops/mlp.py ----------------------------------
@@ -446,14 +516,34 @@ def colsum_cuda(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def attention_core_cuda(qkv: torch.Tensor, B: int, N: int,
-                        num_heads: int) -> torch.Tensor:
+def windowed(C: int, num_heads: int) -> bool:
+    """Whether a block takes the windowed cores: head dim WINDOW_D."""
+    return C == WINDOW_D * num_heads
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _n_windows(regions: torch.Tensor | None) -> int:
+    return 1 if regions is None else regions.shape[0]
+
+
+def attention_core_cuda(qkv: torch.Tensor, B: int, N: int, num_heads: int,
+                        bias: torch.Tensor | None = None,
+                        regions: torch.Tensor | None = None) -> torch.Tensor:
     C = qkv.shape[1] // 3
     D = C // num_heads
     out = torch.empty((B * N, C), dtype=torch.bfloat16, device=qkv.device)
-    rc = _build.lib().ag_attention_core_bf16(
-        qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D, D ** -0.5,
-        _build.stream_ptr(qkv))
+    lib, stream = _build.lib(), _build.stream_ptr(qkv)
+    if windowed(C, num_heads):
+        rc = lib.ag_window_attention_bf16(
+            qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(regions),
+            _n_windows(regions), B, N, num_heads, D, D ** -0.5, stream)
+        _build.check(rc, "ag_window_attention_bf16")
+        return out
+    rc = lib.ag_attention_core_bf16(
+        qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D, D ** -0.5, stream)
     _build.check(rc, "ag_attention_core_bf16")
     return out
 
@@ -464,113 +554,193 @@ def _row_stats(B: int, N: int, H: int, device) -> torch.Tensor:
     return torch.empty((3, B, H, N), dtype=_F32, device=device)
 
 
+def window_runs(B: int, N: int, num_heads: int) -> tuple[int, int]:
+    """(windows a run, runs) of the windowed backward's phases 1 and 3:
+    about WINDOW_BLOCKS blocks of (query tile, head, run). The runs' dBias
+    partials are added in run order, so the split, a function of the shape
+    only, fixes dBias bit for bit."""
+    tiles = -(-N // 64)
+    per = max(1, -(-B * tiles * num_heads // WINDOW_BLOCKS))
+    return per, -(-B // per)
+
+
 def attention_core_bwd_cuda(qkv: torch.Tensor, do_attn: torch.Tensor, B: int,
-                            N: int, num_heads: int) -> torch.Tensor:
+                            N: int, num_heads: int,
+                            bias: torch.Tensor | None = None,
+                            regions: torch.Tensor | None = None):
+    """(dqkv, dBias): dBias f32 [H, N, N] on the windowed path with a
+    bias, else None."""
     C = qkv.shape[1] // 3
     D = C // num_heads
     dqkv = torch.empty_like(qkv)
     stats = _row_stats(B, N, num_heads, qkv.device)
-    rc = _build.lib().ag_attention_core_bwd_bf16(
+    lib, stream = _build.lib(), _build.stream_ptr(qkv)
+    if not windowed(C, num_heads):
+        rc = lib.ag_attention_core_bwd_bf16(
+            qkv.data_ptr(), do_attn.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), B, N, num_heads, D, D ** -0.5, stream)
+        _build.check(rc, "ag_attention_core_bwd_bf16")
+        return dqkv, None
+    per, runs = window_runs(B, N, num_heads)
+    dbias = part = bias_t = None
+    if bias is not None:
+        # key-major, so that phase 2 (K Q^T) reads the bias in pairs too
+        bias_t = bias.transpose(1, 2).contiguous()
+        dbias = torch.empty((num_heads, N, N), dtype=_F32, device=qkv.device)
+        part = torch.empty((runs, num_heads, N, N), dtype=_F32,
+                           device=qkv.device)
+    rc = lib.ag_window_attention_bwd_bf16(
         qkv.data_ptr(), do_attn.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        B, N, num_heads, D, D ** -0.5, _build.stream_ptr(qkv))
-    _build.check(rc, "ag_attention_core_bwd_bf16")
-    return dqkv
+        _ptr(bias), _ptr(bias_t), _ptr(regions), _n_windows(regions),
+        _ptr(part), _ptr(dbias),
+        per, B, N, num_heads, D, D ** -0.5, stream)
+    _build.check(rc, "ag_window_attention_bwd_bf16")
+    return dqkv, dbias
 
 
 def _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                     num_heads: int) -> None:
-    C = x.shape[-1]
+                     num_heads: int, bias=None, regions=None) -> None:
+    B, N, C = x.shape
     check_block_operands("fused_block_attention", x, {
         "gamma": (gamma, (C,)), "beta": (beta, (C,)),
         "w_qkv": (w_qkv, (3 * C, C)), "b_qkv": (b_qkv, (3 * C,)),
         "w_proj": (w_proj, (C, C)), "b_proj": (b_proj, (C,))})
-    if C != 64 * num_heads:
+    if C not in tuple(d * num_heads for d in HEAD_DIMS):
         raise ValueError(f"fused_block_attention: head dim {C}/{num_heads} "
-                         f"must be 64, the one the kernel is built for")
+                         f"must be one the kernels are built for, "
+                         f"{HEAD_DIMS}")
+    for name, t, dtype, shape in (
+            ("bias", bias, _F32, (num_heads, N, N)),
+            ("regions", regions, torch.int32,
+             (None if regions is None else regions.shape[0], N))):
+        if t is not None and (t.device != x.device or t.dtype != dtype
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"fused_block_attention: {name} must be a "
+                             f"contiguous {dtype} {list(shape)} tensor on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if not windowed(C, num_heads) and (bias is not None
+                                       or regions is not None):
+        raise ValueError(f"fused_block_attention: a bias or shift regions "
+                         f"at head dim {C // num_heads}; only the windowed "
+                         f"cores, at head dim {WINDOW_D}, take them")
+    if windowed(C, num_heads) and N > WINDOW_MAX_N:
+        raise ValueError(f"fused_block_attention: windows of {N} tokens; "
+                         f"the windowed cores take at most {WINDOW_MAX_N}")
+    if regions is not None and B % regions.shape[0]:
+        raise ValueError(f"fused_block_attention: {B} windows are not whole "
+                         f"groups of the regions' {regions.shape[0]}")
 
 
 def _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv, B: int, N: int,
-                              num_heads: int, eps: float):
+                              num_heads: int, eps: float, bias=None,
+                              regions=None):
     y = layernorm_cuda(x2d, gamma, beta, eps)
     qkv = gemm_nt_cuda(y, w_qkv, b_qkv, EPI_BIAS)
-    return y, qkv, attention_core_cuda(qkv, B, N, num_heads)
+    return y, qkv, attention_core_cuda(qkv, B, N, num_heads, bias, regions)
 
 
 def block_attention_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                         num_heads: int, eps: float) -> torch.Tensor:
+                         num_heads: int, eps: float, bias=None,
+                         regions=None) -> torch.Tensor:
     """The forward kernels on a CUDA tensor (checks, then launches)."""
-    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+                     bias, regions)
     B, N, C = x.shape
     x2d = x.view(B * N, C)
     _, _, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv, B,
-                                           N, num_heads, eps)
+                                           N, num_heads, eps, bias, regions)
     return gemm_nt_cuda(attn, w_proj, b_proj, EPI_BIAS_RESIDUAL,
                         residual=x2d).view(B, N, C)
 
 
 def block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                             dout, num_heads: int, eps: float):
+                             dout, num_heads: int, eps: float, bias=None,
+                             regions=None):
     """The backward kernels on CUDA tensors: the gradients in the order and
     dtypes of `block_attention_bwd_plain`."""
-    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads)
+    _check_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+                     bias, regions)
     B, N, C = x.shape
     x2d = x.view(B * N, C)
     do = bf16_contiguous(dout).view(B * N, C)
     y, qkv, attn = _recompute_attention_cuda(x2d, gamma, beta, w_qkv, b_qkv,
-                                             B, N, num_heads, eps)
+                                             B, N, num_heads, eps, bias,
+                                             regions)
     do_attn = gemm_cuda(do, weight_bf16(w_proj), LAYOUT_NN, EPI_NONE)
-    dqkv = attention_core_bwd_cuda(qkv, do_attn, B, N, num_heads)
+    dqkv, dbias = attention_core_bwd_cuda(qkv, do_attn, B, N, num_heads,
+                                          bias, regions)
     dy = gemm_cuda(dqkv, weight_bf16(w_qkv), LAYOUT_NN, EPI_F32)
     dx, dgamma, dbeta, db_proj = layernorm_bwd_cuda(x2d, gamma, dy, do, eps)
     return (dx.view(B, N, C), dgamma, dbeta,
             gemm_cuda(dqkv, y, LAYOUT_TN, EPI_F32), colsum_cuda(dqkv),
-            gemm_cuda(do, attn, LAYOUT_TN, EPI_F32), db_proj)
+            gemm_cuda(do, attn, LAYOUT_TN, EPI_F32), db_proj,
+            *(() if dbias is None else (dbias,)))
 
 
 class _FusedBlockAttention(torch.autograd.Function):
-    """Saves x and the parameters only; the backward recomputes the rest."""
+    """Saves x and the parameters (and the bias and regions) only; the
+    backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                num_heads, eps):
-        global LAUNCHES
-        ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj)
+    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, bias,
+                regions, num_heads, eps):
+        global LAUNCHES, LAUNCHES_WINDOW
+        ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
+                              bias, regions)
         ctx.num_heads, ctx.eps = num_heads, eps
         if x.device.type == "cpu":
             return block_attention_plain(x, gamma, beta, w_qkv, b_qkv, w_proj,
-                                         b_proj, num_heads, eps)
+                                         b_proj, num_heads, eps, bias, regions)
         out = block_attention_cuda(x, gamma, beta, w_qkv, b_qkv, w_proj,
-                                   b_proj, num_heads, eps)
-        LAUNCHES += 1
+                                   b_proj, num_heads, eps, bias, regions)
+        if windowed(x.shape[-1], num_heads):
+            LAUNCHES_WINDOW += 1
+        else:
+            LAUNCHES += 1
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        global LAUNCHES_BWD
-        x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj = ctx.saved_tensors
+        global LAUNCHES_BWD, LAUNCHES_WINDOW_BWD
+        x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj, bias, regions = \
+            ctx.saved_tensors
         if x.device.type == "cpu":
             grads = block_attention_bwd_plain(x, gamma, beta, w_qkv, b_qkv,
                                               w_proj, dout, ctx.num_heads,
-                                              ctx.eps)
+                                              ctx.eps, bias, regions)
         else:
             grads = block_attention_bwd_cuda(x, gamma, beta, w_qkv, b_qkv,
                                              w_proj, b_proj, dout,
-                                             ctx.num_heads, ctx.eps)
-            LAUNCHES_BWD += 1
-        return (*grads, None, None)
+                                             ctx.num_heads, ctx.eps, bias,
+                                             regions)
+            if windowed(x.shape[-1], ctx.num_heads):
+                LAUNCHES_WINDOW_BWD += 1
+            else:
+                LAUNCHES_BWD += 1
+        dbias = grads[7] if bias is not None else None
+        return (*grads[:7], dbias, None, None, None)
 
 
 def fused_block_attention(x, gamma, beta, w_qkv, b_qkv, w_proj, b_proj,
-                          num_heads: int, eps: float = 1e-6) -> torch.Tensor:
+                          num_heads: int, eps: float = 1e-6,
+                          bias: torch.Tensor | None = None,
+                          regions: torch.Tensor | None = None) -> torch.Tensor:
     """x + proj(attention(LayerNorm(x))), differentiable.
 
     x: [B, N, C] residual stream; gamma, beta: [C]; w_qkv: [3C, C],
     b_qkv: [3C] (timm fused-qkv layout, rows ordered qkv-slot, head, dim);
-    w_proj: [C, C], b_proj: [C]. A CPU tensor takes the plain versions (any
-    float dtype); a CUDA tensor launches the kernels (bf16 x, f32 params).
+    w_proj: [C, C], b_proj: [C]. Windows: x [B*nW, N, C]; bias [H, N, N]
+    f32 added to the scaled scores (differentiable); regions [nW, N] int32,
+    the shift region of each token of window b mod nW, MASKED added between
+    regions (not learned). A CPU tensor takes the plain versions (any float
+    dtype); a CUDA tensor launches the kernels (bf16 x, f32 params, head dim
+    64 without a bias or regions, or WINDOW_D in windows of at most
+    WINDOW_MAX_N tokens).
     """
     return _FusedBlockAttention.apply(x, gamma, beta, w_qkv, b_qkv, w_proj,
-                                      b_proj, num_heads, eps)
+                                      b_proj, bias, regions, num_heads, eps)
 
 
 # --- fused_attention and fused_qkv_attention ---------------------------------

@@ -5,10 +5,11 @@ scalar sum and the BatchNorm chain.
 
     python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
 
-(default: 1,197,2 1,600,1; then the unit at two shapes each way, the
-LayerNorm backward and a column sum at two shapes each, the scalar
-sum on hubs and on short segments, and the BatchNorm chain at C = 64 and
-2048). No GPU and no nvcc: g++ (C++20)
+(default: 1,197,2 1,600,1; then the windowed cores of Swin's blocks at
+head dim 32, with and without the bias and the mask; then the unit
+at two shapes each way, the LayerNorm backward and a column sum at two
+shapes each, the scalar sum on hubs and on short segments, and the
+BatchNorm chain at C = 64 and 2048). No GPU and no nvcc: g++ (C++20)
 compiles csrc/block_attention.cu, csrc/block_attention_bwd.cu,
 csrc/conv_bn.cu, csrc/block_norm_bwd.cu, csrc/csr_segment.cu,
 csrc/batchnorm.cu and the headers they include as host code into build/emulate_attention/, with
@@ -103,6 +104,9 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.emu_attention.argtypes = (I, P, P, P, P) + (I,) * 7 + (F,)
     handle.emu_attention_bwd.argtypes = (I,) + (P,) * 9 + (I,) * 11 + (F,)
+    handle.emu_window_attention.argtypes = (P,) * 4 + (I,) * 5 + (F,)
+    handle.emu_window_attention_bwd.argtypes = ((P,) * 7 + (I, P, P)
+                                                + (I,) * 5 + (F,))
     handle.emu_conv_bn_fwd.argtypes = (P,) * 8 + (I,) * 4
     handle.emu_conv_bn_bwd.argtypes = (P,) * 16 + (I,) * 8
     handle.emu_layernorm_bwd.argtypes = (P,) * 7 + (I, I, F, I, I)
@@ -178,6 +182,85 @@ def check(lib: ctypes.CDLL, B: int, N: int, H: int) -> float:
         worst = max(worst, ratio)
         print(f"B={B} N={N} H={H} {name}: max abs {max_abs:.4g}, worst "
               f"err/(atol+rtol|ref|) {ratio:.4g}", flush=True)
+    return worst
+
+
+def window_inputs(B: int, N: int, H: int, D: int, nW: int, bias: bool,
+                  mask: bool, seed: int = 0):
+    """Seeded windowed-core inputs: qkv [B, N, 3, H, D] and do [B, N, H, D]
+    bf16, an f32 bias [H, N, N] and int32 regions [nW, N], seeded region ids
+    of a window's tokens (None where not asked for)."""
+    rng = np.random.default_rng(seed + B * 7919 + N * 31 + H * 7 + D)
+    bf = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    qkv, do = bf(B, N, 3, H, D), bf(B, N, H, D)
+    b = (torch.from_numpy(rng.normal(size=(H, N, N)).astype(np.float32))
+         if bias else None)
+    m = (torch.from_numpy(rng.integers(0, 4, (nW, N)).astype(np.int32))
+         if mask else None)
+    return qkv, do, b, m
+
+
+def check_window(lib: ctypes.CDLL, B: int, N: int, H: int, nW: int,
+                 bias: bool, mask: bool, per_run: int = 2) -> float:
+    """The windowed cores (`ag_window_attention_bf16` and `_bwd_bf16`'s
+    kernels and dBias sum, at head dim WINDOW_D, the one built) at one
+    shape against `core_plain` and
+    `core_bwd_plain`: outputs at rtol = atol = 3e-2, dBias at relative L2
+    <= GRAD_REL_L2 and bit-identical on a second call. `per_run` windows a
+    run of the backward's phases 1 and 3. Returns the worst error over
+    tolerance."""
+    D = A.WINDOW_D
+    C, scale = H * D, D ** -0.5
+    qkv, do, b, m = window_inputs(B, N, H, D, nW, bias, mask)
+    b_t = None if b is None else b.transpose(1, 2).contiguous()
+    packed, dout = qkv.reshape(B * N, 3 * C), do.reshape(B * N, C)
+    heads = [t.transpose(1, 2) for t in qkv.unbind(2)]       # [B, H, N, D]
+    p, of = A.core_plain(*heads, scale, b, m)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    runs = -(-B // per_run)
+    results = {}
+
+    out = torch.full((B * N, C), float("nan"), dtype=torch.bfloat16)
+    lib.emu_window_attention(packed.data_ptr(), out.data_ptr(), ptr(b),
+                             ptr(m), nW, B, N, H, D, scale)
+    held = lambda a, r: (errors(a, r) if torch.isfinite(a.float()).all()
+                         else (float("nan"), float("inf")))
+    results["forward"] = held(out, of.to(torch.bfloat16).transpose(1, 2)
+                              .reshape(B * N, C))
+
+    def backward():
+        dqkv = torch.full_like(packed, float("nan"))
+        stats = torch.empty((3, B, H, N))
+        part = torch.full((runs, H, N, N), float("nan"))
+        dbias = torch.full((H, N, N), float("nan"))
+        lib.emu_window_attention_bwd(
+            packed.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            stats.data_ptr(), ptr(b), ptr(b_t), ptr(m), nW, part.data_ptr(),
+            dbias.data_ptr(), per_run, B, N, H, D, scale)
+        return dqkv, dbias
+
+    (dqkv, dbias), (again, dbias2) = backward(), backward()
+    ref = A.core_bwd_plain(*heads, p, of, do.transpose(1, 2), scale,
+                           bias_grad=True)
+    ref_dqkv = torch.stack(ref[:3]).to(torch.bfloat16).permute(1, 3, 0, 2, 4) \
+        .reshape(B * N, 3 * C)
+    results["backward dqkv"] = held(dqkv, ref_dqkv)
+    if not torch.equal(dqkv, again):
+        results["backward dqkv"] = (results["backward dqkv"][0], float("inf"))
+    if bias:
+        ratio = _rel_l2(dbias, ref[3])
+        if not torch.equal(dbias, dbias2):
+            ratio = float("inf")
+        results["backward dbias"] = (
+            (dbias.double() - ref[3].double()).abs().max().item(), ratio)
+
+    worst = 0.0
+    for name, (max_abs, ratio) in results.items():
+        worst = max(worst, ratio)
+        print(f"window B={B} N={N} H={H} D={D} nW={nW} bias={bias} "
+              f"mask={mask} {name}: max abs {max_abs:.4g}, worst "
+              f"err/tolerance {ratio:.4g}", flush=True)
     return worst
 
 
@@ -544,6 +627,10 @@ def check_batchnorm(lib: ctypes.CDLL, M: int, C: int, branches: int,
 def main(shapes: list[str]) -> int:
     lib = build()
     worst = max(check(lib, *map(int, s.split(","))) for s in shapes)
+    for B, N, H, nW, bias, mask in ((4, 16, 2, 2, True, True),
+                                    (2, 65, 1, 1, True, False),
+                                    (2, 36, 2, 2, False, True)):
+        worst = max(worst, check_window(lib, B, N, H, nW, bias, mask))
     for M, K, N, prologue, chunk, dz_chunk in (
             (300, 96, 96, True, 96, 32), (130, 32, 160, False, None, None)):
         worst = max(worst, check_conv_bn(lib, M, K, N, prologue, chunk,

@@ -42,6 +42,19 @@
 // contraction), expf and __fdiv_rn as in the reference, so kernel and plain
 // twin differ only in summation order.
 //
+// Windowed (ag_window_attention_bf16): the packed path on [B*nW, N, C]
+// windows (Swin's shifted-window blocks), each window an image of N tokens,
+// at head dim 32 (the kernel is written over D; only D = 32 is built), with
+// an f32 bias [H, N, N] and the shift mask
+// (-100 between tokens of different regions; int32 region ids [nW, N],
+// window b taking row b mod nW), either optional, added to the scaled
+// scores before the softmax: s = ((f32(q . k) * scale) + bias) + mask.
+// Its kernel is window_attention_kernel<D>, for windows of at most
+// WIN_MAX_N = 160 tokens (Swin's 12x12 = 144): the whole window's K and V
+// sit in shared memory and a row's scores in registers, so it makes one
+// pass with the exact m and l and one exponential a score (see the kernel).
+// The packed kernel above stays as it is for ViT's blocks.
+//
 // What bounds it on an H100: at ViT-B/16 (B = 32, N = 197, H = 12, D = 64)
 // the two products are 3.8 GFLOP (0.004 ms at 989 TFLOP/s) on 38.7 MB of
 // q, k, v and o (0.0116 ms at 3.35 TB/s): bytes. Pass 1's extra Q K^T adds
@@ -70,23 +83,25 @@ struct FwdArgs {
 template <bool STRIDED>
 __global__ void __launch_bounds__(THREADS, 5)
 attention_core_kernel(FwdArgs a, int N, float scale) {
-  __shared__ __align__(128) bf16 sQ[TILE_ELEMS];
-  __shared__ __align__(128) bf16 ring[2][2][STAGE * LDT];  // [slot][K, V]
+  __shared__ __align__(128) bf16 sQ[Head<64>::TILE_ELEMS];
+  // [slot][K, V]
+  __shared__ __align__(128) bf16 ring[2][2][STAGE * Head<64>::LDT];
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, row0 = warp * 16;
-  const bf16* kb = head_rows(a.k, b, h, N);
-  const bf16* vb = head_rows(a.v, b, h, N);
+  const bf16* kb = head_rows<64>(a.k, b, h, N);
+  const bf16* vb = head_rows<64>(a.v, b, h, N);
   const int T = (N + STAGE - 1) / STAGE;  // key stages a pass
 
   // stage s: key rows of tile s % T; pass 1 (s < T) reads K, pass 2 K and V
   auto issue = [&](int s) {
     const int j = s < T ? s : s - T;
-    load_tile<STAGE>(ring[s & 1][0], kb, a.k.ld, j * STAGE, N);
-    if (s >= T) load_tile<STAGE>(ring[s & 1][1], vb, a.v.ld, j * STAGE, N);
+    load_tile<64, STAGE>(ring[s & 1][0], kb, a.k.ld, j * STAGE, N);
+    if (s >= T)
+      load_tile<64, STAGE>(ring[s & 1][1], vb, a.v.ld, j * STAGE, N);
     cp_async_commit();
   };
 
-  load_tile(sQ, head_rows(a.q, b, h, N), a.q.ld, q0, N);
+  load_tile<64>(sQ, head_rows<64>(a.q, b, h, N), a.q.ld, q0, N);
   issue(0);
 
   uint32_t qf[4][4];
@@ -102,11 +117,11 @@ attention_core_kernel(FwdArgs a, int N, float scale) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (s == 0) load_a(qf, sQ, row0);
+    if (s == 0) load_a<64>(qf, sQ, row0);
     const int k0 = (s < T ? s : s - T) * STAGE;
     float sc[4][4];  // this warp's 16 queries x the stage's 32 keys
     zero(sc);
-    mma_abt(sc, qf, ring[s & 1][0]);
+    mma_abt<64>(sc, qf, ring[s & 1][0]);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -153,7 +168,7 @@ attention_core_kernel(FwdArgs a, int N, float scale) {
         }
       uint32_t pf[2][4];
       pack_a(pf, sc);
-      mma_ab(o, pf, ring[s & 1][1]);
+      mma_ab<64>(o, pf, ring[s & 1][1]);
     }
     __syncthreads();
   }
@@ -166,8 +181,101 @@ attention_core_kernel(FwdArgs a, int N, float scale) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nt][e] = __fdiv_rn(o[nt][e], l[e >> 1]);
   }
+  bf16* ob = a.o + (size_t)b * N * a.ld_o + (size_t)h * 64;
+  store_rows<64>(o, sQ, row0, ob, a.ld_o, q0, N);
+}
+
+// The windowed core for one (window b, head, 64-row query tile) at head dim
+// D. A window's keys fit the block: all of K and V (at most WIN_STAGES
+// stages) are staged in shared memory at once and all of a row's scores
+// stay in registers, so the block makes one pass: S = Q K^T scaled, plus
+// the bias and the mask; the exact row max m and sum l = sum exp(s - m); p
+// = bf16(exp(s - m) / l); o = bf16(f32(p . v)), the block path's rounding
+// points with one exponential a score.
+template <int D>
+constexpr int window_fwd_smem() {  // dynamic: the Q tile, all of K and V
+  return (TILE + 2 * WIN_MAX_N) * Head<D>::LDT * (int)sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 4)
+window_attention_kernel(FwdArgs a, Additive ad, int N, float scale) {
+  constexpr int LDT = Head<D>::LDT;
+  AG_DYNAMIC_SMEM(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + Head<D>::TILE_ELEMS;
+  bf16* sV = sK + WIN_MAX_N * LDT;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, row0 = warp * 16;
+  const int T = (N + STAGE - 1) / STAGE;  // key stages, at most WIN_STAGES
+
+  load_tile<D>(sQ, head_rows<D>(a.q, b, h, N), a.q.ld, q0, N);
+  for (int j = 0; j < T; ++j)
+    load_tile<D, STAGE>(sK + j * STAGE * LDT, head_rows<D>(a.k, b, h, N),
+                        a.k.ld, j * STAGE, N);
+  cp_async_commit();
+  for (int j = 0; j < T; ++j)
+    load_tile<D, STAGE>(sV + j * STAGE * LDT, head_rows<D>(a.v, b, h, N),
+                        a.v.ld, j * STAGE, N);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t qf[Head<D>::KC][4];
+  load_a<D>(qf, sQ, row0);
+  float sc[WIN_STAGES][4][4];  // this warp's 16 queries x every key
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < WIN_STAGES; ++j) {
+    if (j >= T) continue;
+    zero(sc[j]);
+    mma_abt<D>(sc[j], qf, sK + j * STAGE * LDT);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][nt][e] = __fmul_rn(sc[j][nt][e], scale);
+    add_scores(sc[j], ad, b, h, q0 + row0, j * STAGE, N);
+    mask_tail(sc[j], j * STAGE, N, -INFINITY);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[j][nt][e]);
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+#pragma unroll
+  for (int j = 0; j < WIN_STAGES; ++j) {
+    if (j >= T) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][nt][e] = expf(sc[j][nt][e] - m[e >> 1]);
+        l[e >> 1] += sc[j][nt][e];
+      }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[Head<D>::NT][4];
+  zero(o);
+#pragma unroll
+  for (int j = 0; j < WIN_STAGES; ++j) {
+    if (j >= T) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][nt][e] = __fdiv_rn(sc[j][nt][e], l[e >> 1]);
+    uint32_t pf[2][4];
+    pack_a(pf, sc[j]);
+    mma_ab<D>(o, pf, sV + j * STAGE * LDT);
+  }
+  // each warp stages its own 16 rows of sQ, which only it read
   bf16* ob = a.o + (size_t)b * N * a.ld_o + (size_t)h * D;
-  store_rows(o, sQ, row0, ob, a.ld_o, q0, N);
+  store_rows<D>(o, sQ, row0, ob, a.ld_o, q0, N);
 }
 
 template <bool STRIDED>
@@ -179,6 +287,26 @@ int launch(const FwdArgs& a, int B, int N, int H, float scale,
   return (int)cudaGetLastError();
 }
 
+// within the 48 KB of dynamic shared memory a launch gets unasked
+static_assert(window_fwd_smem<WIN_D>() <= 48 * 1024, "window smem");
+
+int launch_window(const FwdArgs& a, const Additive& ad, int B, int N, int H,
+                  float scale, void* stream) {
+  const dim3 grid((N + TILE - 1) / TILE, H, B);
+  window_attention_kernel<WIN_D>
+      <<<grid, THREADS, window_fwd_smem<WIN_D>(), (cudaStream_t)stream>>>(
+          a, ad, N, scale);
+  return (int)cudaGetLastError();
+}
+
+// The packed qkv operands of [B*N, 3*H*D] (columns ordered qkv-slot, head,
+// dim) and the [B*N, H*D] output.
+FwdArgs packed_args(const void* qkv, void* out, int C) {
+  const bf16* p = (const bf16*)qkv;
+  return FwdArgs{{p, 3 * C}, {p + C, 3 * C}, {p + 2 * C, 3 * C}, (bf16*)out,
+                 C};
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,11 +316,22 @@ extern "C" {
 int ag_attention_core_bf16(const void* qkv, void* out, int B, int N, int H,
                            int Dh, float scale, void* stream) {
   if (bad_shape(B, N, H, Dh)) return (int)cudaErrorInvalidValue;
-  const int C = H * D;
-  const bf16* p = (const bf16*)qkv;
-  const FwdArgs a{{p, 3 * C}, {p + C, 3 * C}, {p + 2 * C, 3 * C},
-                  (bf16*)out, C};
-  return launch<false>(a, B, N, H, scale, stream);
+  return launch<false>(packed_args(qkv, out, H * Dh), B, N, H, scale,
+                       stream);
+}
+
+// The windowed block path: qkv [B*N, 3*H*D] and out [B*N, H*D] bf16 as
+// above, B windows of N tokens; bias [H, N, N] f32 and regions [nW, N]
+// int32 (window b takes row b mod nW; B a multiple of nW), each null or
+// contiguous; N <= WIN_MAX_N. Only D = 32 is built.
+int ag_window_attention_bf16(const void* qkv, void* out, const void* bias,
+                             const void* regions, int nW, int B, int N, int H,
+                             int Dh, float scale, void* stream) {
+  if (bad_shape(B, N, H, Dh, WIN_D) || N > WIN_MAX_N || nW < 1)
+    return (int)cudaErrorInvalidValue;
+  const Additive ad{(const float*)bias, (const int*)regions, nW};
+  return launch_window(packed_args(qkv, out, H * Dh), ad, B, N, H, scale,
+                       stream);
 }
 
 // q, k, v, out: [B*N, ld_*] bf16 row-major, head h at columns [h*D, h*D+D)

@@ -34,6 +34,9 @@ struct alignas(8) float2 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) int2 {
+  int x, y;
+};
 inline float2 make_float2(float x, float y) { return {x, y}; }
 template <class T>
 inline T __ldg(const T* p) {

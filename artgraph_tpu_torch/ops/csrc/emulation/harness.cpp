@@ -153,6 +153,59 @@ static int emu_sums(const float* part, float* lo, float* hi, int groups,
   return 0;
 }
 
+// The windowed block path at head dim 32, as ag_window_attention_bf16 and
+// ag_window_attention_bwd_bf16 launch it (any other head dim: 1).
+using attn::WIN_D;
+static FwdArgs window_fwd_args(const void* qkv, void* o, int C) {
+  const bf16* p = (const bf16*)qkv;
+  return FwdArgs{{p, 3 * C}, {p + C, 3 * C}, {p + 2 * C, 3 * C}, (bf16*)o, C};
+}
+
+extern "C" int emu_window_attention(const void* qkv, void* o,
+                                    const void* bias, const void* regions,
+                                    int nW, int B, int N, int H, int Dh,
+                                    float scale) {
+  if (Dh != WIN_D) return 1;
+  const FwdArgs a = window_fwd_args(qkv, o, H * Dh);
+  const attn::Additive ad{(const float*)bias, (const int*)regions, nW};
+  run_grid(grid_of(B, N, H), ATTN_BLOCK,
+           [&] { window_attention_kernel<WIN_D>(a, ad, N, scale); },
+           window_fwd_smem<WIN_D>());
+  return 0;
+}
+
+extern "C" int emu_window_attention_bwd(const void* qkv, const void* dout,
+                                        void* dqkv, void* stats,
+                                        const void* bias, const void* bias_t,
+                                        const void* regions, int nW,
+                                        void* part, void* dbias,
+                                        int per_run, int B, int N, int H,
+                                        int Dh, float scale) {
+  if (Dh != WIN_D) return 1;
+  const int C = H * Dh;
+  const bf16* p = (const bf16*)qkv;
+  bf16* g = (bf16*)dqkv;
+  const BwdArgs a{{p, 3 * C},   {p + C, 3 * C}, {p + 2 * C, 3 * C},
+                  {nullptr, 0}, {(const bf16*)dout, C},
+                  g,            g + C,          g + 2 * C,
+                  3 * C,        3 * C,          3 * C};
+  const attn::Additive ad{(const float*)bias, (const int*)regions, nW};
+  const attn::Additive ad_t{(const float*)bias_t, (const int*)regions, nW};
+  const BiasGrad bg{bias ? (float*)part : nullptr, per_run, B};
+  float* st = (float*)stats;
+  const int runs = (B + per_run - 1) / per_run;
+  run_grid(grid_of(runs, N, H), ATTN_BLOCK,
+           [&] { window_bwd_dq_kernel<WIN_D>(a, ad, bg, st, N, H, scale); },
+           window_dq_smem<WIN_D>());
+  run_grid(grid_of(B, N, H), ATTN_BLOCK,
+           [&] { window_bwd_dkv_kernel<WIN_D>(a, ad_t, st, N, H, scale); });
+  if (bg.part) {
+    const int cols = H * N * N;
+    emu_sums(bg.part, (float*)dbias, (float*)dbias + cols, runs, cols, cols);
+  }
+  return 0;
+}
+
 // conv_bn.cu's launch sequences with a launcher that runs each grid here.
 namespace convbn {
 

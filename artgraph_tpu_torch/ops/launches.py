@@ -19,6 +19,7 @@ COUNTERS = (
     (attention, "LAUNCHES"), (attention, "LAUNCHES_BWD"),
     (attention, "LAUNCHES_ATTENTION"), (attention, "LAUNCHES_ATTENTION_BWD"),
     (attention, "LAUNCHES_QKV"), (attention, "LAUNCHES_QKV_BWD"),
+    (attention, "LAUNCHES_WINDOW"), (attention, "LAUNCHES_WINDOW_BWD"),
     (mlp, "LAUNCHES"), (mlp, "LAUNCHES_BWD"),
     (conv_bn, "LAUNCHES"), (conv_bn, "LAUNCHES_BWD"),
     (batchnorm, "LAUNCHES_STATS"), (batchnorm, "LAUNCHES_FINISH"),

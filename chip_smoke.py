@@ -128,7 +128,16 @@ db by absolute error), bit-identical on repeat; fused_attention forward and
 backward also at N = 600 on 2 images x 2 heads against the twins, the same
 way; timed beside the twins and F.scaled_dot_product_attention (after
 F.linear for the qkv op; autograd of the same for the backwards)
-(attention_kernel_phases). Then rows 9 and 3 alone by device time
+(attention_kernel_phases); and Swin-B's windowed blocks (fused_block_attention
+with a unit-normal bias and the shift regions at head dim 32: the windowed
+cores) at its four stage shapes at batch 32 (SWIN_STAGES), forward and
+backward against the plain twins (the output and dx at rtol = atol = 3e-2,
+the parameter gradients as in phase 3, dBias at relative L2 <=
+DBIAS_REL_L2, bit-identical on repeat; the twin without the bias, or without
+the mask, must miss the tolerance, and a dBias that lost a window must miss
+dBias's), and the windowed core alone each way timed beside its twins,
+F.scaled_dot_product_attention with the float mask (autograd of the same to
+q, k, v and the bias) and its bound (window_kernel_phases). Then rows 9 and 3 alone by device time
 (scalar_normalize_phases): the CSR scalar sum over E = 1M edges into 32
 `style` hubs, 100K artworks and 18 `genre` hubs (f32 against the plain twin
 in f64 at rtol = 1e-4, atol = 1e-3, bit-identical on repeat; the artworks'
@@ -401,6 +410,15 @@ sum's device time and launches a step.
               phase 8's synthetic tree with seeded embeddings: the train
               loss falls, both test accuracies print, the checkpoint
               exists.
+ 32. swin train  NewMultiModalMultiTaskSwin(128, ...) at Swin-B's full
+              width, 384 px, as phase 6 (2 warm-up and 8 timed steps of
+              one seeded batch of 32, adam(3e-4), dropout 0.4, the
+              multi-task loss): the windowed cores' counters 24 and 24 a
+              step, the MLP kernels 24 and 24, the normalize 1, ViT's
+              cores 0; losses finite and falling; img/s, peak memory, the
+              profile; then one profiled step's windowed kernels by name:
+              the forward core 48 (24 and 24 recomputed in the backward),
+              dQ and dK/dV 24 each.
 
 Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -474,6 +492,25 @@ BN_SHAPES = (("stem", 32, 112, 112, 64, 1),
 BN_SUM_REL_L2 = 1e-5       # the statistics' and column sums' run partials
 # a sequence length past what a [64, N] score tile in shared memory allows
 LONG_N = 600
+# Swin-B at 384 px, batch 32: (stage, windows, C, heads, windows an image)
+# of its four stages, SWIN_N = 144 tokens a window (12x12), head dim 32;
+# stages 1-3 have shifted blocks (the shift mask over their windows), stage
+# 4 is one window and has none
+SWIN_N, SWIN_WINDOW, SWIN_SHIFT = 144, 12, 6
+SWIN_STAGES = ((1, 2048, 128, 4, 64), (2, 512, 256, 8, 16),
+               (3, 128, 512, 16, 4), (4, 32, 1024, 32, 1))
+# dBias against the plain twin's: the same rounded p and f32 dS, summed in
+# another order (relative L2). A dBias that lost one window's dS lies past
+# it at every stage: phase 3 checks that and prints the distance.
+DBIAS_REL_L2 = 1e-3
+# one Swin-B fusion step (24 blocks), by counter; and by kernel: the
+# windowed forward core 24 times and 24 more recomputed in the blocks'
+# backwards, each backward kernel 24 times
+SWIN_STEP_LAUNCHES = {"window_attention_core": 24, "fused_block_mlp": 24,
+                      "window_attention_core_bwd": 24,
+                      "fused_block_mlp_bwd": 24, "normalize_images": 1}
+SWIN_STEP_KERNELS = {"window_attention_kernel": 48,
+                     "window_bwd_dq_kernel": 24, "window_bwd_dkv_kernel": 24}
 
 
 def device_phase() -> None:
@@ -527,25 +564,27 @@ def _check_output(name: str, ours: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs
 
 
-def _k_third(name: str, a: torch.Tensor, r: torch.Tensor) -> tuple:
-    """A qkv bias gradient's K third, zero in exact arithmetic, held by
-    absolute error against GRAD_MAX_REL * mean|r|; returns (its max abs
-    error, a and r without it)."""
+def _k_third(name: str, a: torch.Tensor, r: torch.Tensor,
+             width: int = C) -> tuple:
+    """A qkv bias gradient's K third (of a block `width` wide), zero in
+    exact arithmetic, held by absolute error against GRAD_MAX_REL * mean|r|;
+    returns (its max abs error, a and r without it)."""
     scale = r.abs().mean().item()
-    k_err = (a[C:2 * C] - r[C:2 * C]).abs().max().item()
+    k_err = (a[width:2 * width] - r[width:2 * width]).abs().max().item()
     if not k_err <= GRAD_MAX_REL * scale:
         raise AssertionError(f"{name} db_qkv K third: {k_err} > "
                              f"{GRAD_MAX_REL} * {scale}")
-    return (k_err, torch.cat((a[:C], a[2 * C:])),
-            torch.cat((r[:C], r[2 * C:])))
+    return (k_err, torch.cat((a[:width], a[2 * width:])),
+            torch.cat((r[:width], r[2 * width:])))
 
 
 def _check_param_grad(name: str, gname: str, a: torch.Tensor,
-                      r: torch.Tensor, qkv_bias: bool = False) -> float:
+                      r: torch.Tensor, qkv_bias: bool = False,
+                      width: int = C) -> float:
     """An f32 parameter gradient at relative L2 <= GRAD_REL_L2 and
-    max|a-b| / mean|a| <= GRAD_MAX_REL; for a qkv bias (qkv_bias) the K
-    third, zero in exact arithmetic, by absolute error only. Returns the max
-    abs error."""
+    max|a-b| / mean|a| <= GRAD_MAX_REL; for a qkv bias (qkv_bias) of a block
+    `width` wide the K third, zero in exact arithmetic, by absolute error
+    only. Returns the max abs error."""
     if a.dtype != torch.float32 or a.shape != r.shape:
         raise AssertionError(f"{name} {gname}: {a.dtype} {a.shape}")
     a, r = a.double(), r.double()
@@ -553,7 +592,7 @@ def _check_param_grad(name: str, gname: str, a: torch.Tensor,
     note = ""
     if qkv_bias:
         bound = GRAD_MAX_REL * r.abs().mean().item()
-        k_err, a, r = _k_third(name, a, r)
+        k_err, a, r = _k_third(name, a, r, width)
         note = (f"; K third max abs {k_err:.4g} (<= "
                 f"{GRAD_MAX_REL} * mean|db_qkv| = {bound:.4g})")
     rel_l2 = ((a - r).norm() / r.norm()).item()
@@ -1000,7 +1039,10 @@ def _counters():
             "fused_block_mlp": (mlp, "LAUNCHES"),
             "normalize_images": (preprocess, "LAUNCHES"),
             "fused_block_attention_bwd": (attention, "LAUNCHES_BWD"),
-            "fused_block_mlp_bwd": (mlp, "LAUNCHES_BWD")}
+            "fused_block_mlp_bwd": (mlp, "LAUNCHES_BWD"),
+            # fused_block_attention's calls that take the windowed cores
+            "window_attention_core": (attention, "LAUNCHES_WINDOW"),
+            "window_attention_core_bwd": (attention, "LAUNCHES_WINDOW_BWD")}
 
 
 def _csr_counters():
@@ -1952,6 +1994,195 @@ def attention_kernel_phases() -> dict:
               flush=True)
     del qkv, q, k, v, do, x, w, b, out, xout, library
     torch.cuda.empty_cache()
+    return results
+
+
+def _window_stage(rng, dev, BW: int, C: int, H: int, nW: int) -> dict:
+    """One Swin-B stage's windowed-block operands (see window_kernel_phases),
+    on the card."""
+    from artgraph_tpu_torch.models.swin import shift_regions
+
+    side = SWIN_WINDOW * int(round(nW ** 0.5))
+    bf = torch.bfloat16
+    return {
+        "x": dev(rng.normal(size=(BW, SWIN_N, C)), bf),
+        "params": (dev(1.0 + 0.1 * rng.normal(size=C)),
+                   dev(0.1 * rng.normal(size=C)),
+                   dev(rng.normal(size=(3 * C, C)) / np.sqrt(C)),
+                   dev(0.02 * rng.normal(size=3 * C)),
+                   dev(rng.normal(size=(C, C)) / np.sqrt(C)),
+                   dev(0.02 * rng.normal(size=C))),
+        "bias": dev(rng.normal(size=(H, SWIN_N, SWIN_N))),
+        "regions": (shift_regions(side, SWIN_WINDOW, SWIN_SHIFT).cuda()
+                    if nW > 1 else None),
+        "do": dev(rng.normal(size=(BW, SWIN_N, C)), bf),
+        "qkv": dev(rng.normal(size=(BW * SWIN_N, 3 * C)), bf),
+        "do_attn": dev(rng.normal(size=(BW * SWIN_N, C)), bf)}
+
+
+def _check_window_block(stage: int, t: dict, H: int) -> float:
+    """Phase 3 for one stage's windowed block: forward and backward against
+    the plain twins, bit-identical on repeat, and the tolerances shown to
+    fail a core without the bias, without the mask, or whose dBias lost a
+    window. Returns the max abs error."""
+    from artgraph_tpu_torch.ops import attention as A
+
+    x, params, bias, regions, do = (t[k] for k in ("x", "params", "bias",
+                                                   "regions", "do"))
+    BW, N, C = x.shape
+    label = f"window block stage {stage} [{BW}, {N}, {C}] H={H}"
+    ours, again = (A.block_attention_cuda(x, *params, H, 1e-5, bias, regions)
+                   for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError(f"{label} forward differs from call to call")
+    ref = A.block_attention_plain(x, *params, H, 1e-5, bias, regions)
+    max_abs = _check_output(f"{label} forward", ours, ref)
+    wrong = {"no bias": (None, regions)}
+    if regions is not None:
+        wrong["no mask"] = (bias, None)
+    for what, (b, r) in wrong.items():
+        _, ratio = _errors(A.block_attention_plain(x, *params, H, 1e-5, b, r),
+                           ref)
+        print(f"check: {label}: the plain twin with {what} misses the "
+              f"tolerance by {ratio:.4g}x", flush=True)
+        if not ratio > 1.0:
+            raise AssertionError(f"{label}: the tolerance passes a core "
+                                 f"with {what}")
+    del ours, again, ref, wrong
+    grads, again = (A.block_attention_bwd_cuda(x, *params, do, H, 1e-5, bias,
+                                               regions) for _ in range(2))
+    torch.cuda.synchronize()
+    if len(grads) != 8 or not all(torch.equal(a, g)
+                                  for a, g in zip(grads, again)):
+        raise AssertionError(f"{label} backward differs from call to call")
+    del again
+    ref = A.block_attention_bwd_plain(x, *params[:5], do, H, 1e-5, bias,
+                                      regions)
+    max_abs = max(max_abs, _check_output(f"{label} dx", grads[0], ref[0]))
+    for gname, a, r in zip(("dgamma", "dbeta", "dw_qkv", "db_qkv", "dw_proj",
+                            "db_proj"), grads[1:7], ref[1:7]):
+        max_abs = max(max_abs, _check_param_grad(
+            label, gname, a, r, qkv_bias=gname == "db_qkv", width=C))
+    dbias, ref_dbias = grads[7], ref[7]
+    rel = _rel_l2(dbias, ref_dbias)
+    # the plain dBias less window 0's dS (which takes regions row 0): what a
+    # core that lost a window would give
+    lost = ref_dbias - A.block_attention_bwd_plain(
+        x[:1], *params[:5], do[:1], H, 1e-5, bias,
+        None if regions is None else regions[:1])[7]
+    lost_rel = _rel_l2(lost, ref_dbias)
+    print(f"check: {label} dBias {list(ref_dbias.shape)} f32: rel L2 "
+          f"{rel:.4g} (<= {DBIAS_REL_L2}); bit-identical on repeat; a dBias "
+          f"that lost one window: rel L2 {lost_rel:.4g}", flush=True)
+    if not (dbias.dtype == torch.float32 and rel <= DBIAS_REL_L2
+            and torch.isfinite(dbias).all()):
+        raise AssertionError(f"{label} dBias: rel L2 {rel}")
+    if not lost_rel > DBIAS_REL_L2:
+        raise AssertionError(f"{label}: the dBias tolerance passes a core "
+                             f"that lost a window")
+    return max(max_abs, (dbias.double() - ref_dbias.double()).abs().max()
+               .item())
+
+
+def window_kernel_phases() -> dict:
+    """Phases 3 and 4 for Swin's windowed blocks (fused_block_attention with
+    a bias and shift regions at head dim 32: the windowed cores) at Swin-B's
+    four stage shapes at batch 32 (SWIN_STAGES): x [windows, 144, C] bf16,
+    a unit-normal f32 bias [H, 144, 144] (timm's are ~0.02: a unit normal
+    makes a dropped or misplaced bias show), the shift regions of the
+    stage's shifted blocks (none at stage 4), a seeded output gradient.
+    Phase 3: the block forward and backward against block_attention_plain
+    and block_attention_bwd_plain on the card, the output and dx at rtol =
+    atol = KERNEL_TOL, the f32 parameter gradients as in phase 3, dBias at
+    relative L2 <= DBIAS_REL_L2, all bit-identical on repeat; the plain twin
+    without the bias, and without the mask, must miss the output's
+    tolerance, and a plain dBias that lost one window must miss dBias's
+    (_check_window_block). Phase 4: the windowed core alone, forward and
+    backward (with dBias), on a seeded qkv [windows * 144, 3C], timed beside
+    its plain twin (core_plain; core_plain then core_bwd_plain, as the
+    kernels recompute p), one library call (F.scaled_dot_product_attention
+    with the float mask bias + shift mask built in bf16 from the same
+    inputs, the shift mask's region_mask precomputed as timm's buffer;
+    autograd of the same to q, k, v and the bias for the backward) and its
+    bound (FLOPs at 989 TFLOP/s, or bytes: q, k, v read and o written in
+    bf16, the bias and regions read; backward q, k, v, do read and dq, dk,
+    dv written, the bias and regions read and dBias written: as
+    window_attention_roofline.train counts them). The kernels-line rows
+    window_attention_core{,_bwd} give stage 3's numbers (18 of Swin-B's 24
+    blocks)."""
+    import torch.nn.functional as F
+
+    from artgraph_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(SEED + 95)
+    dev = lambda a, dt=torch.float32: torch.from_numpy(
+        np.asarray(a, np.float32)).to("cuda", dt)
+    bf, N, D = torch.bfloat16, SWIN_N, A.WINDOW_D
+    results = {}
+    for stage, BW, C, H, nW in SWIN_STAGES:
+        t = _window_stage(rng, dev, BW, C, H, nW)
+        max_abs = _check_window_block(stage, t, H)
+        qkv, do_attn, bias, regions = (t[k] for k in ("qkv", "do_attn",
+                                                      "bias", "regions"))
+        q, k, v = qkv.view(BW, N, 3, H, D).permute(2, 0, 3, 1, 4)
+        do_h = do_attn.view(BW, N, H, D).transpose(1, 2)
+        scale = D ** -0.5
+        rm = None if regions is None else A.region_mask(regions)
+
+        def float_mask(b):
+            m = b[None] if rm is None else b[None] + rm[:, None]
+            m = m.to(bf)
+            return m.expand(BW // m.shape[0], *m.shape).reshape(BW, H, N, N)
+
+        def plain_bwd():
+            p, o = A.core_plain(q, k, v, scale, bias, regions)
+            return A.core_bwd_plain(q, k, v, p, o, do_h, scale,
+                                    bias_grad=True)
+
+        leaves = [u.detach().requires_grad_() for u in (q, k, v, bias)]
+        sdpa = lambda q_, k_, v_, b_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=float_mask(b_))
+        cases = {
+            "window_attention_core": (
+                lambda: A.attention_core_cuda(qkv, BW, N, H, bias, regions),
+                lambda: A.core_plain(q, k, v, scale, bias, regions),
+                lambda: sdpa(q, k, v, bias)),
+            "window_attention_core_bwd": (
+                lambda: A.attention_core_bwd_cuda(qkv, do_attn, BW, N, H,
+                                                  bias, regions),
+                plain_bwd,
+                lambda: torch.autograd.grad(sdpa(*leaves), leaves, do_h)),
+        }
+        act = BW * N * C * 2                    # one bf16 [windows, N, C]
+        add = H * N * N * 4 + (0 if regions is None else nW * N * 4)
+        products = 4 * BW * N * N * C           # S = Q K^T and P V
+        bounds = {"window_attention_core": _bound(products, 4 * act + add),
+                  "window_attention_core_bwd": _bound(
+                      2 * products, 7 * act + add + H * N * N * 4)}
+        for name, (kernel, plain, library) in cases.items():
+            ms, plain_ms = _time_ms(kernel), _time_ms(plain)
+            library_ms = _time_ms(library)
+            bound_ms, bound_by = bounds[name]
+            print(f"time: {name} stage {stage} [{BW} windows, N={N}, H={H}, "
+                  f"D={D}{', shift mask' if regions is not None else ''}] "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                  f", {100 * bound_ms / ms:.1f}% of the bound (median of 10 "
+                  f"CUDA-event timings of 10 calls)", flush=True)
+            if stage == 3:
+                results[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "artgraph_tpu_torch/ops/csrc/block_attention"
+                              + ("_bwd.cu" if name.endswith("_bwd")
+                                 else ".cu"),
+                    "replaces": "none (Swin-B's windowed attention core, "
+                                "stage 3)",
+                    "launches": 0, "max_abs_err": max_abs, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms}
+        del t, cases, leaves, q, k, v, do_h, qkv, do_attn, bias, regions, rm
+        torch.cuda.empty_cache()
     return results
 
 
@@ -3204,12 +3435,12 @@ def attention_module_phase() -> dict:
     return {k: counts[k] for k in _mha_counters()}
 
 
-def _fusion_batch(rng, n: int) -> tuple:
-    """A host batch of the fusion trainer: (uint8 images, f32 style and genre
-    embeddings, labels [n, 2], mask), from rng."""
+def _fusion_batch(rng, n: int, size: int = 224) -> tuple:
+    """A host batch of the fusion trainer: (uint8 images size x size, f32
+    style and genre embeddings, labels [n, 2], mask), from rng."""
     from artgraph_tpu_torch import config
 
-    return (rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+    return (rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
             rng.normal(size=(n, config.EMB_SIZE)).astype(np.float32),
             rng.normal(size=(n, config.EMB_SIZE)).astype(np.float32),
             np.stack([rng.integers(0, config.NUM_CLASSES["style"], n),
@@ -5390,9 +5621,9 @@ def _plain_on_card():
     patches = (
         (attention, "block_attention_cuda", attention.block_attention_plain),
         (attention, "block_attention_bwd_cuda",
-         lambda x, g, b, wq, bq, wp, bp, dout, nh, eps:
-         attention.block_attention_bwd_plain(x, g, b, wq, bq, wp, dout, nh,
-                                             eps)),
+         lambda x, g, b, wq, bq, wp, bp, dout, nh, eps, bias=None,
+         regions=None: attention.block_attention_bwd_plain(
+             x, g, b, wq, bq, wp, dout, nh, eps, bias, regions)),
         (mlp, "block_mlp_cuda", mlp.block_mlp_plain),
         (mlp, "block_mlp_bwd_cuda",
          lambda x, g, b, w1, b1, w2, b2, dout, eps:
@@ -6187,6 +6418,55 @@ def last_modules_phase() -> dict:
     return total
 
 
+def swin_train_phase() -> dict:
+    """Phase 32: NewMultiModalMultiTaskSwin at Swin-B's full width and 384
+    px, dropout 0.4, adam(3e-4), the 0.5/0.5 multi-task loss, batch 32,
+    through the Trainer on cuda as train_new_multimodal_multitask
+    --architecture swin builds it: TRAIN_WARMUP + TRAIN_STEPS steps, the
+    counters zeroed before the timed ones (SWIN_STEP_LAUNCHES a step, every
+    other counter 0: no block through ViT's cores), losses finite and
+    falling, img/s, peak memory and the profile (_train_run); then one
+    profiled step's windowed kernels by name, SWIN_STEP_KERNELS exactly."""
+    import re
+
+    from artgraph_tpu_torch import config
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import (NewMultiModalMultiTaskSwin,
+                                           init_random_)
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    model = init_random_(
+        NewMultiModalMultiTaskSwin(config.EMB_SIZE, config.NUM_CLASSES,
+                                   dropout=0.4),
+        torch.Generator().manual_seed(SEED + 97))
+    trainer = Trainer(model, adam(3e-4),
+                      multi_task_loss(None, None, 0.5, 0.5, "cuda"),
+                      transform_type="swin", device="cuda",
+                      forward_inputs=image_and_embeddings)
+    batch = _fusion_batch(np.random.default_rng(SEED + 97), B,
+                          config.image_size("swin"))
+    counts, _, _ = _train_run(
+        "swin train: NewMultiModalMultiTaskSwin(128, style 32, genre 18) "
+        "Swin-B 384 px,", trainer, batch, SWIN_STEP_LAUNCHES)
+    seen = dict.fromkeys(SWIN_STEP_KERNELS, 0)
+    for ev in _trace_events(
+            lambda: trainer.train_step(trainer.to_device(batch)), 1):
+        for base in seen:
+            if ev.get("cat") == "kernel" and re.search(
+                    rf"(?<![\w]){base}(?![\w])", ev["name"]):
+                seen[base] += 1
+    print(f"swin train: one profiled step's windowed kernels {seen} "
+          f"(expected {SWIN_STEP_KERNELS})", flush=True)
+    if seen != SWIN_STEP_KERNELS:
+        raise AssertionError(f"swin train: kernels a step {seen}, expected "
+                             f"{SWIN_STEP_KERNELS}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     device_phase()
     sys.path.insert(0, str(REPO))
@@ -6205,6 +6485,7 @@ def main() -> int:
         kernels.update(conv_bn_kernel_phases())
         kernels.update(bn_kernel_phases())
         kernels.update(attention_kernel_phases())
+        kernels.update(window_kernel_phases())
         launches = serve_phase()
         counts, vit_train = train_phase()
         for k, n in counts.items():
@@ -6243,6 +6524,8 @@ def main() -> int:
         for k, n in gnn_variants_phase().items():
             launches[k] = launches.get(k, 0) + n
         for k, n in last_modules_phase().items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in swin_train_phase().items():
             launches[k] = launches.get(k, 0) + n
     finally:
         shutil.rmtree(checkpoints_dir, ignore_errors=True)

@@ -25,6 +25,9 @@ fused_qkv_attention), forward and backward: bf16 outputs, dq/dk/dv and dx
 at rtol = atol = 3e-2, the f32 dw and db at relative L2 <= GRAD_REL_L2 (the
 K third of db by absolute error, as above), bit-identical from call to call,
 at N up to 600 (the attention cores' shared memory does not grow with N).
+The windowed block (Swin-B's four stage shapes at batch 32: N = 144, head dim
+32, the relative-position bias, the shift mask) at the block tolerances
+above, its f32 dBias as a parameter gradient, bit-identical on repeat.
 """
 import numpy as np
 import pytest
@@ -285,8 +288,13 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
         fused_block_attention(tx, *[p.half() for p in params], 2)
     with pytest.raises(ValueError):         # x must be contiguous
         fused_block_attention(tx.transpose(0, 1), *params, 2)
-    with pytest.raises(ValueError):         # head dim 128/4 = 32 not built
-        fused_block_attention(tx, *params, 4)
+    with pytest.raises(ValueError):         # head dim 128/8 = 16 not built
+        fused_block_attention(tx, *params, 8)
+    for extra in ({"bias": torch.zeros(2, 9, 9, device="cuda")},
+                  {"regions": torch.zeros(1, 9, dtype=torch.int32,
+                                          device="cuda")}):
+        with pytest.raises(ValueError):     # only D = 32 takes them
+            fused_block_attention(tx, *params, 2, **extra)
     with pytest.raises(TypeError):          # images must be uint8
         normalize_images(torch.zeros((1, 8, 8, 3), device="cuda"), "vit")
     assert (attention.LAUNCHES, preprocess.LAUNCHES) == (1, 1)
@@ -708,6 +716,111 @@ def test_cuda_fusion_training_step_launches_the_block_kernels(monkeypatch):
                                                  "genre_correct"}
     for n, p in model.named_parameters():
         if n.startswith("vit.head."):         # timm's head, never called
+            continue
+        assert torch.isfinite(p).all() and not torch.equal(
+            p.detach().cpu(), before[n]), n
+
+
+# Swin-B at 384 px, batch 32: (windows, C, heads, windows an image) of its
+# four stages, N = 144 tokens a window, head dim 32
+SWIN_B_STAGES = [(2048, 128, 4, 64), (512, 256, 8, 16), (128, 512, 16, 4),
+                 (32, 1024, 32, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BW,C,H,nW", SWIN_B_STAGES)
+def test_cuda_window_block_matches_plain(BW, C, H, nW):
+    """fused_block_attention on one Swin-B stage's windows: the bias, and
+    the shift mask (its region ids) where the stage has more than one
+    window, through the windowed cores; the forward and every gradient,
+    dBias included, against the plain twins, the backward bit-identical on
+    repeat; windows over 160 tokens refused."""
+    _need_cuda()
+    from artgraph_tpu_torch.models.swin import shift_regions
+
+    N, res = 144, 12 * int(nW ** 0.5)
+    x, gamma, beta, lin = block_inputs(BW, N, C, ((C, 3 * C), (C, C)),
+                                       seed=C)
+    tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
+    tx, params = tx.cuda(), [p.cuda() for p in params]
+    rng = np.random.default_rng(C + 1)
+    bias = torch.from_numpy(rng.normal(size=(H, N, N)).astype(np.float32)
+                            ).cuda()
+    mask = shift_regions(res, 12, 6).cuda() if nW > 1 else None
+    ours = fused_block_attention(tx, *params, H, 1e-5, bias=bias,
+                                 regions=mask)
+    torch.cuda.synchronize()
+    ref = block_attention_plain(tx, *params, H, 1e-5, bias, mask)
+    torch.testing.assert_close(ours.float(), ref.float(), rtol=3e-2,
+                               atol=3e-2)
+    do = torch.from_numpy(rng.normal(size=(BW, N, C)).astype(np.float32)
+                          ).to("cuda", torch.bfloat16)
+    grads = attention.block_attention_bwd_cuda(tx, *params, do, H, 1e-5,
+                                               bias, mask)
+    again = attention.block_attention_bwd_cuda(tx, *params, do, H, 1e-5,
+                                               bias, mask)
+    torch.cuda.synchronize()
+    assert len(grads) == 8
+    assert all(torch.equal(a, g) for a, g in zip(grads, again))
+    ref = block_attention_bwd_plain(tx, *params[:5], do, H, 1e-5, bias, mask)
+    check_grads(grads[:7], ref[:7], "attention", C)
+    a, r = grads[7].double(), ref[7].double()
+    assert grads[7].dtype == torch.float32 and a.shape == (H, N, N)
+    assert (a - r).norm() / r.norm() <= GRAD_REL_L2
+    assert (a - r).abs().max() / r.abs().mean() <= GRAD_MAX_REL
+    with pytest.raises(ValueError):          # 169 tokens: over 160
+        fused_block_attention(torch.zeros(1, 169, C, dtype=torch.bfloat16,
+                                          device="cuda"), *params, H, 1e-5,
+                              bias=torch.zeros(H, 169, 169, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_swin_fusion_training_step_launches_the_window_kernels(
+        monkeypatch):
+    """One Trainer step of NewMultiModalMultiTaskSwin on a two-stage trunk
+    (head dim 32, a shifted stage of four windows, a last stage of one) on
+    the card: every block's attention through the windowed cores, none
+    through ViT's, the MLP kernels a block each way; the loss and every
+    trained parameter's update finite, the bias tables' included."""
+    _need_cuda()
+    import functools
+
+    from artgraph_tpu_torch.cli._common import multi_task_loss
+    from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
+        image_and_embeddings
+    from artgraph_tpu_torch.models import SwinTransformer, heads, init_random_
+    from artgraph_tpu_torch.train import Trainer, adam
+
+    monkeypatch.setattr(heads, "SwinTransformer", functools.partial(
+        SwinTransformer, img_size=32, patch_size=4, embed_dim=64,
+        depths=(2, 2), num_heads=(2, 4), window_size=4))
+    nc = {"style": 32, "genre": 18}
+    model = init_random_(heads.NewMultiModalMultiTaskSwin(128, nc),
+                         torch.Generator().manual_seed(1))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(model, adam(3e-4), multi_task_loss(None, None, 0.5, 0.5,
+                                                         "cuda"),
+                      transform_type="swin", device="cuda",
+                      forward_inputs=image_and_embeddings)
+    rng = np.random.default_rng(2)
+    batch = (rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             rng.normal(size=(4, 128)).astype(np.float32),
+             rng.normal(size=(4, 128)).astype(np.float32),
+             np.stack([rng.integers(0, 32, 4), rng.integers(0, 18, 4)], 1)
+             .astype(np.int32), np.ones(4, np.float32))
+    for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_WINDOW",
+                 "LAUNCHES_WINDOW_BWD"):
+        monkeypatch.setattr(attention, name, 0)
+    for name in ("LAUNCHES", "LAUNCHES_BWD"):
+        monkeypatch.setattr(mlp, name, 0)
+    m = trainer.train_epoch([batch])
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, attention.LAUNCHES_BWD,
+            attention.LAUNCHES_WINDOW, attention.LAUNCHES_WINDOW_BWD,
+            mlp.LAUNCHES, mlp.LAUNCHES_BWD) == (0, 0, 4, 4, 4, 4)
+    assert np.isfinite(m["loss"])
+    for n, p in model.named_parameters():
+        if n.startswith("swin.head."):        # timm's head, never called
             continue
         assert torch.isfinite(p).all() and not torch.equal(
             p.detach().cpu(), before[n]), n
