@@ -42,7 +42,8 @@ between tokens of different regions (`region_mask`), not learned: s =
 ((f32(q . k) * scale) + bias) + mask. At head dim WINDOW_D = 32 (c) and
 (f) are the windowed cores (`ag_window_attention_bf16`,
 `ag_window_attention_bwd_bf16`, for windows of at most WINDOW_MAX_N
-tokens), with or without either input, whose backward also returns dBias =
+tokens: a block of ceil(N/16) warps walks a run of whole windows of one
+head), with or without either input, whose backward also returns dBias =
 the sum over the windows of dS in f32, summed in a fixed order; they count
 under LAUNCHES_WINDOW / LAUNCHES_WINDOW_BWD. At D = 64 (ViT) the block runs
 the kernels above, which take neither input.
@@ -102,10 +103,11 @@ COLSUM_COLS, COLSUM_LANES = 256, 8
 # (its registers allow three; at ViT-B/16's 6304 rows the third's gain is
 # lost to the second pass over more partial rows), four column-sum blocks
 NORM_BLOCKS, COLSUM_BLOCKS = 264, 528
-# csrc/block_attention_bwd.cu, windowed: the blocks of phases 1 and 3 that
-# fill the card (132 SMs, 8 each), each running a run of windows and adding
-# their dS into the run's dBias partial
-WINDOW_BLOCKS = 1056
+# csrc/block_attention_bwd.cu, windowed: the blocks of (run of windows,
+# head) that fill the card, one an SM (WIN_BLOCKS, csrc/attention_tiles.cuh:
+# a block holds more than half an SM's shared memory); phases 1 and 3 sum
+# each run's dS on chip into the run's dBias partial
+WINDOW_BLOCKS = 132
 # the windowed cores' one head dim (WIN_D, csrc/attention_tiles.cuh:
 # Swin's) and their windows of at most 160 tokens (WIN_MAX_N; Swin's 12x12
 # windows are 144): a block holds a window's keys
@@ -554,13 +556,12 @@ def _row_stats(B: int, N: int, H: int, device) -> torch.Tensor:
     return torch.empty((3, B, H, N), dtype=_F32, device=device)
 
 
-def window_runs(B: int, N: int, num_heads: int) -> tuple[int, int]:
-    """(windows a run, runs) of the windowed backward's phases 1 and 3:
-    about WINDOW_BLOCKS blocks of (query tile, head, run). The runs' dBias
+def window_runs(B: int, num_heads: int) -> tuple[int, int]:
+    """(windows a run, runs) of the windowed backward: about WINDOW_BLOCKS
+    blocks of (run, head), as the forward's win_per_run. The runs' dBias
     partials are added in run order, so the split, a function of the shape
     only, fixes dBias bit for bit."""
-    tiles = -(-N // 64)
-    per = max(1, -(-B * tiles * num_heads // WINDOW_BLOCKS))
+    per = max(1, -(-B * num_heads // WINDOW_BLOCKS))
     return per, -(-B // per)
 
 
@@ -581,7 +582,7 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, do_attn: torch.Tensor, B: int,
             stats.data_ptr(), B, N, num_heads, D, D ** -0.5, stream)
         _build.check(rc, "ag_attention_core_bwd_bf16")
         return dqkv, None
-    per, runs = window_runs(B, N, num_heads)
+    per, runs = window_runs(B, num_heads)
     dbias = part = bias_t = None
     if bias is not None:
         # key-major, so that phase 2 (K Q^T) reads the bias in pairs too

@@ -104,7 +104,7 @@ def build(out: Path = OUT) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.emu_attention.argtypes = (I, P, P, P, P) + (I,) * 7 + (F,)
     handle.emu_attention_bwd.argtypes = (I,) + (P,) * 9 + (I,) * 11 + (F,)
-    handle.emu_window_attention.argtypes = (P,) * 4 + (I,) * 5 + (F,)
+    handle.emu_window_attention.argtypes = (P,) * 4 + (I,) * 6 + (F,)
     handle.emu_window_attention_bwd.argtypes = ((P,) * 7 + (I, P, P)
                                                 + (I,) * 5 + (F,))
     handle.emu_conv_bn_fwd.argtypes = (P,) * 8 + (I,) * 4
@@ -208,8 +208,8 @@ def check_window(lib: ctypes.CDLL, B: int, N: int, H: int, nW: int,
     shape against `core_plain` and
     `core_bwd_plain`: outputs at rtol = atol = 3e-2, dBias at relative L2
     <= GRAD_REL_L2 and bit-identical on a second call. `per_run` windows a
-    run of the backward's phases 1 and 3. Returns the worst error over
-    tolerance."""
+    run of every kernel's blocks (the backward's dBias partial is summed on
+    chip over a run's windows). Returns the worst error over tolerance."""
     D = A.WINDOW_D
     C, scale = H * D, D ** -0.5
     qkv, do, b, m = window_inputs(B, N, H, D, nW, bias, mask)
@@ -223,7 +223,7 @@ def check_window(lib: ctypes.CDLL, B: int, N: int, H: int, nW: int,
 
     out = torch.full((B * N, C), float("nan"), dtype=torch.bfloat16)
     lib.emu_window_attention(packed.data_ptr(), out.data_ptr(), ptr(b),
-                             ptr(m), nW, B, N, H, D, scale)
+                             ptr(m), nW, B, N, H, D, per_run, scale)
     held = lambda a, r: (errors(a, r) if torch.isfinite(a.float()).all()
                          else (float("nan"), float("inf")))
     results["forward"] = held(out, of.to(torch.bfloat16).transpose(1, 2)

@@ -11,15 +11,18 @@
 // (pack_a): probabilities and score gradients go from one product to the
 // next without shared memory.
 //
-// The windowed cores (Swin's shifted windows) add to the scaled scores
-// before the softmax a per-head f32 bias [H, N, N] and the shift mask, -100
+// The windowed cores (Swin's shifted windows) have helpers of their own at
+// the end (Win*, win_*): a block owns whole windows of one head, ceil(N/16)
+// warps of 16 rows, the keys in 16-key chunks, a ring of window tiles and
+// the head's f32 bias resident in dynamic shared memory. They add to the
+// scaled scores a per-head f32 bias [H, N, N] and the shift mask, -100
 // between tokens of different regions, from int32 region ids [nW, N] (image
-// b takes row b mod nW): timm's attn_mask without its [nW, N, N] loads
-// (Additive, add_scores).
+// b takes row b mod nW): timm's attn_mask without its [nW, N, N] loads.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "ptx_helpers.cuh"
@@ -32,11 +35,11 @@ constexpr int TILE = 64;       // rows of a query or key tile
 constexpr int STAGE = 32;      // rows of a streamed tile in the cp.async ring
 constexpr int WARPS = 4;       // each owns 16 rows of the block's tile
 constexpr int THREADS = WARPS * 32;
-// The windowed cores hold a whole window's keys: at most this many stages.
-constexpr int WIN_STAGES = 5;
-constexpr int WIN_MAX_N = WIN_STAGES * STAGE;  // 160: Swin's 12x12 fits
-// ... and are built at one head dim, Swin's (ViT's D = 64 blocks take the
+// The windowed cores take windows of at most WIN_MAX_N tokens, one warp a
+// WIN_CHUNK rows, at one head dim, Swin's (ViT's D = 64 blocks take the
 // two-pass cores).
+constexpr int WIN_CHUNK = 16;
+constexpr int WIN_MAX_N = 160;  // 10 warps; Swin's 12x12 windows are 144
 constexpr int WIN_D = 32;
 
 // The shapes of one head dim D (64 or 32: the ones built).
@@ -196,69 +199,6 @@ __device__ __forceinline__ void mask_tail(float (&c)[NT][4], int col0, int N,
       if (col0 + acc_col(nt, e) >= N) c[nt][e] = v;
 }
 
-// What the windowed cores add to the scaled scores: bias [H, N, N] f32
-// (query row, key column; the key-major copy for phase 2), and the shift
-// regions [nW, N] int32 of image b's window b mod nW; either may be null.
-constexpr float MASKED = -100.f;  // timm's score between shift regions
-struct Additive {
-  const float* bias;
-  const int* regions;
-  int nW;
-};
-
-// s = (s + bias) + mask on this warp's 16 x 8NT scores of image b, head h,
-// mask = MASKED where the two tokens' regions differ, else 0: accumulator
-// row r is token row0 + r and column c token col0 + c of bias[h] (the
-// transposed bias for the transposed scores K Q^T). A thread's two columns
-// 2t, 2t + 1 are adjacent, so for even N (Swin's 144) the bias and the
-// region ids come as float2 and int2 loads. Rows >= N read row N - 1 (they
-// are never stored); columns >= N add nothing (mask_tail sets them after).
-template <int NT>
-__device__ __forceinline__ void add_scores(float (&c)[NT][4],
-                                           const Additive& ad, int b, int h,
-                                           int row0, int col0, int N) {
-  const float* bias = ad.bias ? ad.bias + (size_t)h * N * N : nullptr;
-  const int* rid = ad.regions ? ad.regions + (size_t)(b % ad.nW) * N
-                              : nullptr;
-  const bool pairs = (N & 1) == 0;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {  // rows g and g + 8
-    const int r = min(row0 + acc_row(2 * hf), N - 1);
-    const int rr = rid ? __ldg(rid + r) : 0;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = col0 + acc_col(nt, 0);  // even; col + 1 beside it
-      if (col >= N) continue;
-      float2 bv = make_float2(0.f, 0.f);
-      int2 kv = {rr, rr};
-      if (pairs) {
-        if (bias)
-          bv = __ldg(reinterpret_cast<const float2*>(bias + (size_t)r * N +
-                                                      col));
-        if (rid) kv = __ldg(reinterpret_cast<const int2*>(rid + col));
-      } else {
-        const bool two = col + 1 < N;
-        if (bias) {
-          bv.x = __ldg(bias + (size_t)r * N + col);
-          if (two) bv.y = __ldg(bias + (size_t)r * N + col + 1);
-        }
-        if (rid) {
-          kv.x = __ldg(rid + col);
-          if (two) kv.y = __ldg(rid + col + 1);
-        }
-      }
-      float& c0 = c[nt][2 * hf];
-      float& c1 = c[nt][2 * hf + 1];
-      if (bias) {
-        c0 = __fadd_rn(c0, bv.x);
-        c1 = __fadd_rn(c1, bv.y);
-      }
-      if (kv.x != rr) c0 = __fadd_rn(c0, MASKED);
-      if (kv.y != rr) c1 = __fadd_rn(c1, MASKED);
-    }
-  }
-}
-
 // Max / sum over the 4 lanes of a quad, which together hold a full row.
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -297,5 +237,244 @@ __device__ __forceinline__ void store_rows(const float (&c)[Head<D>::NT][4],
           *reinterpret_cast<const uint4*>(stage + (warp_row + r) * LDT + col);
   }
 }
+
+// ---- The windowed cores ----
+//
+// A block owns whole windows of one head: ceil(N / WIN_CHUNK) warps, warp w
+// the window's rows 16w..16w+15 (queries; keys in dK/dV), and walks a run of
+// consecutive windows. The keys (queries in dK/dV) go in 16-row chunks: one
+// m16n8k16 k-step of P V, two n-tiles of Q K^T. R = 16 ceil(N / 16) rows
+// and keys are computed: N at Swin's 144.
+
+// What the windowed cores add to the scaled scores: bias [H, N, N] f32
+// (query row, key column; its key-major copy for dK/dV), and the shift
+// regions [nW, N] int32 of window b's row b mod nW; either may be null.
+constexpr float MASKED = -100.f;  // timm's score between shift regions
+struct Additive {
+  const float* bias;
+  const int* regions;
+  int nW;
+};
+
+__host__ __device__ inline int win_rows(int N) {
+  return (N + WIN_CHUNK - 1) / WIN_CHUNK * WIN_CHUNK;
+}
+
+// Windows a run: about this many blocks of (run, head) a launch, one an SM
+// of the H100 (132): a block holds more than half an SM's shared memory.
+constexpr int WIN_BLOCKS = 132;
+inline int win_per_run(int B, int H) {
+  const long long per = ((long long)B * H + WIN_BLOCKS - 1) / WIN_BLOCKS;
+  return per < 1 ? 1 : (int)per;
+}
+
+// A windowed block's dynamic shared memory: the head's f32 bias [N][bias_ld]
+// (stays for the run), then a ring of two slots, each TILES bf16 tiles
+// [R][LDT] of a window, its region ids [R] and STATS f32 rows [R] (dK/dV:
+// each query's m, l, d_row). bias_ld = R + 8 keeps a float2 read of 4 lanes
+// x 8 rows on distinct banks and every chunk's columns inside the row.
+template <int D, int TILES, int STATS>
+struct WinSmem {
+  static constexpr int LDT = Head<D>::LDT;
+  static __host__ __device__ int bias_ld(int N) { return win_rows(N) + 8; }
+  static __host__ __device__ int slot_bytes(int N) {
+    return win_rows(N) * (TILES * LDT * (int)sizeof(bf16) + (1 + STATS) * 4);
+  }
+  static __host__ __device__ int bytes(int N) {
+    return N * bias_ld(N) * 4 + 2 * slot_bytes(N);
+  }
+
+  float* bias;
+  unsigned char* ring;
+  int R, slot;
+
+  __device__ WinSmem(unsigned char* p, int N)
+      : bias(reinterpret_cast<float*>(p)),
+        ring(p + N * bias_ld(N) * 4),
+        R(win_rows(N)),
+        slot(slot_bytes(N)) {}
+  __device__ bf16* tile(int s, int t) const {
+    return reinterpret_cast<bf16*>(ring + s * slot) + t * R * LDT;
+  }
+  __device__ int* regions(int s) const {
+    return reinterpret_cast<int*>(tile(s, TILES));
+  }
+  __device__ float* stats(int s, int w) const {
+    return reinterpret_cast<float*>(regions(s) + R) + w * R;
+  }
+};
+
+// cp.async of window b's rows [0, R) of one head of a [B*N, ld] operand
+// into a shared tile [R][LDT]; rows >= N are zero-filled. The block's
+// threads, whatever their number, share the 16-byte vectors.
+template <int D>
+__device__ __forceinline__ void win_load(bf16* dst, Rows r, int b, int h,
+                                         int N, int R) {
+  constexpr int V = Head<D>::VECS, LDT = Head<D>::LDT;
+  const bf16* base = head_rows<D>(r, b, h, N);
+  for (int v = threadIdx.x; v < R * V; v += blockDim.x) {
+    const int row = v >> Head<D>::VSHIFT, c = (v & (V - 1)) * 8;
+    const bool ok = row < N;
+    cp_async16(dst + row * LDT + c, base + (size_t)(ok ? row : 0) * r.ld + c,
+               ok);
+  }
+}
+
+// cp.async of window b's region ids [R] (zero past N); nothing without
+// regions.
+__device__ __forceinline__ void win_load_regions(int* dst, const Additive& ad,
+                                                 int b, int N, int R) {
+  if (!ad.regions) return;
+  const int* src = ad.regions + (size_t)(b % ad.nW) * N;
+  for (int i = threadIdx.x; i < R; i += blockDim.x)
+    cp_async4(dst + i, src + (i < N ? i : 0), i < N);
+}
+
+// cp.async of head h's bias [N][N] f32 into [N][ld] (16-byte copies where
+// a row is whole vectors); nothing without a bias.
+__device__ __forceinline__ void win_load_bias(float* dst, const float* bias,
+                                              int h, int N, int ld) {
+  if (!bias) return;
+  const float* src = bias + (size_t)h * N * N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int r = warp; r < N; r += warps) {
+    if ((N & 3) == 0) {
+      for (int c = 4 * lane; c < N; c += 128)
+        cp_async16(dst + r * ld + c, src + (size_t)r * N + c, true);
+    } else {
+      for (int c = lane; c < N; c += 32)
+        cp_async4(dst + r * ld + c, src + (size_t)r * N + c, true);
+    }
+  }
+}
+
+// The lane's two rows (g, g + 8 of the warp's 16, clamped to the window:
+// rows >= N are computed and never stored) in the shared bias, or null.
+struct WinRows {
+  const float* b0;
+  const float* b1;
+  int r0, r1;
+};
+__device__ __forceinline__ WinRows win_rows_of(const float* bias, int ld,
+                                               bool has_bias, int row0,
+                                               int N) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int r0 = min(row0 + g, N - 1), r1 = min(row0 + g + 8, N - 1);
+  return {has_bias ? bias + r0 * ld : nullptr,
+          has_bias ? bias + r1 * ld : nullptr, r0, r1};
+}
+
+// s = ((s * scale) + bias) + mask on this warp's 16 rows x the chunk's 16
+// columns c0.. (accumulator layout): rw's bias rows (null: none), rid the
+// window's shared region ids (null: no mask), rr0 and rr1 the regions of
+// the lane's two rows. A lane's columns come in adjacent pairs, read as
+// float2 and int2 from shared memory. Columns >= N read padding; the
+// caller's mask_tail overwrites them.
+__device__ __forceinline__ void win_scores(float (&s)[2][4], int c0,
+                                           float scale, const WinRows& rw,
+                                           const int* rid, int rr0,
+                                           int rr1) {
+  const int col = c0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int k = col + nt * 8;
+    int2 kv = {0, 0};
+    if (rid) kv = *reinterpret_cast<const int2*>(rid + k);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float& x0 = s[nt][2 * hf];
+      float& x1 = s[nt][2 * hf + 1];
+      x0 = __fmul_rn(x0, scale);
+      x1 = __fmul_rn(x1, scale);
+      if (rw.b0) {
+        const float2 bv =
+            *reinterpret_cast<const float2*>((hf ? rw.b1 : rw.b0) + k);
+        x0 = __fadd_rn(x0, bv.x);
+        x1 = __fadd_rn(x1, bv.y);
+      }
+      if (rid) {
+        const int rr = hf ? rr1 : rr0;
+        if (kv.x != rr) x0 = __fadd_rn(x0, MASKED);
+        if (kv.y != rr) x1 = __fadd_rn(x1, MASKED);
+      }
+    }
+  }
+}
+
+// A warp's 16 x R scores of one window in registers, NCH chunks of 16 keys
+// (chunks >= `chunks` untouched): s = Q K^T scaled, plus the bias and the
+// mask, keys >= N at -inf; then e = exp(s - m) in place, with each row's
+// exact max m and sum l = sum e over all its keys (the quad's lanes).
+template <int D, int NCH>
+__device__ __forceinline__ void win_exp_scores(
+    float (&sc)[NCH][2][4], float (&m)[2], float (&l)[2], const bf16* sQ,
+    const bf16* sK, int row0, int chunks, int N, float scale,
+    const WinRows& rw, const int* rid, int rr0, int rr1) {
+  constexpr int LDT = Head<D>::LDT;
+  uint32_t qf[Head<D>::KC][4];
+  load_a<D>(qf, sQ, row0);
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (c >= chunks) continue;
+    zero(sc[c]);
+    mma_abt<D>(sc[c], qf, sK + c * WIN_CHUNK * LDT);
+    win_scores(sc[c], c * WIN_CHUNK, scale, rw, rid, rr0, rr1);
+    mask_tail(sc[c], c * WIN_CHUNK, N, -INFINITY);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[c][nt][e]);
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (c >= chunks) continue;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[c][nt][e] = expf(sc[c][nt][e] - m[e >> 1]);
+        l[e >> 1] += sc[c][nt][e];
+      }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
+
+// A probability to be rounded to bf16: e / l (__fdiv_rn), or 0 where e <
+// 2^-134, whose quotient (l >= 1) rounds to bf16 0 as well, so that
+// bf16(win_p(e, l)) = bf16(__fdiv_rn(e, l)) bit for bit. A masked key's e ~
+// exp(-100) gives a subnormal quotient, which sends __fdiv_rn to its slow
+// path, a called routine; such an e is divided as 1 instead and its
+// quotient dropped, so the divide stays on its fast path without a branch.
+__device__ __forceinline__ float win_p(float e, float l) {
+  const bool zero = e < 0x1p-134f;
+  const float q = __fdiv_rn(zero ? 1.f : e, l);
+  return zero ? 0.f : q;
+}
+
+#ifdef __CUDACC__
+// Lets `kernel` take `bytes` of dynamic shared memory (past the 48 KB a
+// launch gets unasked), once a device: `ready` is the caller's mask of the
+// devices done. A process's first launch of a kernel is an eager one, before
+// any graph capture.
+template <class Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes,
+                               unsigned long long& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (ready >> dev & 1)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) ready |= 1ull << dev;
+  return err;
+}
+#endif
 
 }  // namespace attn

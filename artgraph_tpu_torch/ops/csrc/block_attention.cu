@@ -49,21 +49,37 @@
 // (-100 between tokens of different regions; int32 region ids [nW, N],
 // window b taking row b mod nW), either optional, added to the scaled
 // scores before the softmax: s = ((f32(q . k) * scale) + bias) + mask.
-// Its kernel is window_attention_kernel<D>, for windows of at most
-// WIN_MAX_N = 160 tokens (Swin's 12x12 = 144): the whole window's K and V
-// sit in shared memory and a row's scores in registers, so it makes one
-// pass with the exact m and l and one exponential a score (see the kernel).
-// The packed kernel above stays as it is for ViT's blocks.
+// Its kernel, window_attention_kernel<D, NCH>, is built around the whole
+// window (at most WIN_MAX_N = 160 tokens): a block of ceil(N/16) warps (9
+// at Swin's 144: no padded row or key) owns a run of consecutive windows of
+// one head, about one block an SM. The head's bias stays in shared memory
+// for the run; each window's Q, K, V and region ids are staged once,
+// through a two-slot cp.async ring that loads the next window while this
+// one computes; a row's scores stay in registers, so the kernel makes one
+// pass with the exact m and l and one exponential a score (see the
+// kernel). The packed kernel above stays as it is for ViT's blocks.
 //
-// What bounds it on an H100: at ViT-B/16 (B = 32, N = 197, H = 12, D = 64)
-// the two products are 3.8 GFLOP (0.004 ms at 989 TFLOP/s) on 38.7 MB of
-// q, k, v and o (0.0116 ms at 3.35 TB/s): bytes. Pass 1's extra Q K^T adds
+// What bounds the windowed kernel: each score costs some 30 FP32-pipe
+// instructions (scale, bias, mask, max, exp, sum, the IEEE divide) against
+// about 2 bytes of device memory and 128 tensor-core FLOPs, so instruction
+// issue bounds it, not the tensor cores or the bytes: a block
+// has 9 warps on the SM's 4 schedulers, one of which runs three of them
+// (and so at most 168 registers a lane). On an H100 80GB HBM3 at 700 W,
+// Swin-B at batch 32: 0.139 ms at stage 3 (128 windows, H = 16, the shift
+// mask), 0.519 / 0.270 / 0.066 ms at stages 1, 2, 4, against 0.466 (1.258
+// / 0.731 / 0.122) ms for the 64-row-tile kernel this one replaced, whose
+// __fdiv_rn took its slow path at every masked key (see win_p) and whose
+// tiles padded 144 rows to 192 and staged K and V three times.
+//
+// What bounds ViT's cores on an H100: at ViT-B/16 (B = 32, N = 197, H = 12,
+// D = 64) the two products are 3.8 GFLOP (0.004 ms at 989 TFLOP/s) on 38.7 MB
+// of q, k, v and o (0.0116 ms at 3.35 TB/s): bytes. Pass 1's extra Q K^T adds
 // 1.9 GFLOP. By estimate (no instruction-level profile is available), the
 // exp / divide work per score and each warp's shared-memory fragment loads
 // set the pace more than either bound. 1536 blocks of 128 threads, 5
-// resident per SM (96 registers), keep the loads of one block overlapping
-// the products of others, and the ring overlaps each block's next stage
-// with its current one.
+// resident per SM (96 registers), keep the loads of one block overlapping the
+// products of others, and the ring overlaps each block's next stage with its
+// current one.
 #include "attention_tiles.cuh"
 
 #include <math.h>
@@ -185,97 +201,73 @@ attention_core_kernel(FwdArgs a, int N, float scale) {
   store_rows<64>(o, sQ, row0, ob, a.ld_o, q0, N);
 }
 
-// The windowed core for one (window b, head, 64-row query tile) at head dim
-// D. A window's keys fit the block: all of K and V (at most WIN_STAGES
-// stages) are staged in shared memory at once and all of a row's scores
-// stay in registers, so the block makes one pass: S = Q K^T scaled, plus
-// the bias and the mask; the exact row max m and sum l = sum exp(s - m); p
-// = bf16(exp(s - m) / l); o = bf16(f32(p . v)), the block path's rounding
-// points with one exponential a score.
-template <int D>
-constexpr int window_fwd_smem() {  // dynamic: the Q tile, all of K and V
-  return (TILE + 2 * WIN_MAX_N) * Head<D>::LDT * (int)sizeof(bf16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 4)
-window_attention_kernel(FwdArgs a, Additive ad, int N, float scale) {
+// The windowed core: a block of ceil(N/16) warps owns a run of consecutive
+// windows [w0, w1) of head h, warp w the window's query rows 16w..16w+15.
+// The head's bias stays in shared memory for the run; each window's Q, K,
+// V and region ids come through a two-slot cp.async ring, the next window's
+// loads in flight while this one computes. A warp's 16 x R scores stay in
+// registers (NCH chunks of 16 keys: NCH = 9 covers Swin's 144), so one pass
+// gives S = Q K^T scaled, plus the bias and the mask; the exact row max m
+// and sum l = sum exp(s - m); p = bf16(exp(s - m) / l); o = bf16(f32(p .
+// v)): the block path's rounding points with one exponential a score.
+// Bound by instruction issue (see the note at the head of the file).
+template <int D, int NCH>
+__global__ void __launch_bounds__(NCH * 32, 1)
+window_attention_kernel(FwdArgs a, Additive ad, int B, int N, int per_run,
+                        float scale) {
   constexpr int LDT = Head<D>::LDT;
+  using Smem = WinSmem<D, 3, 0>;  // tiles Q, K, V
   AG_DYNAMIC_SMEM(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + Head<D>::TILE_ELEMS;
-  bf16* sV = sK + WIN_MAX_N * LDT;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, row0 = warp * 16;
-  const int T = (N + STAGE - 1) / STAGE;  // key stages, at most WIN_STAGES
+  const Smem sm(smem_raw, N);
+  const int R = sm.R, chunks = R / WIN_CHUNK, h = blockIdx.y;
+  const int w0 = blockIdx.x * per_run, w1 = min(B, w0 + per_run);
+  const int row0 = (threadIdx.x >> 5) * 16;
+  const WinRows rw = win_rows_of(sm.bias, Smem::bias_ld(N), ad.bias, row0, N);
 
-  load_tile<D>(sQ, head_rows<D>(a.q, b, h, N), a.q.ld, q0, N);
-  for (int j = 0; j < T; ++j)
-    load_tile<D, STAGE>(sK + j * STAGE * LDT, head_rows<D>(a.k, b, h, N),
-                        a.k.ld, j * STAGE, N);
-  cp_async_commit();
-  for (int j = 0; j < T; ++j)
-    load_tile<D, STAGE>(sV + j * STAGE * LDT, head_rows<D>(a.v, b, h, N),
-                        a.v.ld, j * STAGE, N);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
+  auto issue = [&](int b) {
+    const int s = (b - w0) & 1;
+    win_load<D>(sm.tile(s, 0), a.q, b, h, N, R);
+    win_load<D>(sm.tile(s, 1), a.k, b, h, N, R);
+    win_load<D>(sm.tile(s, 2), a.v, b, h, N, R);
+    win_load_regions(sm.regions(s), ad, b, N, R);
+    cp_async_commit();
+  };
+  win_load_bias(sm.bias, ad.bias, h, N, Smem::bias_ld(N));
+  issue(w0);
 
-  uint32_t qf[Head<D>::KC][4];
-  load_a<D>(qf, sQ, row0);
-  float sc[WIN_STAGES][4][4];  // this warp's 16 queries x every key
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int b = w0; b < w1; ++b) {
+    const int s = (b - w0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // window b landed; every warp is done with b - 1
+    if (b + 1 < w1) issue(b + 1);
+    bf16* sQ = sm.tile(s, 0);
+    const bf16* sK = sm.tile(s, 1);
+    const bf16* sV = sm.tile(s, 2);
+    const int* rid = ad.regions ? sm.regions(s) : nullptr;
+    const int rr0 = rid ? rid[rw.r0] : 0, rr1 = rid ? rid[rw.r1] : 0;
+
+    float sc[NCH][2][4];  // this warp's 16 queries x every key
+    float m[2], l[2];
+    win_exp_scores<D>(sc, m, l, sQ, sK, row0, chunks, N, scale, rw, rid, rr0,
+                      rr1);
+    float o[Head<D>::NT][4];
+    zero(o);
 #pragma unroll
-  for (int j = 0; j < WIN_STAGES; ++j) {
-    if (j >= T) continue;
-    zero(sc[j]);
-    mma_abt<D>(sc[j], qf, sK + j * STAGE * LDT);
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= chunks) continue;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[j][nt][e] = __fmul_rn(sc[j][nt][e], scale);
-    add_scores(sc[j], ad, b, h, q0 + row0, j * STAGE, N);
-    mask_tail(sc[j], j * STAGE, N, -INFINITY);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[j][nt][e]);
+        for (int e = 0; e < 4; ++e)
+          sc[c][nt][e] = win_p(sc[c][nt][e], l[e >> 1]);
+      uint32_t pf[1][4];
+      pack_a(pf, sc[c]);
+      mma_ab<D>(o, pf, sV + c * WIN_CHUNK * LDT);
+    }
+    // each warp stages its own 16 rows of sQ, which only it read
+    store_rows<D>(o, sQ, row0, a.o + (size_t)b * N * a.ld_o + (size_t)h * D,
+                  a.ld_o, 0, N);
   }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-#pragma unroll
-  for (int j = 0; j < WIN_STAGES; ++j) {
-    if (j >= T) continue;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][nt][e] = expf(sc[j][nt][e] - m[e >> 1]);
-        l[e >> 1] += sc[j][nt][e];
-      }
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  cp_async_wait<0>();
-  __syncthreads();
-  float o[Head<D>::NT][4];
-  zero(o);
-#pragma unroll
-  for (int j = 0; j < WIN_STAGES; ++j) {
-    if (j >= T) continue;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[j][nt][e] = __fdiv_rn(sc[j][nt][e], l[e >> 1]);
-    uint32_t pf[2][4];
-    pack_a(pf, sc[j]);
-    mma_ab<D>(o, pf, sV + j * STAGE * LDT);
-  }
-  // each warp stages its own 16 rows of sQ, which only it read
-  bf16* ob = a.o + (size_t)b * N * a.ld_o + (size_t)h * D;
-  store_rows<D>(o, sQ, row0, ob, a.ld_o, q0, N);
 }
 
 template <bool STRIDED>
@@ -287,16 +279,30 @@ int launch(const FwdArgs& a, int B, int N, int H, float scale,
   return (int)cudaGetLastError();
 }
 
-// within the 48 KB of dynamic shared memory a launch gets unasked
-static_assert(window_fwd_smem<WIN_D>() <= 48 * 1024, "window smem");
+// The windowed launch: runs of win_per_run(B, H) windows, a block of
+// ceil(N/16) warps each; the kernel built for 9 chunks (Swin's 144 tokens,
+// up to 224 registers a thread) or for 10 (up to 160).
+template <int NCH>
+int launch_window_chunks(const FwdArgs& a, const Additive& ad, int B, int N,
+                         int H, float scale, cudaStream_t s) {
+  using Smem = WinSmem<WIN_D, 3, 0>;
+  static unsigned long long ready = 0;  // devices opted in
+  const cudaError_t err = opt_in_smem(window_attention_kernel<WIN_D, NCH>,
+                                      Smem::bytes(NCH * WIN_CHUNK), ready);
+  if (err != cudaSuccess) return (int)err;
+  const int per = win_per_run(B, H);
+  window_attention_kernel<WIN_D, NCH>
+      <<<dim3((B + per - 1) / per, H), win_rows(N) / WIN_CHUNK * 32,
+         Smem::bytes(N), s>>>(a, ad, B, N, per, scale);
+  return (int)cudaGetLastError();
+}
 
 int launch_window(const FwdArgs& a, const Additive& ad, int B, int N, int H,
                   float scale, void* stream) {
-  const dim3 grid((N + TILE - 1) / TILE, H, B);
-  window_attention_kernel<WIN_D>
-      <<<grid, THREADS, window_fwd_smem<WIN_D>(), (cudaStream_t)stream>>>(
-          a, ad, N, scale);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return win_rows(N) <= 144
+             ? launch_window_chunks<9>(a, ad, B, N, H, scale, s)
+             : launch_window_chunks<10>(a, ad, B, N, H, scale, s);
 }
 
 // The packed qkv operands of [B*N, 3*H*D] (columns ordered qkv-slot, head,

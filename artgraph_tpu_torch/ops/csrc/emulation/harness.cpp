@@ -154,24 +154,60 @@ static int emu_sums(const float* part, float* lo, float* hi, int groups,
 }
 
 // The windowed block path at head dim 32, as ag_window_attention_bf16 and
-// ag_window_attention_bwd_bf16 launch it (any other head dim: 1).
+// ag_window_attention_bwd_bf16 launch it (any other head dim: 1), but with
+// the forward's windows a run given (per_run) so that small shapes walk the
+// ring too: a block of ceil(N/16) warps, the 9- or 10-chunk build.
 using attn::WIN_D;
 static FwdArgs window_fwd_args(const void* qkv, void* o, int C) {
   const bf16* p = (const bf16*)qkv;
   return FwdArgs{{p, 3 * C}, {p + C, 3 * C}, {p + 2 * C, 3 * C}, (bf16*)o, C};
 }
 
+static dim3 window_block(int N) {
+  return {(unsigned)(attn::win_rows(N) / attn::WIN_CHUNK * 32), 1, 1};
+}
+
+template <int NCH>
+static void window_fwd(const FwdArgs& a, const attn::Additive& ad, int B,
+                       int N, int H, int per_run, float scale) {
+  run_grid({(unsigned)((B + per_run - 1) / per_run), (unsigned)H, 1},
+           window_block(N),
+           [&] {
+             window_attention_kernel<WIN_D, NCH>(a, ad, B, N, per_run, scale);
+           },
+           attn::WinSmem<WIN_D, 3, 0>::bytes(N));
+}
+
 extern "C" int emu_window_attention(const void* qkv, void* o,
                                     const void* bias, const void* regions,
                                     int nW, int B, int N, int H, int Dh,
-                                    float scale) {
+                                    int per_run, float scale) {
   if (Dh != WIN_D) return 1;
   const FwdArgs a = window_fwd_args(qkv, o, H * Dh);
   const attn::Additive ad{(const float*)bias, (const int*)regions, nW};
-  run_grid(grid_of(B, N, H), ATTN_BLOCK,
-           [&] { window_attention_kernel<WIN_D>(a, ad, N, scale); },
-           window_fwd_smem<WIN_D>());
+  if (attn::win_rows(N) <= 144)
+    window_fwd<9>(a, ad, B, N, H, per_run, scale);
+  else
+    window_fwd<10>(a, ad, B, N, H, per_run, scale);
   return 0;
+}
+
+template <int NCH>
+static void window_bwd(const BwdArgs& a, const attn::Additive& ad,
+                       const attn::Additive& ad_t, const BiasGrad& bg,
+                       float* st, int N, int H, float scale) {
+  const dim3 grid{(unsigned)((bg.B + bg.per_run - 1) / bg.per_run),
+                  (unsigned)H, 1};
+  run_grid(grid, window_block(N),
+           [&] { window_bwd_dq_kernel<WIN_D, NCH>(a, ad, bg, st, N, H,
+                                                  scale); },
+           WinDq<NCH>::bytes(N));
+  run_grid(grid, window_block(N),
+           [&] {
+             window_bwd_dkv_kernel<WIN_D, NCH>(a, ad_t, st, bg.B, N, H,
+                                               bg.per_run, scale);
+           },
+           attn::WinSmem<WIN_D, 4, 3>::bytes(N));
 }
 
 extern "C" int emu_window_attention_bwd(const void* qkv, const void* dout,
@@ -193,14 +229,13 @@ extern "C" int emu_window_attention_bwd(const void* qkv, const void* dout,
   const attn::Additive ad_t{(const float*)bias_t, (const int*)regions, nW};
   const BiasGrad bg{bias ? (float*)part : nullptr, per_run, B};
   float* st = (float*)stats;
-  const int runs = (B + per_run - 1) / per_run;
-  run_grid(grid_of(runs, N, H), ATTN_BLOCK,
-           [&] { window_bwd_dq_kernel<WIN_D>(a, ad, bg, st, N, H, scale); },
-           window_dq_smem<WIN_D>());
-  run_grid(grid_of(B, N, H), ATTN_BLOCK,
-           [&] { window_bwd_dkv_kernel<WIN_D>(a, ad_t, st, N, H, scale); });
+  if (attn::win_rows(N) <= 144)
+    window_bwd<9>(a, ad, ad_t, bg, st, N, H, scale);
+  else
+    window_bwd<10>(a, ad, ad_t, bg, st, N, H, scale);
   if (bg.part) {
     const int cols = H * N * N;
+    const int runs = (B + per_run - 1) / per_run;
     emu_sums(bg.part, (float*)dbias, (float*)dbias + cols, runs, cols, cols);
   }
   return 0;

@@ -3,20 +3,22 @@
 artgraph_tpu_torch/ops/attention_emulation.py compiles ops/csrc/
 block_attention.cu and block_attention_bwd.cu with g++ as host code, with
 warp-cooperative host versions of cp.async, ldmatrix and mma.sync, and runs
-each block as 128 host threads. Here the kernels' four paths (strided and
-packed forward, saved-o and recomputed-o backward) are held against their
-plain twins at the card's tolerance, rtol = atol = 3e-2: a tile shorter
-than a stage, a full tile, a ragged last tile with two heads, and three
-tiles on two images. This checks the kernels' indexing, fragment layouts,
-masks and phases; tests/test_torch_cuda.py holds the compiled kernels on
-the card. The windowed cores of Swin's blocks (`ag_window_attention_bf16`,
-`ag_window_attention_bwd_bf16`) likewise, at head dim 32 with and without
-the relative-position bias and the shift mask, forward and backward with
-dBias (at relative L2 <= 2e-2, bit-identical on a second call), at N = 144
-(Swin's 12x12 windows), N = 80 (not a multiple of 64) and N = 49 (odd: the
-bias, region and dBias accesses one element at a time); and ViT's D = 64
-cores give the same bits as before the head dim became a template
-parameter. Skips where g++ is missing.
+each block as one host thread per CUDA thread. Here the kernels' four paths
+(strided and packed forward, saved-o and recomputed-o backward) are held
+against their plain twins at the card's tolerance, rtol = atol = 3e-2: a
+tile shorter than a stage, a full tile, a ragged last tile with two heads,
+and three tiles on two images. This checks the kernels' indexing, fragment
+layouts, masks and phases; tests/test_torch_cuda.py holds the compiled
+kernels on the card. The windowed cores of Swin's blocks
+(`ag_window_attention_bf16`, `ag_window_attention_bwd_bf16`) likewise, at
+head dim 32 with and without the relative-position bias and the shift
+mask, forward and backward with dBias (at relative L2 <= 2e-2,
+bit-identical on a second call), at N = 144 (Swin's 12x12 windows: 9
+warps), N = 80, N = 49 (odd: the bias, region and dBias accesses one
+element at a time, a ragged last chunk) and N = 160 (10 warps), runs of 2
+and 3 windows a block (the two-slot ring, dBias summed on chip across a
+run); and ViT's D = 64 cores give the same bits as before the head dim
+became a template parameter. Skips where g++ is missing.
 """
 import hashlib
 import shutil
@@ -40,14 +42,23 @@ def test_emulated_attention_kernels_match_plain(emulated, B, N, H):
     assert attention_emulation.check(emulated, B, N, H) <= 1.0
 
 
-@pytest.mark.parametrize("B,N,H,nW,bias,mask", [
-    (3, 144, 1, 3, True, True), (3, 144, 1, 1, False, False),
-    (2, 80, 2, 2, True, True), (2, 80, 2, 1, True, False),
-    (2, 80, 1, 2, False, True), (2, 49, 1, 2, True, True)])
+# (B, N, H, nW, bias, mask) at 2 windows a run, each with the id its tuple
+# gives; then a run of 3 windows at N = 144 (the dBias run summed on chip
+# across three windows) and N = 160 (10 warps, the 10-chunk build)
+WINDOW_CASES = [(3, 144, 1, 3, True, True), (3, 144, 1, 1, False, False),
+                (2, 80, 2, 2, True, True), (2, 80, 2, 1, True, False),
+                (2, 80, 1, 2, False, True), (2, 49, 1, 2, True, True)]
+
+
+@pytest.mark.parametrize("B,N,H,nW,bias,mask,per_run", [
+    *(pytest.param(*case, 2, id="-".join(map(str, case)))
+      for case in WINDOW_CASES),
+    pytest.param(3, 144, 1, 3, True, True, 3, id="3-144-1-3-True-True-run3"),
+    pytest.param(2, 160, 1, 2, True, True, 2, id="2-160-1-2-True-True")])
 def test_emulated_window_cores_match_plain(emulated, B, N, H, nW, bias,
-                                           mask):
+                                           mask, per_run):
     assert attention_emulation.check_window(emulated, B, N, H, nW, bias,
-                                            mask) <= 1.0
+                                            mask, per_run) <= 1.0
 
 
 # SHA-256 of ViT's cores' emulated outputs (bf16 bits) on window_inputs(2,
