@@ -90,8 +90,8 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda"
                      ) -> dict:
     """The six dry runs in n_devices ranks of one spawn, each printing its
     OK line (rank 0); raises if a rank fails or a check does not hold.
-    Returns rank 0's kernel launches over the six runs, keyed
-    `module.counter`."""
+    Returns rank 0's kernel launches over the six runs, keyed by counter
+    name (ops/launches.py)."""
     from artgraph_tpu_torch.parallel.mesh import spawn
 
     device = torch.device(device)
@@ -117,8 +117,7 @@ def _dryrun_rank(mesh, n_devices: int) -> dict:
     for run in (_vit_dp_step, _fused_block_step, _conv_bn_step,
                 _sharded_resident_epoch, _edge_sharded_gnn_step):
         run(n_devices, device)
-    return {f"{mod}.{attr}": n
-            for (mod, attr), n in launches.since(before).items()}
+    return launches.since(before)
 
 
 def _say(line: str) -> None:
@@ -219,8 +218,8 @@ def _against_one_device(n: int, device: torch.device, make, px: int,
     """One SGD-with-momentum(1e-2) step of make()'s model over a `data`
     mesh against the same step on one device from the same weights, on a
     batch of 2n: the losses and every parameter and buffer at REL. On the
-    card the kernels behind `counters` must have launched in the mesh's
-    step. Returns the mesh's loss."""
+    card the kernels behind `counters` (ops/launches.py names) must have
+    launched in the mesh's step. Returns the mesh's loss."""
     from artgraph_tpu_torch.cli._common import single_task_loss
     from artgraph_tpu_torch.ops import launches
     from artgraph_tpu_torch.parallel.mesh import batch_sharding, create_mesh
@@ -281,10 +280,8 @@ def _fused_block_step(n: int, device: torch.device) -> None:
     loss = _against_one_device(
         n, device, lambda: _TinyViT(_dtype(device)), 16, "vit",
         "the fused-block ViT step",
-        (("artgraph_tpu_torch.ops.attention", "LAUNCHES"),
-         ("artgraph_tpu_torch.ops.mlp", "LAUNCHES"),
-         ("artgraph_tpu_torch.ops.attention", "LAUNCHES_BWD"),
-         ("artgraph_tpu_torch.ops.mlp", "LAUNCHES_BWD")))
+        ("fused_block_attention", "fused_block_mlp",
+         "fused_block_attention_bwd", "fused_block_mlp_bwd"))
     _say(f"dryrun shard_map ViT DP step (fused kernels) OK: data:{n} "
          f"loss={loss:.4f} (matches single-device)")
 
@@ -321,8 +318,7 @@ def _conv_bn_step(n: int, device: torch.device) -> None:
         loss = _against_one_device(
             n, device, lambda: _TinyBottleneck(_dtype(device)), 8, "resnet",
             "the conv-bn bottleneck step",
-            (("artgraph_tpu_torch.ops.conv_bn", "LAUNCHES"),
-             ("artgraph_tpu_torch.ops.conv_bn", "LAUNCHES_BWD")))
+            ("conv1x1_bn_stats", "conv1x1_bn_stats_bwd"))
     finally:
         if old is None:
             os.environ.pop("ARTGRAPH_CONVBN")

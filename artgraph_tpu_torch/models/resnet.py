@@ -71,7 +71,7 @@ from torch import nn
 
 from artgraph_tpu_torch.ops import batchnorm
 from artgraph_tpu_torch.ops.batchnorm import as_nchw, as_rows
-from artgraph_tpu_torch.ops.attention import at_least_f32
+from artgraph_tpu_torch.ops.block_gemm import at_least_f32
 from artgraph_tpu_torch.ops.conv_bn import conv1x1_bn_stats
 from artgraph_tpu_torch.parallel.mesh import psum
 
@@ -228,12 +228,17 @@ class MixedBatchNorm(nn.Module):
         return F.relu(y) if relu else y
 
 
+def conv_bn_gate() -> bool:
+    """Whether ARTGRAPH_CONVBN=1 is in the environment (read at each
+    call): the user's selection of the fused 1x1-conv + BN-statistics unit."""
+    return os.environ.get("ARTGRAPH_CONVBN", "") == "1"
+
+
 def conv_bn_kernels_on(dtype: torch.dtype, train: bool) -> bool:
     """Gate of the fused 1x1-conv + BN-statistics unit: train mode, bf16 or
-    f32, no batch mask, and ARTGRAPH_CONVBN=1 (read at each call)."""
+    f32, no batch mask, and `conv_bn_gate()`."""
     return (train and dtype in (torch.bfloat16, _F32)
-            and _BATCH_MASK.get() is None
-            and os.environ.get("ARTGRAPH_CONVBN", "") == "1")
+            and _BATCH_MASK.get() is None and conv_bn_gate())
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype

@@ -47,8 +47,8 @@ from torch import nn
 
 from artgraph_tpu_torch.models.vit import Mlp
 from artgraph_tpu_torch.ops import fused_block_attention, fused_block_mlp
-from artgraph_tpu_torch.ops.attention import (at_least_f32, cast_weight,
-                                              region_mask)
+from artgraph_tpu_torch.ops.attention import region_mask
+from artgraph_tpu_torch.ops.block_gemm import at_least_f32, cast_weight
 
 
 def relative_position_index(window: int) -> torch.Tensor:

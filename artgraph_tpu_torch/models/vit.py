@@ -37,7 +37,7 @@ from torch import nn
 
 from artgraph_tpu_torch.ops import (fused_attention, fused_block_attention,
                                     fused_block_mlp, fused_qkv_attention)
-from artgraph_tpu_torch.ops.attention import at_least_f32, cast_weight
+from artgraph_tpu_torch.ops.block_gemm import at_least_f32, cast_weight
 
 
 class PatchEmbed(nn.Module):

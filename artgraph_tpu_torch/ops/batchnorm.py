@@ -47,16 +47,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from artgraph_tpu_torch.ops import _build
-
-# Wrapper calls that launched each CUDA kernel since the last reset (the
-# finishing under a data-parallel reduce counts once for its two launches).
-LAUNCHES_STATS = 0
-LAUNCHES_FINISH = 0
-LAUNCHES_APPLY = 0
-LAUNCHES_COLSUM = 0
-LAUNCHES_FINISH_BWD = 0
-LAUNCHES_DX = 0
+from artgraph_tpu_torch.ops import _build, launches
 
 # csrc/batchnorm.cu: a streaming block covers up to 8 * MAX_LANES channels
 # of a run of rows; the grid aims at TARGET_BLOCKS blocks (132 SMs, two
@@ -243,7 +234,6 @@ def _check_vector(name: str, t: torch.Tensor, C: int, dtype, device) -> None:
 
 def _stats(x: torch.Tensor) -> torch.Tensor:
     """x [M, C] rows -> partial sums [runs, 2C]."""
-    global LAUNCHES_STATS
     if not x.is_cuda:
         return stats_plain(x)
     M, C = x.shape
@@ -252,7 +242,7 @@ def _stats(x: torch.Tensor) -> torch.Tensor:
     _build.check(_build.lib().ag_bn_stats_bf16(
         x.data_ptr(), part.data_ptr(), M, C, per, runs,
         _build.stream_ptr(x)), "ag_bn_stats_bf16")
-    LAUNCHES_STATS += 1
+    launches.count("batchnorm_stats")
     return part
 
 
@@ -260,7 +250,6 @@ def _finish(mode: int, bn, p1, p2, n: float, n_dev):
     """FIN_MERGE: the sums [2C + 1] = (s1, s2, n); FIN_TRAIN, FIN_EVAL:
     (a, b, saved). p1, p2: [groups, C] views of the sums to merge, one row
     stride."""
-    global LAUNCHES_FINISH
     w = bn.weight
     C = w.shape[0]
     if not w.is_cuda:
@@ -297,14 +286,15 @@ def _finish(mode: int, bn, p1, p2, n: float, n_dev):
         bn.running_var.data_ptr(), _ptr(nbt), _ptr(a), _ptr(b), _ptr(saved),
         _ptr(sums), C, mode, bn.eps, bn.momentum, 1.0 - bn.momentum,
         _build.stream_ptr(w)), "ag_bn_finish")
-    LAUNCHES_FINISH += mode != FIN_MERGE
+    # under a data-parallel reduce, the merge and the finishing count once
+    if mode != FIN_MERGE:
+        launches.count("batchnorm_finish")
     if mode == FIN_TRAIN and not counted:
         count.add_(1)
     return sums if mode == FIN_MERGE else (a, b, saved)
 
 
 def _apply(xs, coefs, ident, relu: bool) -> torch.Tensor:
-    global LAUNCHES_APPLY
     x0 = xs[0]
     if not x0.is_cuda:
         return apply_plain(xs, coefs, ident, relu)
@@ -317,12 +307,11 @@ def _apply(xs, coefs, ident, relu: bool) -> torch.Tensor:
         x0.data_ptr(), a0.data_ptr(), b0.data_ptr(), _ptr(x1), _ptr(a1),
         _ptr(b1), _ptr(ident), out.data_ptr(), M, C, int(relu), per, runs,
         _build.stream_ptr(x0)), "ag_bn_apply_bf16")
-    LAUNCHES_APPLY += 1
+    launches.count("batchnorm_apply")
     return out
 
 
 def _colsum(g, o, xs) -> torch.Tensor:
-    global LAUNCHES_COLSUM
     if not g.is_cuda:
         return colsum_plain(g, o, xs)
     M, C = g.shape
@@ -333,14 +322,13 @@ def _colsum(g, o, xs) -> torch.Tensor:
         g.data_ptr(), _ptr(o), xs[0].data_ptr(),
         _ptr(xs[1] if len(xs) == 2 else None), part.data_ptr(), M, C, per,
         runs, _build.stream_ptr(g)), "ag_bn_colsum_bf16")
-    LAUNCHES_COLSUM += 1
+    launches.count("batchnorm_colsum")
     return part
 
 
 def _finish_bwd(p1, p2, da, db, saved, w, n: float, n_dev, train: bool):
     """(dgamma, dbeta, cs or None) from the partial sums p1, p2 ([groups,
     C] views, one row stride) or the bf16 da, db."""
-    global LAUNCHES_FINISH_BWD
     C = w.shape[0]
     if not w.is_cuda:
         if da is None:
@@ -358,12 +346,11 @@ def _finish_bwd(p1, p2, da, db, saved, w, n: float, n_dev, train: bool):
         saved.data_ptr(), w.data_ptr(), _ptr(n_dev), n, dw.data_ptr(),
         dbias.data_ptr(), _ptr(cs), C, int(train), _build.stream_ptr(w)),
         "ag_bn_finish_bwd")
-    LAUNCHES_FINISH_BWD += 1
+    launches.count("batchnorm_finish_bwd")
     return dw, dbias, cs
 
 
 def _dx(g, o, xs, coefs_a, css, want_identity: bool):
-    global LAUNCHES_DX
     x0 = xs[0]
     if not x0.is_cuda:
         return dx_plain(g, o, xs, coefs_a, css, want_identity)
@@ -377,7 +364,7 @@ def _dx(g, o, xs, coefs_a, css, want_identity: bool):
         _ptr(second(xs)), _ptr(second(coefs_a)), _ptr(second(css)),
         dxs[0].data_ptr(), _ptr(second(dxs)), _ptr(did), M, C, per, runs,
         _build.stream_ptr(x0)), "ag_bn_dx_bf16")
-    LAUNCHES_DX += 1
+    launches.count("batchnorm_dx")
     return dxs, did
 
 

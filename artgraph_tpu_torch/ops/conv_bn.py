@@ -38,12 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from artgraph_tpu_torch.ops import _build
-
-# Launches of the CUDA forward / backward by `conv1x1_bn_stats` since the last
-# reset (one per call of the unit, however many kernels it runs).
-LAUNCHES = 0
-LAUNCHES_BWD = 0
+from artgraph_tpu_torch.ops import _build, launches
 
 # rows of one GEMM block tile (csrc/conv_bn.cu BM): one f32 row of partial
 # column sums per tile of rows
@@ -207,20 +202,18 @@ class _Conv1x1BnStats(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, a, b, w, prologue):
-        global LAUNCHES
         ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
             y, s1, s2 = conv1x1_bn_stats_plain(x, a, b, w, prologue)
         else:
             y, s1, s2 = conv1x1_bn_stats_cuda(x, a, b, w, prologue)
-            LAUNCHES += 1
+            launches.count("conv1x1_bn_stats")
         ctx.save_for_backward(x, a, b, w, y)
         ctx.prologue = prologue
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
-        global LAUNCHES_BWD
         x, a, b, w, y = ctx.saved_tensors
         # a cotangent autograd leaves undefined counts as zeros
         if dy is None:
@@ -234,7 +227,7 @@ class _Conv1x1BnStats(torch.autograd.Function):
         else:
             grads = conv1x1_bn_stats_bwd_cuda(x, a, b, w, y, dy, ds1, ds2,
                                               ctx.prologue)
-            LAUNCHES_BWD += 1
+            launches.count("conv1x1_bn_stats_bwd")
         return (*grads, None)
 
 

@@ -43,14 +43,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from artgraph_tpu_torch.ops import _build
+from artgraph_tpu_torch.ops import _build, launches
 from artgraph_tpu_torch.parallel.mesh import pmax, psum
-
-# Launches of each CUDA kernel since the last reset.
-LAUNCHES_SUM = 0
-LAUNCHES_WEIGHTED = 0
-LAUNCHES_SOFTMAX = 0
-LAUNCHES_SCALAR = 0
 
 _F32 = torch.float32
 CHUNK = 256   # most edges one warp of the kernels reduces (see _plan)
@@ -258,7 +252,6 @@ def _vec(data: torch.Tensor) -> int:
 
 
 def segment_sum_cuda(data: torch.Tensor, csr: CSR) -> torch.Tensor:
-    global LAUNCHES_SUM
     _check("csr_segment_sum", csr, data)
     if data.dim() != 2:
         raise ValueError(f"csr_segment_sum: data must be [E, F], got "
@@ -269,13 +262,12 @@ def segment_sum_cuda(data: torch.Tensor, csr: CSR) -> torch.Tensor:
     _build.check(_build.lib().ag_csr_sum_f32(
         data.data_ptr(), *_plan_args(csr, scratch), out.data_ptr(), F,
         _vec(data), _build.stream_ptr(data)), "ag_csr_sum_f32")
-    LAUNCHES_SUM += 1
+    launches.count("csr_segment_sum")
     return out
 
 
 def weighted_segment_sum_cuda(data: torch.Tensor, w: torch.Tensor,
                               csr: CSR) -> Tuple[torch.Tensor, torch.Tensor]:
-    global LAUNCHES_WEIGHTED
     _check("csr_weighted_segment_sum", csr, data, w)
     if data.dim() != 2 or w.dim() != 1:
         raise ValueError(f"csr_weighted_segment_sum: expected [E, F] and "
@@ -288,13 +280,12 @@ def weighted_segment_sum_cuda(data: torch.Tensor, w: torch.Tensor,
         data.data_ptr(), w.data_ptr(), *_plan_args(csr, scratch),
         out.data_ptr(), den.data_ptr(), F, _vec(data),
         _build.stream_ptr(data)), "ag_csr_weighted_sum_f32")
-    LAUNCHES_WEIGHTED += 1
+    launches.count("csr_weighted_segment_sum")
     return out, den
 
 
 def softmax_aggregate_cuda(data: torch.Tensor, logits: torch.Tensor,
                            csr: CSR):
-    global LAUNCHES_SOFTMAX
     _check("csr_attention_aggregate", csr, data, logits)
     if data.dim() != 2 or logits.dim() != 1:
         raise ValueError(f"csr_attention_aggregate: expected [E, F] and [E], "
@@ -308,12 +299,11 @@ def softmax_aggregate_cuda(data: torch.Tensor, logits: torch.Tensor,
         data.data_ptr(), logits.data_ptr(), *_plan_args(csr, scratch),
         num.data_ptr(), m.data_ptr(), den.data_ptr(), F, _vec(data),
         _build.stream_ptr(data)), "ag_csr_softmax_f32")
-    LAUNCHES_SOFTMAX += 1
+    launches.count("csr_attention_aggregate")
     return num, m, den
 
 
 def scalar_segment_sum_cuda(w: torch.Tensor, csr: CSR) -> torch.Tensor:
-    global LAUNCHES_SCALAR
     _check("csr_scalar_segment_sum", csr, w)
     if w.dim() != 1:
         raise ValueError(f"csr_scalar_segment_sum: w must be [E], got "
@@ -323,7 +313,7 @@ def scalar_segment_sum_cuda(w: torch.Tensor, csr: CSR) -> torch.Tensor:
     _build.check(_build.lib().ag_csr_scalar_sum_f32(
         w.data_ptr(), *_plan_args(csr, scratch), out.data_ptr(),
         csr.scalar_lanes, _build.stream_ptr(w)), "ag_csr_scalar_sum_f32")
-    LAUNCHES_SCALAR += 1
+    launches.count("csr_scalar_segment_sum")
     return out
 
 

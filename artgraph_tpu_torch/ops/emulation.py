@@ -3,7 +3,7 @@ the attention cores, the conv + BN-statistics unit, the LayerNorm
 backward and column sums of the transformer blocks' backward, the CSR
 scalar sum and the BatchNorm chain.
 
-    python -m artgraph_tpu_torch.ops.attention_emulation [B,N,H ...]
+    python -m artgraph_tpu_torch.ops.emulation [B,N,H ...]
 
 (default: 1,197,2 1,600,1; then the windowed cores of Swin's blocks at
 head dim 32, with and without the bias and the mask; then the unit
@@ -12,20 +12,19 @@ shapes each, the scalar sum on hubs and on short segments, and the
 BatchNorm chain at C = 64 and 2048). No GPU and no nvcc: g++ (C++20)
 compiles csrc/block_attention.cu, csrc/block_attention_bwd.cu,
 csrc/conv_bn.cu, csrc/block_norm_bwd.cu, csrc/csr_segment.cu,
-csrc/batchnorm.cu and the headers they include as host code into build/emulate_attention/, with
-the PTX helpers of
-csrc/ptx_helpers.cuh (cp.async, ldmatrix, mma.sync, dynamic shared memory)
-replaced by the warp-cooperative host versions of
-csrc/emulation/ptx_emulation.h and CUDA's built-ins by
-csrc/emulation/cuda_shim/. Each block runs as one host thread per CUDA
-thread, one block after another, so small shapes take seconds. For each
-attention shape the kernels of the four entry points (strided and packed
-forward, saved-o and recomputed-o backward) run on seeded bf16 inputs; for
-each unit shape the forward and backward launches of conv_bn.cu (the three
-products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16` runs
-them, block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
+csrc/batchnorm.cu and the headers they include as host code into
+build/emulation/, with the PTX helpers of csrc/ptx_helpers.cuh
+(cp.async, ldmatrix, mma.sync, dynamic shared memory) replaced by the
+warp-cooperative host versions of csrc/emulation/ptx_emulation.h and CUDA's
+built-ins by csrc/emulation/cuda_shim/. Each block runs as one host thread
+per CUDA thread, one block after another, so small shapes take seconds.
+For each attention shape the kernels of the four entry points (strided and
+packed forward, saved-o and recomputed-o backward) run on seeded bf16 inputs;
+for each unit shape the forward and backward launches of conv_bn.cu (the
+three products and the fixed-order sums) run as `ag_conv_bn_{fwd,bwd}_bf16`
+runs them, block_norm_bwd.cu's launches as `ag_layernorm_bwd_bf16` and
 `ag_colsum_bf16` run them (norm_sequence, colsum_sequence, with the row
-splits of ops/attention.py) and csr_segment.cu's two passes as
+splits of ops/block_gemm.py) and csr_segment.cu's two passes as
 `ag_csr_scalar_sum_f32` runs them over a CSR's plan (scalar_sequence), and
 batchnorm.cu's six entry points (`*_entry`) as the `ag_bn_*` functions run
 them, each from the same inputs as its twin in ops/batchnorm.py. It
@@ -51,10 +50,11 @@ import numpy as np
 import torch
 
 from artgraph_tpu_torch.ops import attention as A
+from artgraph_tpu_torch.ops import block_gemm as G
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 HERE = CSRC / "emulation"
-OUT = Path(__file__).resolve().parents[2] / "build" / "emulate_attention"
+OUT = Path(__file__).resolve().parents[2] / "build" / "emulation"
 TOL = 3e-2
 GRAD_REL_L2 = 2e-2
 CSR_RTOL, CSR_ATOL = 1e-4, 1e-3
@@ -349,7 +349,7 @@ def check_norm(lib: ctypes.CDLL, rows: int, cols: int,
     x = f32(rows, cols, s=2.0, m=0.5).to(torch.bfloat16)
     gamma, dy = f32(cols, s=0.1, m=1.0), f32(rows, cols)
     dres = f32(rows, cols).to(torch.bfloat16)
-    per, groups = A.norm_groups(rows)
+    per, groups = G.norm_groups(rows)
 
     def run():
         dx = torch.full((rows, cols), float("nan"), dtype=torch.bfloat16)
@@ -361,7 +361,7 @@ def check_norm(lib: ctypes.CDLL, rows: int, cols: int,
         return dx, *out
 
     ours, again = run(), run()
-    ref = A.ln_bwd_plain(x, gamma, dy, dres, eps)
+    ref = G.ln_bwd_plain(x, gamma, dy, dres, eps)
     worst = 0.0 if all(torch.equal(a, b) for a, b in zip(ours, again)) \
         else float("inf")
     for name, a, r in zip(("dx", "dgamma", "dbeta", "db_res"), ours, ref):
@@ -386,7 +386,7 @@ def check_colsum(lib: ctypes.CDLL, rows: int, cols: int) -> float:
     rng = np.random.default_rng(rows * 7919 + cols)
     t = torch.from_numpy((0.1 + rng.normal(size=(rows, cols)))
                          .astype(np.float32)).to(torch.bfloat16)
-    per, chunks = A.colsum_groups(rows, cols)
+    per, chunks = G.colsum_groups(rows, cols)
 
     def run():
         part = torch.full((chunks, cols), float("nan"))

@@ -1,55 +1,49 @@
-"""The kernels' launch counters, read, restored and added as one.
+"""The kernels' launch counters: one table, keyed by kernel name.
 
-Each wrapper adds one to its module's counter where it launches its kernel:
-the `LAUNCHES*` ints of ops.preprocess, ops.attention, ops.mlp, ops.conv_bn,
-ops.batchnorm and ops.csr_segment. A CUDA graph replays its kernels without
-running the wrappers, and capturing one launches nothing. So the Trainer takes a
-snapshot before a capture, restores it after, and adds the captured step's
-counts at each replay: the counters keep counting launches on the card.
+Each wrapper calls `count(name)` where it launches its kernel, one count a
+call however many kernels it runs: normalize_images,
+fused_block_attention[_bwd], window_attention_core[_bwd] (the block's calls
+that take the windowed cores), fused_block_mlp[_bwd], fused_attention[_bwd],
+fused_qkv_attention[_bwd], conv1x1_bn_stats[_bwd], csr_segment_sum,
+csr_weighted_segment_sum, csr_attention_aggregate, csr_scalar_segment_sum
+and batchnorm_{stats,finish,apply,colsum,finish_bwd,dx}. A name no call has
+counted reads 0.
+
+A CUDA graph replays its kernels without running the wrappers, and capturing
+one launches nothing. So the Trainer takes a snapshot before a capture,
+restores it after, and adds the captured step's counts at each replay: the
+table keeps counting launches on the card. This module imports no op module.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from collections import Counter
+from typing import Dict
 
-from artgraph_tpu_torch.ops import attention, batchnorm, conv_bn, \
-    csr_segment, mlp, preprocess
+Counts = Dict[str, int]
 
-COUNTERS = (
-    (preprocess, "LAUNCHES"),
-    (attention, "LAUNCHES"), (attention, "LAUNCHES_BWD"),
-    (attention, "LAUNCHES_ATTENTION"), (attention, "LAUNCHES_ATTENTION_BWD"),
-    (attention, "LAUNCHES_QKV"), (attention, "LAUNCHES_QKV_BWD"),
-    (attention, "LAUNCHES_WINDOW"), (attention, "LAUNCHES_WINDOW_BWD"),
-    (mlp, "LAUNCHES"), (mlp, "LAUNCHES_BWD"),
-    (conv_bn, "LAUNCHES"), (conv_bn, "LAUNCHES_BWD"),
-    (batchnorm, "LAUNCHES_STATS"), (batchnorm, "LAUNCHES_FINISH"),
-    (batchnorm, "LAUNCHES_APPLY"), (batchnorm, "LAUNCHES_COLSUM"),
-    (batchnorm, "LAUNCHES_FINISH_BWD"), (batchnorm, "LAUNCHES_DX"),
-    (csr_segment, "LAUNCHES_SUM"), (csr_segment, "LAUNCHES_WEIGHTED"),
-    (csr_segment, "LAUNCHES_SOFTMAX"), (csr_segment, "LAUNCHES_SCALAR"),
-)
+COUNTS: Counter = Counter()
 
-Counts = Dict[Tuple[str, str], int]
+
+def count(name: str, n: int = 1) -> None:
+    COUNTS[name] += n
 
 
 def snapshot() -> Counts:
-    """Every counter, keyed (module name, attribute)."""
-    return {(mod.__name__, attr): getattr(mod, attr) for mod, attr in COUNTERS}
+    """Every counter, keyed by name."""
+    return dict(COUNTS)
 
 
 def since(before: Counts) -> Counts:
     """What each counter gained since `before` (those that moved)."""
-    now = snapshot()
-    return {k: now[k] - n for k, n in before.items() if now[k] != n}
+    return {k: COUNTS[k] - before.get(k, 0)
+            for k in dict.fromkeys([*before, *COUNTS])
+            if COUNTS[k] != before.get(k, 0)}
 
 
 def restore(before: Counts) -> None:
-    for mod, attr in COUNTERS:
-        setattr(mod, attr, before[(mod.__name__, attr)])
+    COUNTS.clear()
+    COUNTS.update(before)
 
 
 def add(counts: Counts) -> None:
-    for mod, attr in COUNTERS:
-        n = counts.get((mod.__name__, attr))
-        if n:
-            setattr(mod, attr, getattr(mod, attr) + n)
+    COUNTS.update(counts)

@@ -32,35 +32,13 @@ from __future__ import annotations
 
 import torch
 
-from artgraph_tpu_torch.ops.attention import (
+from artgraph_tpu_torch.ops import launches
+from artgraph_tpu_torch.ops.block_gemm import (
     EPI_BIAS_GELU, EPI_BIAS_GELU_AUX, EPI_BIAS_RESIDUAL, EPI_DGELU, EPI_F32,
     LAYOUT_NN, LAYOUT_TN, at_least_f32, bf16_contiguous, check_block_operands,
-    colsum_cuda, gemm_cuda, gemm_nt_cuda, layernorm_bwd_cuda, layernorm_cuda,
-    linear_plain, ln_bwd_plain, ln_rows_plain, rows_t_dot, weight_bf16,
-    weight_f32)
-
-# Launches of the CUDA forward / backward by `fused_block_mlp` since the last
-# reset (one per call of the block, however many kernels it runs).
-LAUNCHES = 0
-LAUNCHES_BWD = 0
-
-_INV_SQRT2 = 0.7071067811865476
-_INV_SQRT_2PI = 0.3989422804014327
-
-
-def gelu_plain(h: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU in f32 (f64 for f64 h), in the kernel's order of
-    operations."""
-    h = h.to(at_least_f32(h.dtype))
-    return 0.5 * h * (1.0 + torch.erf(h * _INV_SQRT2))
-
-
-def gelu_grad_plain(h: torch.Tensor) -> torch.Tensor:
-    """d gelu(h) / dh in f32 (f64 for f64 h): Phi(h) + h * phi(h)."""
-    h = h.to(at_least_f32(h.dtype))
-    cdf = 0.5 * (1.0 + torch.erf(h * _INV_SQRT2))
-    pdf = _INV_SQRT_2PI * torch.exp(-0.5 * h * h)
-    return cdf + h * pdf
+    colsum_cuda, gelu_grad_plain, gelu_plain, gemm_cuda, gemm_nt_cuda,
+    layernorm_bwd_cuda, layernorm_cuda, linear_plain, ln_bwd_plain,
+    ln_rows_plain, rows_t_dot, weight_bf16, weight_f32)
 
 
 def block_mlp_plain(x, gamma, beta, w1, b1, w2, b2,
@@ -134,18 +112,16 @@ class _FusedBlockMlp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
-        global LAUNCHES
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
         ctx.eps = eps
         if x.device.type == "cpu":
             return block_mlp_plain(x, gamma, beta, w1, b1, w2, b2, eps)
         out = block_mlp_cuda(x, gamma, beta, w1, b1, w2, b2, eps)
-        LAUNCHES += 1
+        launches.count("fused_block_mlp")
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        global LAUNCHES_BWD
         x, gamma, beta, w1, b1, w2, b2 = ctx.saved_tensors
         if x.device.type == "cpu":
             grads = block_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dout,
@@ -153,7 +129,7 @@ class _FusedBlockMlp(torch.autograd.Function):
         else:
             grads = block_mlp_bwd_cuda(x, gamma, beta, w1, b1, w2, b2, dout,
                                        ctx.eps)
-            LAUNCHES_BWD += 1
+            launches.count("fused_block_mlp_bwd")
         return (*grads, None)
 
 

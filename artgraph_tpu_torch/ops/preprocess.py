@@ -15,10 +15,7 @@ import functools
 import torch
 
 from artgraph_tpu_torch import config
-from artgraph_tpu_torch.ops import _build
-
-# Launches of the CUDA kernel by `normalize_images` since the last reset.
-LAUNCHES = 0
+from artgraph_tpu_torch.ops import _build, launches
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,7 +47,6 @@ def normalize_images(images_u8: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    global LAUNCHES
     if images_u8.device.type == "cpu":
         return normalize_images_plain(images_u8, transform_type)
     if images_u8.device.type != "cuda":
@@ -75,5 +71,5 @@ def normalize_images(images_u8: torch.Tensor,
         images_u8.data_ptr(), out.data_ptr(), n, *alpha, *beta,
         _build.stream_ptr(images_u8))
     _build.check(rc, "ag_normalize_u8")
-    LAUNCHES += 1
+    launches.count("normalize_images")
     return out

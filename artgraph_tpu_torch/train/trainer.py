@@ -95,7 +95,6 @@ over `data`, and the column-parallel Linears gather their outputs over
 from __future__ import annotations
 
 import contextlib
-import os
 import warnings
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -104,7 +103,8 @@ import torch
 
 from artgraph_tpu_torch import config, profiling
 from artgraph_tpu_torch.data.loader import pipeline
-from artgraph_tpu_torch.models.resnet import bn_batch_mask, bn_psum_axis
+from artgraph_tpu_torch.models.resnet import (bn_batch_mask, bn_psum_axis,
+                                              conv_bn_gate)
 from artgraph_tpu_torch.ops import launches, normalize_images
 from artgraph_tpu_torch.parallel.mesh import (global_batch_array, psum,
                                               replicated, sync_grads)
@@ -145,11 +145,6 @@ class _Graph:
 
 def _signature(tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
-
-
-def _conv_bn_gate() -> bool:
-    """ARTGRAPH_CONVBN as models/resnet.py:conv_bn_kernels_on reads it."""
-    return os.environ.get("ARTGRAPH_CONVBN", "") == "1"
 
 
 def _tree(fn, tree):
@@ -347,7 +342,7 @@ class Trainer:
                 self._accumulate(self._totals["train"], loss, metrics,
                                  batch[-1])
         else:
-            self._run(("train", _signature(batch), _conv_bn_gate()),
+            self._run(("train", _signature(batch), conv_bn_gate()),
                       self._train_body, batch)
         self.host_step += 1
 
@@ -450,7 +445,7 @@ class Trainer:
         ragged_tail = self.has_bn and nb > 0 and valid[-1] < loader.batch_size
         key = ("train", "resident", _signature(loader.data),
                tuple(t.data_ptr() for t in loader.data), loader.batch_size,
-               _conv_bn_gate())
+               conv_bn_gate())
         body = self._resident(loader, self._train_body)
         for row in range(nb - ragged_tail):
             self._run(key, body, (idx_all[row], mask_all[row]))

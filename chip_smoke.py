@@ -469,7 +469,7 @@ CONV_BN_SHAPES = ((100352, 64, 256, True), (6272, 1024, 256, False),
                   (1568, 512, 2048, True))
 RESNET_UNITS = 32
 # ops/batchnorm.py's launches in one unmasked ResNet50 train step, by
-# counter (_bn_counters), gate open and closed: 53 BatchNorms (the stem, 16
+# counter (BN_COUNTERS), gate open and closed: 53 BatchNorms (the stem, 16
 # bn1, 16 bn2, 16 bn3, 4 downsample). Gate open, the unit gives bn1's and
 # bn3's sums and applies bn2's coefficients in its prologue: statistics for
 # the other 21, applies for the stem, 16 bn1 and 16 tails (one each for
@@ -506,9 +506,9 @@ DBIAS_REL_L2 = 1e-3
 # one Swin-B fusion step (24 blocks), by counter; and by kernel: the
 # windowed forward core 24 times and 24 more recomputed in the blocks'
 # backwards, each backward kernel 24 times
-SWIN_STEP_LAUNCHES = {"window_attention_core": 24, "fused_block_mlp": 24,
-                      "window_attention_core_bwd": 24,
-                      "fused_block_mlp_bwd": 24, "normalize_images": 1}
+SWIN_STEP_COUNTS = {"window_attention_core": 24, "fused_block_mlp": 24,
+                    "window_attention_core_bwd": 24,
+                    "fused_block_mlp_bwd": 24, "normalize_images": 1}
 SWIN_STEP_KERNELS = {"window_attention_kernel": 48,
                      "window_bwd_dq_kernel": 24, "window_bwd_dkv_kernel": 24}
 
@@ -828,30 +828,30 @@ def gemm_kernel_phases() -> None:
     relative L2 <= GRAD_REL_L2), bit-identical on repeat; then its time,
     TFLOP/s and the time of torch.matmul on the same bf16 operands (a
     yardstick the port never calls, without the epilogue)."""
-    from artgraph_tpu_torch.ops import attention as A
+    from artgraph_tpu_torch.ops import block_gemm as G
 
     rng = np.random.default_rng(SEED + 90)
     dev = lambda shape, scale=1.0: torch.from_numpy(
         (scale * rng.normal(size=shape)).astype(np.float32)).to(
             "cuda", torch.bfloat16)
     for what, layout, epi, M, Nn, K in VIT_GEMMS:
-        a = dev((K, M) if layout == A.LAYOUT_TN else (M, K))
-        b = dev((Nn, K) if layout == A.LAYOUT_NT else (K, Nn),
-                1.0 if layout == A.LAYOUT_TN else K ** -0.5)
-        bias = dev((Nn,), 0.02).float() if epi <= A.EPI_BIAS_GELU_AUX \
+        a = dev((K, M) if layout == G.LAYOUT_TN else (M, K))
+        b = dev((Nn, K) if layout == G.LAYOUT_NT else (K, Nn),
+                1.0 if layout == G.LAYOUT_TN else K ** -0.5)
+        bias = dev((Nn,), 0.02).float() if epi <= G.EPI_BIAS_GELU_AUX \
             else None
-        aux = dev((M, Nn)) if epi in (A.EPI_BIAS_RESIDUAL, A.EPI_DGELU) \
+        aux = dev((M, Nn)) if epi in (G.EPI_BIAS_RESIDUAL, G.EPI_DGELU) \
             else None
         label = (f"gemm {what} ({'NT NN TN'.split()[layout]}, epilogue "
                  f"{epi}, M={M} N={Nn} K={K})")
-        run = lambda: A.gemm_cuda(a, b, layout, epi, bias=bias, aux=aux)
+        run = lambda: G.gemm_cuda(a, b, layout, epi, bias=bias, aux=aux)
         ours, again = _as_tuple(run()), _as_tuple(run())
         torch.cuda.synchronize()
-        ref = _as_tuple(A.gemm_plain(a, b, layout, epi, bias=bias, aux=aux))
+        ref = _as_tuple(G.gemm_plain(a, b, layout, epi, bias=bias, aux=aux))
         if not all(torch.equal(o, g) for o, g in zip(ours, again)):
             raise AssertionError(f"{label} differs from call to call")
         for o, r in zip(ours, ref):
-            if epi == A.EPI_F32:
+            if epi == G.EPI_F32:
                 rel = ((o.double() - r.double()).norm()
                        / r.double().norm()).item()
                 print(f"check: {label} f32 vs plain: rel L2 {rel:.4g}; "
@@ -860,9 +860,9 @@ def gemm_kernel_phases() -> None:
                     raise AssertionError(f"{label}: rel L2 {rel}")
             else:
                 _check_output(label, o, r)
-        matmul = {A.LAYOUT_NT: lambda: torch.matmul(a, b.t()),
-                  A.LAYOUT_NN: lambda: torch.matmul(a, b),
-                  A.LAYOUT_TN: lambda: torch.matmul(a.t(), b)}[layout]
+        matmul = {G.LAYOUT_NT: lambda: torch.matmul(a, b.t()),
+                  G.LAYOUT_NN: lambda: torch.matmul(a, b),
+                  G.LAYOUT_TN: lambda: torch.matmul(a.t(), b)}[layout]
         ms, lib_ms = _time_ms(run), _time_ms(matmul)
         flops = 2.0 * M * Nn * K
         print(f"time: {label} kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} "
@@ -948,7 +948,7 @@ def norm_kernel_phases() -> None:
     torch.sum in f32; F.layer_norm on bf16 copies), with its byte bound."""
     import torch.nn.functional as F
 
-    from artgraph_tpu_torch.ops import attention as A
+    from artgraph_tpu_torch.ops import block_gemm as G
 
     rng = np.random.default_rng(SEED + 91)
     M, bf = B * N, torch.bfloat16
@@ -961,12 +961,12 @@ def norm_kernel_phases() -> None:
     dres = dev(rng.normal(size=(M, C)), bf)
 
     label = f"layernorm_bwd [{M}, {C}]"
-    ours, again = (A.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+    ours, again = (G.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
                    for _ in range(2))
     torch.cuda.synchronize()
     if not all(torch.equal(a, g) for a, g in zip(ours, again)):
         raise AssertionError(f"{label} differs from call to call")
-    ref = A.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
+    ref = G.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
     _check_output("layernorm_bwd dx", ours[0], ref[0])
     for name, a, r in zip(("dgamma", "dbeta", "db_res"), ours[1:], ref[1:]):
         rel = _rel_l2(a, r)
@@ -987,16 +987,16 @@ def norm_kernel_phases() -> None:
             d, xf, [C], mean, rstd, gamma, beta, [True, True, True])
         return (rf + dx).to(bf), dg, db
 
-    _time_line(label, _rotating(lambda xs, d, r: A.layernorm_bwd_cuda(
+    _time_line(label, _rotating(lambda xs, d, r: G.layernorm_bwd_cuda(
         xs, gamma, d, r, 1e-6), sets), _rotating(
-            lambda xs, d, r: A.ln_bwd_plain(xs, gamma, d, r, 1e-6), sets),
+            lambda xs, d, r: G.ln_bwd_plain(xs, gamma, d, r, 1e-6), sets),
         _rotating(library, f32_sets), nbytes, copies)
     del sets, f32_sets, dy, dres
 
     for cols in (3 * C, HIDDEN, C):
         label = f"colsum [{M}, {cols}]"
         t = dev(0.1 + rng.normal(size=(M, cols)), bf)
-        ours, again = A.colsum_cuda(t), A.colsum_cuda(t)
+        ours, again = G.colsum_cuda(t), G.colsum_cuda(t)
         torch.cuda.synchronize()
         if not torch.equal(ours, again):
             raise AssertionError(f"{label} differs from call to call")
@@ -1007,7 +1007,7 @@ def norm_kernel_phases() -> None:
             raise AssertionError(f"{label}: rel L2 {rel}")
         copies = _copies(M * cols * 2)
         sets = [(t.clone(),) for _ in range(copies)]
-        _time_line(label, _rotating(A.colsum_cuda, sets),
+        _time_line(label, _rotating(G.colsum_cuda, sets),
                    _rotating(lambda u: u.to(torch.float32).sum(0), sets),
                    _rotating(lambda u: torch.sum(u, 0, dtype=torch.float32),
                              sets),
@@ -1015,68 +1015,40 @@ def norm_kernel_phases() -> None:
         del t, ours, again, sets
 
     label = f"layernorm forward [{M}, {C}]"
-    ours, again = (A.layernorm_cuda(x, gamma, beta, 1e-6) for _ in range(2))
+    ours, again = (G.layernorm_cuda(x, gamma, beta, 1e-6) for _ in range(2))
     torch.cuda.synchronize()
     if not torch.equal(ours, again):
         raise AssertionError(f"{label} differs from call to call")
     _check_output("layernorm forward", ours,
-                  A.ln_rows_plain(x, gamma, beta, 1e-6))
+                  G.ln_rows_plain(x, gamma, beta, 1e-6))
     gb, bb = gamma.to(bf), beta.to(bf)
     copies = _copies(M * C * 2)
     sets = [(x.clone(),) for _ in range(copies)]
     _time_line(label, _rotating(
-        lambda xs: A.layernorm_cuda(xs, gamma, beta, 1e-6), sets),
-        _rotating(lambda xs: A.ln_rows_plain(xs, gamma, beta, 1e-6), sets),
+        lambda xs: G.layernorm_cuda(xs, gamma, beta, 1e-6), sets),
+        _rotating(lambda xs: G.ln_rows_plain(xs, gamma, beta, 1e-6), sets),
         _rotating(lambda xs: F.layer_norm(xs, (C,), gb, bb, 1e-6), sets),
         2 * M * C * 2 + 2 * C * 4, copies)
     torch.cuda.empty_cache()
 
 
-def _counters():
-    from artgraph_tpu_torch.ops import attention, mlp, preprocess
-
-    return {"fused_block_attention": (attention, "LAUNCHES"),
-            "fused_block_mlp": (mlp, "LAUNCHES"),
-            "normalize_images": (preprocess, "LAUNCHES"),
-            "fused_block_attention_bwd": (attention, "LAUNCHES_BWD"),
-            "fused_block_mlp_bwd": (mlp, "LAUNCHES_BWD"),
-            # fused_block_attention's calls that take the windowed cores
-            "window_attention_core": (attention, "LAUNCHES_WINDOW"),
-            "window_attention_core_bwd": (attention, "LAUNCHES_WINDOW_BWD")}
-
-
-def _csr_counters():
-    from artgraph_tpu_torch.ops import csr_segment
-
-    return {"csr_segment_sum": (csr_segment, "LAUNCHES_SUM"),
-            "csr_weighted_segment_sum": (csr_segment, "LAUNCHES_WEIGHTED"),
-            "csr_attention_aggregate": (csr_segment, "LAUNCHES_SOFTMAX"),
-            "csr_scalar_segment_sum": (csr_segment, "LAUNCHES_SCALAR")}
-
-
-def _conv_bn_counters():
-    from artgraph_tpu_torch.ops import conv_bn
-
-    return {"conv1x1_bn_stats": (conv_bn, "LAUNCHES"),
-            "conv1x1_bn_stats_bwd": (conv_bn, "LAUNCHES_BWD")}
-
-
-def _bn_counters():
-    """The BatchNorm chain's counters (ops/batchnorm.py), by launch."""
-    from artgraph_tpu_torch.ops import batchnorm
-
-    return {f"batchnorm_{step.lower()}": (batchnorm, f"LAUNCHES_{step}")
-            for step in ("STATS", "FINISH", "APPLY", "COLSUM", "FINISH_BWD",
-                         "DX")}
-
-
-def _mha_counters():
-    from artgraph_tpu_torch.ops import attention
-
-    return {"fused_attention": (attention, "LAUNCHES_ATTENTION"),
-            "fused_attention_bwd": (attention, "LAUNCHES_ATTENTION_BWD"),
-            "fused_qkv_attention": (attention, "LAUNCHES_QKV"),
-            "fused_qkv_attention_bwd": (attention, "LAUNCHES_QKV_BWD")}
+# the launch counters (ops/launches.py) that the phases read and print, by
+# group, in the order they print them
+BLOCK_COUNTERS = ("fused_block_attention", "fused_block_mlp",
+                  "normalize_images", "fused_block_attention_bwd",
+                  "fused_block_mlp_bwd",
+                  # fused_block_attention's calls that take the windowed cores
+                  "window_attention_core", "window_attention_core_bwd")
+CSR_COUNTERS = ("csr_segment_sum", "csr_weighted_segment_sum",
+                "csr_attention_aggregate", "csr_scalar_segment_sum")
+CONV_BN_COUNTERS = ("conv1x1_bn_stats", "conv1x1_bn_stats_bwd")
+# the BatchNorm chain's (ops/batchnorm.py), by launch
+BN_COUNTERS = ("batchnorm_stats", "batchnorm_finish", "batchnorm_apply",
+               "batchnorm_colsum", "batchnorm_finish_bwd", "batchnorm_dx")
+MHA_COUNTERS = ("fused_attention", "fused_attention_bwd",
+                "fused_qkv_attention", "fused_qkv_attention_bwd")
+# every counter but the CSR kernels'
+ALL_COUNTERS = BLOCK_COUNTERS + CONV_BN_COUNTERS + BN_COUNTERS + MHA_COUNTERS
 
 
 def _resnet_bn(full: int, evals: int, gate: bool = True) -> dict:
@@ -1089,15 +1061,15 @@ def _resnet_bn(full: int, evals: int, gate: bool = True) -> dict:
 
 
 def _zero_counts() -> None:
-    for mod, attr in (*_counters().values(), *_csr_counters().values(),
-                      *_conv_bn_counters().values(),
-                      *_bn_counters().values(),
-                      *_mha_counters().values()):
-        setattr(mod, attr, 0)
+    from artgraph_tpu_torch.ops import launches
+
+    launches.COUNTS.clear()
 
 
-def _read_counts(counters=_counters) -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+def _read_counts(names=BLOCK_COUNTERS) -> dict:
+    from artgraph_tpu_torch.ops import launches
+
+    return {k: launches.COUNTS[k] for k in names}
 
 
 def _csr_err(ours: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -1605,7 +1577,7 @@ def _bn_worst(worst: dict) -> dict:
 
 def _check_bn_held(label: str, worst: dict, calls: dict,
                    shapes=()) -> None:
-    """Every launch counted in `calls` (_bn_counters' names) was held to
+    """Every launch counted in `calls` (BN_COUNTERS' names) was held to
     its twin (_bn_held_to_plain), and the [M, C] `shapes` were among its
     inputs."""
     held = {f"batchnorm{step}": worst.get(f"{step} calls", 0)
@@ -1655,7 +1627,7 @@ def bn_kernel_phases() -> dict:
                    "launches": 0, "max_abs_err": 0.0, "ms": 0.0,
                    "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                    "library_ms": 0.0}
-            for name in _bn_counters()}
+            for name in BN_COUNTERS}
     rows["batchnorm_finish_bwd"]["library_ms"] = None
     bf = torch.bfloat16
     for label, b, h, w, c, nb in BN_SHAPES:
@@ -2194,7 +2166,7 @@ def serve_phase() -> dict:
     from artgraph_tpu_torch.models import (NewMultiModalMultiTaskViT,
                                            ViTSingleTask, init_random_)
 
-    expect = dict.fromkeys(_counters(), 0)
+    expect = dict.fromkeys(BLOCK_COUNTERS, 0)
     expect.update(fused_block_attention=12 * BATCHES,
                   fused_block_mlp=12 * BATCHES, normalize_images=BATCHES)
     launches = dict.fromkeys(expect, 0)
@@ -2335,9 +2307,9 @@ def _profile_steps(step, steps: int, step_ms: float,
     return work
 
 
-VIT_STEP_LAUNCHES = {"fused_block_attention": 12, "fused_block_mlp": 12,
-                     "fused_block_attention_bwd": 12,
-                     "fused_block_mlp_bwd": 12, "normalize_images": 1}
+VIT_STEP_COUNTS = {"fused_block_attention": 12, "fused_block_mlp": 12,
+                   "fused_block_attention_bwd": 12,
+                   "fused_block_mlp_bwd": 12, "normalize_images": 1}
 
 
 def _train_run(label: str, trainer, batch, per_step: dict,
@@ -2362,7 +2334,7 @@ def _train_run(label: str, trainer, batch, per_step: dict,
     losses += [step() for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = _all_counts()
+    counts = _read_counts(ALL_COUNTERS)
     expect = dict.fromkeys(counts, 0)
     expect.update({k: n * TRAIN_STEPS for k, n in per_step.items()})
     if counts != expect:
@@ -2404,7 +2376,7 @@ def train_phase() -> tuple[dict, dict]:
              np.ones(B, np.float32))
     counts, img_s, busy = _train_run(
         "train: ViTSingleTask(32) ViT-B/16", trainer, batch,
-        VIT_STEP_LAUNCHES)
+        VIT_STEP_COUNTS)
     del trainer, model
     torch.cuda.empty_cache()
     return counts, {"img_s": img_s, "busy_ms": busy}
@@ -2593,7 +2565,7 @@ def gnn_train_phase() -> dict:
     losses += [step() for _ in range(GNN_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts, vit = _read_counts(_csr_counters), _read_counts()
+    counts, vit = _read_counts(CSR_COUNTERS), _read_counts()
     # the softmax kernel runs in every conv's forward; the sum and scalar
     # kernels in the backward of every conv on a path to the loss, which
     # reads the artwork log-probs only: all hidden convs, and the output
@@ -2792,11 +2764,6 @@ def _seeded_resnet_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def _all_counts() -> dict:
-    return {**_read_counts(), **_read_counts(_conv_bn_counters),
-            **_read_counts(_bn_counters), **_read_counts(_mha_counters)}
-
-
 def resnet_serve_phase() -> dict:
     """Phase 12: both ResNet50 models through cli.predict.infer on cuda."""
     from artgraph_tpu_torch import config
@@ -2805,7 +2772,7 @@ def resnet_serve_phase() -> dict:
     from artgraph_tpu_torch.models import (NewMultiModalMultiTask,
                                            ResnetSingleTask)
 
-    expect = dict.fromkeys(_all_counts(), 0)
+    expect = dict.fromkeys(ALL_COUNTERS, 0)
     expect["normalize_images"] = BATCHES
     expect.update(_resnet_bn(0, BATCHES))
     specs = [
@@ -2838,7 +2805,7 @@ def resnet_serve_phase() -> dict:
                     for batch in batches]
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = _all_counts()
+            counts = _read_counts(ALL_COUNTERS)
             if counts != expect:
                 raise AssertionError(f"{name}: launch counts {counts}, "
                                      f"expected {expect}")
@@ -2927,7 +2894,7 @@ def _resnet_train_steps(gate: bool) -> tuple[dict, float, float | None]:
         losses += [step() for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = _all_counts()
+        counts = _read_counts(ALL_COUNTERS)
         expect = dict.fromkeys(counts, 0)
         expect["normalize_images"] = TRAIN_STEPS
         if gate:
@@ -2960,7 +2927,7 @@ def _resnet_train_steps(gate: bool) -> tuple[dict, float, float | None]:
         with _bn_held_to_plain(held):
             step()
         torch.cuda.synchronize()
-        calls = _read_counts(_bn_counters)
+        calls = _read_counts(BN_COUNTERS)
         if calls != RESNET_BN_STEP[gate]:
             raise AssertionError(f"resnet train (gate {label}): BatchNorm "
                                  f"launches {calls} in the held step")
@@ -3074,8 +3041,8 @@ def _resnet_step(src, build, loss_of, device: str, dtype: torch.dtype,
             "trunk gradient": cat(True),
             "head gradient": cat(False),
             "BN statistics' updates": _bn_updates(model, before),
-            "units": _read_counts(_conv_bn_counters),
-            "bn": _read_counts(_bn_counters)}
+            "units": _read_counts(CONV_BN_COUNTERS),
+            "bn": _read_counts(BN_COUNTERS)}
 
 
 def _hold_step(label: str, src, build, loss_of, images, n_img: int,
@@ -3181,7 +3148,7 @@ def resnet_grad_phase() -> None:
         trainer.train_step(trainer.to_device(
             (images.numpy(), labels.numpy(), mask)), ragged=True)
     torch.cuda.synchronize()
-    counts = {**_read_counts(_conv_bn_counters), **_read_counts(_bn_counters)}
+    counts = _read_counts(CONV_BN_COUNTERS + BN_COUNTERS)
     if any(counts.values()):
         raise AssertionError(f"resnet ragged step: unit or BatchNorm "
                              f"launches {counts}")
@@ -3229,8 +3196,8 @@ def resnet_cli_phase(checkpoints_dir: Path) -> None:
                 "1", "--batch", str(batch), "--num_workers", "4",
                 "--device", "cuda", "--results_dir", str(root / "results")])
         seconds = time.perf_counter() - t0
-        units = _read_counts(_conv_bn_counters)
-        bn = _read_counts(_bn_counters)
+        units = _read_counts(CONV_BN_COUNTERS)
+        bn = _read_counts(BN_COUNTERS)
         text = out.getvalue()
         for line in text.splitlines():
             print(f"resnet cli: {line}")
@@ -3305,7 +3272,7 @@ def vit_unfused_serve_phase() -> dict:
         outs = [model(x) for x in batches]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = _all_counts()
+        counts = _read_counts(ALL_COUNTERS)
         expect = dict.fromkeys(counts, 0)
         expect["fused_attention"] = 12 * BATCHES
         if counts != expect:
@@ -3334,7 +3301,7 @@ def vit_unfused_serve_phase() -> dict:
                              f"{E2E_REL_L2}")
     del models, model, batches, outs
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in _mha_counters()}
+    return {k: counts[k] for k in MHA_COUNTERS}
 
 
 def vit_unfused_train_phase() -> dict:
@@ -3396,7 +3363,7 @@ def attention_module_phase() -> dict:
         call()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = _all_counts()
+    counts = _read_counts(ALL_COUNTERS)
     expect = dict.fromkeys(counts, 0)
     expect.update(fused_qkv_attention=calls, fused_qkv_attention_bwd=calls)
     if counts != expect:
@@ -3432,7 +3399,7 @@ def attention_module_phase() -> dict:
           f"{TRAIN_GRAD_REL_L2})", flush=True)
     del mod, xc, gc
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in _mha_counters()}
+    return {k: counts[k] for k in MHA_COUNTERS}
 
 
 def _fusion_batch(rng, n: int, size: int = 224) -> tuple:
@@ -3538,7 +3505,7 @@ def multimodal_train_phase(vit_train: dict) -> dict:
     batch = _fusion_batch(np.random.default_rng(SEED + 90), B)
     counts, img_s, busy = _train_run(
         "multimodal train: NewMultiModalMultiTaskViT(128, style 32, genre "
-        "18) ViT-B/16,", trainer, batch, VIT_STEP_LAUNCHES)
+        "18) ViT-B/16,", trainer, batch, VIT_STEP_COUNTS)
     del trainer, model
     torch.cuda.empty_cache()
     fmt = lambda ms: "not measured" if ms is None else f"{ms:.3f} ms"
@@ -3563,7 +3530,7 @@ def _run_cli(label: str, main, argv: list, phase: str = "pipeline cli"
     with contextlib.redirect_stdout(out):
         ret = main(argv)
     seconds = time.perf_counter() - t0
-    counts = {**_all_counts(), **_read_counts(_csr_counters)}
+    counts = _read_counts(ALL_COUNTERS + CSR_COUNTERS)
     text = out.getvalue()
     for line in text.splitlines():
         print(f"{phase}: {label}: {line}")
@@ -3793,9 +3760,9 @@ def pipeline_cli_phase() -> dict:
     return total
 
 
-RESNET_STEP_LAUNCHES = {"conv1x1_bn_stats": RESNET_UNITS,
-                        "conv1x1_bn_stats_bwd": RESNET_UNITS,
-                        "normalize_images": 1, **RESNET_BN_STEP[True]}
+RESNET_STEP_COUNTS = {"conv1x1_bn_stats": RESNET_UNITS,
+                      "conv1x1_bn_stats_bwd": RESNET_UNITS,
+                      "normalize_images": 1, **RESNET_BN_STEP[True]}
 
 
 def _context_nets() -> tuple:
@@ -3863,7 +3830,7 @@ def context_train_phase(resnet_train: dict) -> dict:
         with _conv_bn_gate(True):
             counts, img_s, busy = _train_run(
                 f"context train: {name} ResNet50,", trainer, batch,
-                RESNET_STEP_LAUNCHES, recipe)
+                RESNET_STEP_COUNTS, recipe)
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         ratio = (f"{busy / resnet_train['busy_ms']:.4f}x" if busy and
@@ -3907,8 +3874,7 @@ def context_train_phase(resnet_train: dict) -> dict:
         with _conv_bn_gate(True):
             loss, _ = trainer.train_step(
                 trainer.to_device((*one[:3], mask)), ragged=True)
-        units = {**_read_counts(_conv_bn_counters),
-                 **_read_counts(_bn_counters)}
+        units = _read_counts(CONV_BN_COUNTERS + BN_COUNTERS)
         if any(units.values()) or not torch.isfinite(loss):
             raise AssertionError(f"context ragged step: {name}: unit or "
                                  f"BatchNorm launches {units}, loss {loss}")
@@ -4090,10 +4056,10 @@ def _graph_specs() -> list:
          lambda: init_random_(ViTSingleTask(32, dropout=0.4),
                               torch.Generator().manual_seed(SEED + 10)),
          adam(3e-4), single, "vit", image_only, images_labels, False,
-         VIT_STEP_LAUNCHES),
+         VIT_STEP_COUNTS),
         ("ResnetSingleTask(32) ResNet50 gate on (phase 13)", resnet,
          adam(3e-4), single, "resnet", image_only, images_labels, True,
-         RESNET_STEP_LAUNCHES),
+         RESNET_STEP_COUNTS),
         ("ResnetSingleTask(32) ResNet50 gate off (phase 13)", resnet,
          adam(3e-4), single, "resnet", image_only, images_labels, False,
          {"normalize_images": 1, **RESNET_BN_STEP[False]}),
@@ -4104,7 +4070,7 @@ def _graph_specs() -> list:
              torch.Generator().manual_seed(SEED + 90)),
          adam(3e-4), multi_task_loss(None, None, 0.5, 0.5, "cuda"), "vit",
          image_and_embeddings, lambda rng, n: _fusion_batch(rng, n)[:-1],
-         False, VIT_STEP_LAUNCHES),
+         False, VIT_STEP_COUNTS),
         (f"{ctx_name} ResNet50 gate on (phase 21)",
          lambda: _seeded_resnet_(ctx_build(torch.bfloat16), SEED + 100),
          ctx_opt, ctx_loss, "resnet", image_only,
@@ -4112,7 +4078,7 @@ def _graph_specs() -> list:
                                       dtype=np.uint8),
                          rng.normal(size=(n, config.EMB_SIZE))
                          .astype(np.float32), ctx_labels(rng, n)),
-         True, RESNET_STEP_LAUNCHES),
+         True, RESNET_STEP_COUNTS),
     ]
 
 
@@ -4241,16 +4207,15 @@ def _counters_as_kernels(counts: dict) -> dict:
     once per block-attention and block-MLP backward; the unit's forward
     product (mode 0) once per unit forward, its weight-gradient product
     (mode 2) once per unit backward."""
-    get = lambda mod, attr: counts.get(
-        (f"artgraph_tpu_torch.ops.{mod}", attr), 0)
-    attn_f, attn_b = get("attention", "LAUNCHES"), get("attention",
-                                                       "LAUNCHES_BWD")
-    want = {"normalize_u8_kernel": get("preprocess", "LAUNCHES"),
+    get = lambda name: counts.get(name, 0)
+    attn_f, attn_b = (get("fused_block_attention"),
+                      get("fused_block_attention_bwd"))
+    want = {"normalize_u8_kernel": get("normalize_images"),
             "attention_core_kernel": attn_f + attn_b,
             "attention_bwd_dkv_kernel": attn_b,
-            "layernorm_bwd_kernel": attn_b + get("mlp", "LAUNCHES_BWD"),
-            "unit_gemm_kernel<0>": get("conv_bn", "LAUNCHES"),
-            "unit_gemm_kernel<2>": get("conv_bn", "LAUNCHES_BWD")}
+            "layernorm_bwd_kernel": attn_b + get("fused_block_mlp_bwd"),
+            "unit_gemm_kernel<0>": get("conv1x1_bn_stats"),
+            "unit_gemm_kernel<2>": get("conv1x1_bn_stats_bwd")}
     return {k: v for k, v in want.items() if v}
 
 
@@ -4309,9 +4274,8 @@ def _graph_exact(spec) -> None:
     # _our_kernels runs fn once more before the profiled calls
     counted = {k: n / (calls + 1) for k, n in counted.items()}
     expect = _counters_as_kernels(counted)
-    per_replay = {k: counted.get((mod.__name__, attr), 0) for k, (mod, attr)
-                  in {**_counters(), **_conv_bn_counters(),
-                      **_bn_counters()}.items()}
+    per_replay = {k: counted.get(k, 0) for k in
+                  BLOCK_COUNTERS + CONV_BN_COUNTERS + BN_COUNTERS}
     per_replay = {k: v for k, v in per_replay.items() if v}
     print(f"graph counts: {label}: counters per replay {per_replay}; the "
           f"profiler's kernels per replay {seen}; per eager step "
@@ -5229,11 +5193,8 @@ def _dp_world1(spec, mesh) -> dict:
                        if "nccl" in ev.get("name", "").lower()
                        ) / DP_STEPS / 1e3
             step_ms = float(np.median(ms[k]))
-            per = {name: counted.get((mod.__name__, attr), 0)
-                   / (2 * DP_STEPS)
-                   for name, (mod, attr) in {**_counters(),
-                                             **_conv_bn_counters(),
-                                             **_bn_counters()}.items()}
+            per = {name: counted.get(name, 0) / (2 * DP_STEPS) for name in
+                   BLOCK_COUNTERS + CONV_BN_COUNTERS + BN_COUNTERS}
             out[k] = {"ms": step_ms, "busy_ms": busy, "nccl_ms": nccl,
                       "idle": max(0.0, 1 - busy / step_ms) if busy else None,
                       "launches": {n: v for n, v in per.items() if v}}
@@ -5301,7 +5262,7 @@ def _dp_image_step(spec, mesh, images, labels):
     with _conv_bn_gate(gate):
         loss, _ = trainer.train_step(trainer.to_device(batch))
         torch.cuda.synchronize()
-    counts = {**_all_counts(), **_read_counts(_csr_counters)}
+    counts = _read_counts(ALL_COUNTERS + CSR_COUNTERS)
     grads = {n: p.grad.detach().float().cpu()
              for n, p in trainer.model.named_parameters()}
     stats = None
@@ -5338,7 +5299,7 @@ def _dp_gnn_step(graph, mesh=None):
     if mesh is not None:
         sync_grads(model.parameters(), mesh)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in _read_counts(_csr_counters).items() if v}
+    counts = {k: v for k, v in _read_counts(CSR_COUNTERS).items() if v}
     grads = {n: p.grad.detach().float().cpu()
              for n, p in model.named_parameters() if p.grad is not None}
     return float(loss.detach()), grads, counts
@@ -5592,7 +5553,7 @@ def data_parallel_phase() -> dict:
             for spec in specs[:2]:
                 _zero_counts()
                 _dp_world1(spec, mesh)
-                for k, n in _all_counts().items():
+                for k, n in _read_counts(ALL_COUNTERS).items():
                     total[k] = total.get(k, 0) + n
         finally:
             release_mesh()
@@ -5679,11 +5640,11 @@ def policy_drift_phase() -> dict:
                 np.ones(B, np.float32)) for _ in range(DRIFT_STEPS)]
     vit = lambda dt: ViTSingleTask(DRIFT_CLASSES, 0.4, dtype=dt)
     resnet = lambda dt: ResnetSingleTask(DRIFT_CLASSES, 0.4, dtype=dt)
-    cases = (("ViTSingleTask ViT-B/16", vit, "vit", False, VIT_STEP_LAUNCHES),
+    cases = (("ViTSingleTask ViT-B/16", vit, "vit", False, VIT_STEP_COUNTS),
              ("ResnetSingleTask ResNet50 gate closed", resnet, "resnet",
               False, {"normalize_images": 1, **RESNET_BN_STEP[False]}),
              ("ResnetSingleTask ResNet50 gate open", resnet, "resnet", True,
-              RESNET_STEP_LAUNCHES))
+              RESNET_STEP_COUNTS))
     total: dict = {}
     refs: dict = {}
     for label, make, transform, gate, per_step in cases:
@@ -5701,7 +5662,7 @@ def policy_drift_phase() -> dict:
                 stack.enter_context(_conv_bn_gate(True))
             losses, params = _drift_run(make, state, batches, transform,
                                         torch.bfloat16, graphed=True)
-        counts = _all_counts()
+        counts = _read_counts(ALL_COUNTERS)
         expect = dict.fromkeys(counts, 0)
         expect.update({k: n * DRIFT_STEPS for k, n in per_step.items()})
         if counts != expect:
@@ -5943,7 +5904,7 @@ def gnn_variants_phase() -> dict:
                        skip=True).state_dict()
     _zero_counts()
     kern = _sgnn_run(graph, x, edges, csr, y, state)
-    counts = _read_counts(_csr_counters)
+    counts = _read_counts(CSR_COUNTERS)
     n_rel = len(graph.edges)
     into_artwork = sum(t == "artwork" for _, _, t in graph.edges)
     passes = GNN_VARIANT_STEPS + 1              # the steps and the warm-up
@@ -5956,7 +5917,7 @@ def gnn_variants_phase() -> dict:
                              f"expected {expect}")
     _zero_counts()
     plain = _sgnn_run(graph, x, edges, None, y, state)
-    if any(_read_counts(_csr_counters).values()):
+    if any(_read_counts(CSR_COUNTERS).values()):
         raise AssertionError("gnn variants: the index_add path launched a "
                              "CSR kernel")
     loss_rel = max(abs(a - b) / abs(b) for a, b in
@@ -6016,7 +5977,7 @@ def gnn_variants_phase() -> dict:
     _zero_counts()
     ms, (loss, outs) = _fwd_bwd_ms(mgnn)
     grads = _flat_grads(model)
-    if any(_read_counts(_csr_counters).values()) or not (
+    if any(_read_counts(CSR_COUNTERS).values()) or not (
             torch.isfinite(loss) and torch.isfinite(grads).all()
             and all(o[1][0]["artwork"].shape == (GNN_ARTWORKS, out_ch[t])
                     for t, o in zip(HeteroMGNN.TASKS, outs))):
@@ -6050,7 +6011,7 @@ def gnn_variants_phase() -> dict:
     _zero_counts()
     ms, (loss, emb, soft) = _fwd_bwd_ms(homo_step)
     row_sums = soft.float().exp().sum(1)
-    if any(_read_counts(_csr_counters).values()) or not (
+    if any(_read_counts(CSR_COUNTERS).values()) or not (
             torch.isfinite(loss) and torch.isfinite(_flat_grads(homo)).all()
             and emb.shape == (HOMO_NODES, 16) and soft.shape == (HOMO_NODES,
                                                                   300)
@@ -6078,14 +6039,6 @@ TP_LR = 0.01
 NB_EPOCHS = 2                   # (d): the notebook's epochs
 
 
-def _kernel_names() -> dict:
-    """`module.counter` (as dryrun_multichip returns them) -> kernel name."""
-    return {f"{mod.__name__}.{attr}": name
-            for counters in (_counters, _csr_counters, _conv_bn_counters,
-                             _bn_counters, _mha_counters)
-            for name, (mod, attr) in counters().items()}
-
-
 def _entry_run() -> dict:
     """(a): __graft_entry_torch__.entry() on the card at full width: warmed
     up, then ENTRY_CALLS forwards timed by CUDA events with the counters
@@ -6110,7 +6063,7 @@ def _entry_run() -> dict:
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
-    counts = {k: v for k, v in _all_counts().items() if v}
+    counts = {k: v for k, v in _read_counts(ALL_COUNTERS).items() if v}
     if counts != {"normalize_images": ENTRY_CALLS,
                   **{k: n * ENTRY_CALLS for k, n in RESNET_BN_EVAL.items()}}:
         raise AssertionError(f"last modules: entry(): launches {counts}")
@@ -6195,7 +6148,7 @@ def _tp_run(dtype: torch.dtype, gate: bool, mesh=None) -> dict:
             loss, _ = trainer.train_step(trainer.to_device(batch))
             losses.append(float(loss))
     torch.cuda.synchronize()
-    counts = {k: v for k, v in _all_counts().items() if v}
+    counts = {k: v for k, v in _read_counts(ALL_COUNTERS).items() if v}
     split = {n for n, m in model.named_modules()
              if isinstance(m, ColumnParallelLinear)}
     grads = {}
@@ -6310,11 +6263,9 @@ def _dryrun_on_card() -> dict:
     its own): the six dry runs, their launches by kernel."""
     import __graft_entry_torch__ as graft
 
-    names = _kernel_names()
     t0 = time.perf_counter()
-    counted = graft.dryrun_multichip(1)
+    counts = graft.dryrun_multichip(1)
     seconds = time.perf_counter() - t0
-    counts = {names[k]: v for k, v in counted.items()}
     missing = [k for k in ("fused_block_attention", "fused_block_attention_bwd",
                            "fused_block_mlp", "fused_block_mlp_bwd",
                            "normalize_images", "csr_segment_sum",
@@ -6377,7 +6328,7 @@ def _notebook_on_card(tmp: str) -> dict:
             exec(compile(cell, f"<notebook cell {i}>", "exec"), namespace)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: v for k, v in _all_counts().items() if v}
+    launches = {k: v for k, v in _read_counts(ALL_COUNTERS).items() if v}
     text = out.getvalue()
     for line in text.splitlines():
         print(f"last modules: notebook: {line}")
@@ -6423,7 +6374,7 @@ def swin_train_phase() -> dict:
     px, dropout 0.4, adam(3e-4), the 0.5/0.5 multi-task loss, batch 32,
     through the Trainer on cuda as train_new_multimodal_multitask
     --architecture swin builds it: TRAIN_WARMUP + TRAIN_STEPS steps, the
-    counters zeroed before the timed ones (SWIN_STEP_LAUNCHES a step, every
+    counters zeroed before the timed ones (SWIN_STEP_COUNTS a step, every
     other counter 0: no block through ViT's cores), losses finite and
     falling, img/s, peak memory and the profile (_train_run); then one
     profiled step's windowed kernels by name, SWIN_STEP_KERNELS exactly."""
@@ -6449,7 +6400,7 @@ def swin_train_phase() -> dict:
                           config.image_size("swin"))
     counts, _, _ = _train_run(
         "swin train: NewMultiModalMultiTaskSwin(128, style 32, genre 18) "
-        "Swin-B 384 px,", trainer, batch, SWIN_STEP_LAUNCHES)
+        "Swin-B 384 px,", trainer, batch, SWIN_STEP_COUNTS)
     seen = dict.fromkeys(SWIN_STEP_KERNELS, 0)
     for ev in _trace_events(
             lambda: trainer.train_step(trainer.to_device(batch)), 1):

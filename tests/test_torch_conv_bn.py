@@ -13,6 +13,8 @@ tests/test_conv_bn_kernel.py runs them.
     leaves undefined as zeros;
   * the weight-gradient split covers M in chunks of the GEMM's k step.
 """
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from artgraph_tpu.ops.conv_bn import conv1x1_bn_stats as jax_unit
-from artgraph_tpu_torch.ops import conv_bn
+from artgraph_tpu_torch.ops import conv_bn, launches
 
 torch.set_num_threads(2)
 
@@ -82,8 +84,7 @@ def test_plain_twins_match_jax_unit(prologue, dtype):
 
 @pytest.mark.parametrize("prologue", [False, True])
 def test_autograd_function_gives_plain_backward(prologue, monkeypatch):
-    monkeypatch.setattr(conv_bn, "LAUNCHES", 0)
-    monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
+    monkeypatch.setattr(launches, "COUNTS", collections.Counter())
     x, a, b, w, dy, ds1, ds2 = (torch.from_numpy(v) for v in
                                 unit_inputs(M, K, N, seed=2))
     x, a, b = (t.to(torch.bfloat16) for t in (x, a, b))
@@ -106,7 +107,8 @@ def test_autograd_function_gives_plain_backward(prologue, monkeypatch):
                                              zero, zero, prologue)
     for name, t, r in zip(("dx", "da", "db", "dw"), leaves, ref):
         torch.testing.assert_close(t.grad, r, rtol=0, atol=0, msg=name)
-    assert (conv_bn.LAUNCHES, conv_bn.LAUNCHES_BWD) == (0, 0)
+    assert (launches.COUNTS["conv1x1_bn_stats"],
+            launches.COUNTS["conv1x1_bn_stats_bwd"]) == (0, 0)
 
 
 @pytest.mark.parametrize("M,K,N", [(100352, 64, 64), (100352, 64, 256),

@@ -11,6 +11,8 @@ torch.autograd.grad) agree at rtol = atol = 1e-4, atol 1e-3 on the hub graph
 (the bound of tests/test_csr_segment.py:49): only the summation order
 differs. The metadata is compared exactly.
 """
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from artgraph_tpu.ops import csr_segment as J
-from artgraph_tpu_torch.ops import csr_segment as T
+from artgraph_tpu_torch.ops import csr_segment as T, launches
 
 E = 5000
 KINDS = ("uniform", "hub")
@@ -175,9 +177,7 @@ def test_attention_extreme_logit_spread_matches_jax(graphs, F):
 def test_cpu_tensors_take_the_plain_twins(graphs, monkeypatch):
     """On CPU tensors no kernel counter moves, and each op's forward equals
     its plain twin exactly."""
-    for name in ("LAUNCHES_SUM", "LAUNCHES_WEIGHTED", "LAUNCHES_SOFTMAX",
-                 "LAUNCHES_SCALAR"):
-        monkeypatch.setattr(T, name, 0)
+    monkeypatch.setattr(launches, "COUNTS", collections.Counter())
     _, et, n_src, _ = graphs["hub"]
     d, w = make_inputs(("rows", "edge"), 18, n_src, 0, seed=9)
     d, w = torch.from_numpy(d), torch.from_numpy(w)
@@ -192,8 +192,9 @@ def test_cpu_tensors_take_the_plain_twins(graphs, monkeypatch):
     assert bool((num[empty] == 0).all()) and bool((den[empty] == 0).all())
     T.csr_scalar_segment_sum(w, et.dst)
     T.csr_weighted_segment_sum(d, w, et.dst)
-    assert (T.LAUNCHES_SUM, T.LAUNCHES_WEIGHTED, T.LAUNCHES_SOFTMAX,
-            T.LAUNCHES_SCALAR) == (0, 0, 0, 0)
+    assert tuple(launches.COUNTS[k] for k in (
+        "csr_segment_sum", "csr_weighted_segment_sum",
+        "csr_attention_aggregate", "csr_scalar_segment_sum")) == (0, 0, 0, 0)
 
 
 def emulate_plan(csr, data: np.ndarray, logits: np.ndarray):

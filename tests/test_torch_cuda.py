@@ -29,20 +29,37 @@ The windowed block (Swin-B's four stage shapes at batch 32: N = 144, head dim
 32, the relative-position bias, the shift mask) at the block tolerances
 above, its f32 dBias as a parameter gradient, bit-identical on repeat.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
-                                    block_attention_plain, block_mlp_bwd_plain,
-                                    block_mlp_plain, conv_bn, csr_segment,
+                                    block_attention_plain, block_gemm,
+                                    block_mlp_bwd_plain, block_mlp_plain,
+                                    conv_bn, csr_segment,
                                     fused_block_attention, fused_block_mlp,
-                                    mlp, normalize_images,
-                                    normalize_images_plain, preprocess)
+                                    launches, mlp, normalize_images,
+                                    normalize_images_plain)
 
 GRAD_REL_L2 = 2e-2
 GRAD_MAX_REL = 0.1
 GRAD_NAMES = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+BN_COUNTERS = ("batchnorm_stats", "batchnorm_finish", "batchnorm_apply",
+               "batchnorm_colsum", "batchnorm_finish_bwd", "batchnorm_dx")
+
+
+def zeroed_counts(monkeypatch) -> collections.Counter:
+    """The launch counters (ops/launches.py), an empty table for the rest
+    of the test."""
+    table = collections.Counter()
+    monkeypatch.setattr(launches, "COUNTS", table)
+    return table
+
+
+def read(counts, *names) -> tuple:
+    return tuple(counts[k] for k in names)
 
 
 def block_inputs(B, N, C, dense_shapes, seed):
@@ -166,11 +183,11 @@ def test_cuda_layernorm_bwd_matches_plain(rows, cols):
     gamma = dev(1.0 + 0.1 * rng.normal(size=cols))
     dy = dev(rng.normal(size=(rows, cols)))
     dres = dev(rng.normal(size=(rows, cols)), torch.bfloat16)
-    ours = attention.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
-    again = attention.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+    ours = block_gemm.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
+    again = block_gemm.layernorm_bwd_cuda(x, gamma, dy, dres, 1e-6)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(ours, again))
-    ref = attention.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
+    ref = block_gemm.ln_bwd_plain(x, gamma, dy, dres, 1e-6)
     assert ours[0].dtype == torch.bfloat16
     torch.testing.assert_close(ours[0].float(), ref[0].float(), rtol=3e-2,
                                atol=3e-2)
@@ -190,7 +207,7 @@ def test_cuda_colsum_matches_plain(rows, cols):
     t = torch.from_numpy(np.random.default_rng(rows * cols).normal(
         0.1, 1.0, size=(rows, cols)).astype(np.float32)).to(
             "cuda", torch.bfloat16)
-    ours, again = attention.colsum_cuda(t), attention.colsum_cuda(t)
+    ours, again = block_gemm.colsum_cuda(t), block_gemm.colsum_cuda(t)
     torch.cuda.synchronize()
     assert torch.equal(ours, again)
     assert ours.dtype == torch.float32 and ours.shape == (cols,)
@@ -205,15 +222,15 @@ def test_cuda_norm_kernels_raise_on_widths_they_do_not_take():
     z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt,
                                                       device="cuda")
     with pytest.raises(ValueError, match="at most 1024"):
-        attention.layernorm_bwd_cuda(z(4, 1032), z(1032, dt=torch.float32),
-                                     z(4, 1032, dt=torch.float32),
-                                     z(4, 1032), 1e-6)
+        block_gemm.layernorm_bwd_cuda(z(4, 1032), z(1032, dt=torch.float32),
+                                      z(4, 1032, dt=torch.float32),
+                                      z(4, 1032), 1e-6)
     with pytest.raises(ValueError, match="multiple of 8"):
-        attention.layernorm_bwd_cuda(z(4, 68), z(68, dt=torch.float32),
-                                     z(4, 68, dt=torch.float32), z(4, 68),
-                                     1e-6)
+        block_gemm.layernorm_bwd_cuda(z(4, 68), z(68, dt=torch.float32),
+                                      z(4, 68, dt=torch.float32), z(4, 68),
+                                      1e-6)
     with pytest.raises(ValueError, match="multiple of 8"):
-        attention.colsum_cuda(z(4, 68))
+        block_gemm.colsum_cuda(z(4, 68))
     torch.cuda.synchronize()
 
 
@@ -222,8 +239,7 @@ def test_cuda_backward_reaches_every_block_parameter(monkeypatch):
     """backward() through both block ops on cuda: each parameter gets a
     finite f32 gradient from the backward kernels, x a bf16 one."""
     _need_cuda()
-    for mod in (attention, mlp):
-        monkeypatch.setattr(mod, "LAUNCHES_BWD", 0)
+    counts = zeroed_counts(monkeypatch)
     C, H = 128, 2
     x, gamma, beta, lin = block_inputs(2, 17, C, ((C, 3 * C), (C, C)), seed=3)
     tx, ap = torch_args(x, gamma, beta, lin, torch.bfloat16)
@@ -235,7 +251,8 @@ def test_cuda_backward_reaches_every_block_parameter(monkeypatch):
     out = fused_block_mlp(fused_block_attention(tx, *ap, H), *mp)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert (attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD) == (1, 1)
+    assert read(counts, "fused_block_attention_bwd",
+                "fused_block_mlp_bwd") == (1, 1)
     assert tx.grad.dtype == torch.bfloat16
     for p in (*ap, *mp):
         assert p.grad is not None and p.grad.dtype == torch.float32
@@ -270,8 +287,7 @@ def test_cuda_normalize_bit_exact_with_a_tail(shape, transform):
 @pytest.mark.cuda
 def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
     _need_cuda()
-    for mod in (attention, mlp, preprocess):
-        monkeypatch.setattr(mod, "LAUNCHES", 0)
+    counts = zeroed_counts(monkeypatch)
     C = 128
     x, gamma, beta, lin = block_inputs(2, 9, C, ((C, 3 * C), (C, C)), seed=0)
     tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
@@ -280,7 +296,8 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
     normalize_images(torch.zeros((1, 8, 8, 3), dtype=torch.uint8,
                                  device="cuda"), "vit")
     torch.cuda.synchronize()
-    assert (attention.LAUNCHES, mlp.LAUNCHES, preprocess.LAUNCHES) == (1, 0, 1)
+    assert read(counts, "fused_block_attention", "fused_block_mlp",
+                "normalize_images") == (1, 0, 1)
 
     with pytest.raises(TypeError):          # x must be bf16
         fused_block_attention(tx.float(), *params, 2)
@@ -297,32 +314,34 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(monkeypatch):
             fused_block_attention(tx, *params, 2, **extra)
     with pytest.raises(TypeError):          # images must be uint8
         normalize_images(torch.zeros((1, 8, 8, 3), device="cuda"), "vit")
-    assert (attention.LAUNCHES, preprocess.LAUNCHES) == (1, 1)
+    assert read(counts, "fused_block_attention",
+                "normalize_images") == (1, 1)
 
     # the block GEMM refuses, before any launch, what its TMA loads and
     # 16-byte stores cannot take: rows not a multiple of 8 elements
     bf = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16,
                                     device="cuda")
     bias = torch.zeros(64, device="cuda")
+    G = block_gemm
     for a, b, layout, epi in (
-            (bf(16, 36), bf(64, 36), attention.LAYOUT_NT, attention.EPI_BIAS),
-            (bf(16, 32), bf(60, 32), attention.LAYOUT_NT, attention.EPI_BIAS),
-            (bf(16, 36), bf(36, 64), attention.LAYOUT_NN, attention.EPI_NONE),
-            (bf(16, 32), bf(32, 60), attention.LAYOUT_NN, attention.EPI_F32),
-            (bf(40, 12), bf(40, 64), attention.LAYOUT_TN, attention.EPI_F32),
-            (bf(40, 16), bf(40, 20), attention.LAYOUT_TN, attention.EPI_F32)):
+            (bf(16, 36), bf(64, 36), G.LAYOUT_NT, G.EPI_BIAS),
+            (bf(16, 32), bf(60, 32), G.LAYOUT_NT, G.EPI_BIAS),
+            (bf(16, 36), bf(36, 64), G.LAYOUT_NN, G.EPI_NONE),
+            (bf(16, 32), bf(32, 60), G.LAYOUT_NN, G.EPI_F32),
+            (bf(40, 12), bf(40, 64), G.LAYOUT_TN, G.EPI_F32),
+            (bf(40, 16), bf(40, 20), G.LAYOUT_TN, G.EPI_F32)):
         with pytest.raises(ValueError, match="not a shape the kernel takes"):
-            attention.gemm_cuda(a, b, layout, epi, bias=bias[:b.shape[0]])
+            G.gemm_cuda(a, b, layout, epi, bias=bias[:b.shape[0]])
     torch.cuda.synchronize()
 
 
 # every (layout, epilogue) pair csrc/block_gemm.cu builds
-GEMM_PAIRS = ([(attention.LAYOUT_NT, e) for e in (
-    attention.EPI_BIAS, attention.EPI_BIAS_GELU, attention.EPI_BIAS_RESIDUAL,
-    attention.EPI_BIAS_GELU_AUX)]
-    + [(attention.LAYOUT_NN, e) for e in (
-        attention.EPI_NONE, attention.EPI_F32, attention.EPI_DGELU)]
-    + [(attention.LAYOUT_TN, attention.EPI_F32)])
+GEMM_PAIRS = ([(block_gemm.LAYOUT_NT, e) for e in (
+    block_gemm.EPI_BIAS, block_gemm.EPI_BIAS_GELU,
+    block_gemm.EPI_BIAS_RESIDUAL, block_gemm.EPI_BIAS_GELU_AUX)]
+    + [(block_gemm.LAYOUT_NN, e) for e in (
+        block_gemm.EPI_NONE, block_gemm.EPI_F32, block_gemm.EPI_DGELU)]
+    + [(block_gemm.LAYOUT_TN, block_gemm.EPI_F32)])
 
 
 @pytest.mark.cuda
@@ -336,7 +355,7 @@ def test_cuda_gemm_matches_plain(layout, epilogue, size):
     number of k-steps, split in chunks); bf16 at rtol = atol = 3e-2, f32
     at relative L2 <= GRAD_REL_L2; bit-identical on repeat."""
     _need_cuda()
-    A = attention
+    A = block_gemm
     if layout == A.LAYOUT_TN:
         M, N, K = (768, 2304, 6304) if size == "vit" else (2304, 768, 1000)
     else:
@@ -392,9 +411,7 @@ def test_cuda_csr_kernels_match_plain(F, monkeypatch):
     rtol = 1e-4, atol = 1e-3 (the hub bound of tests/test_csr_segment.py),
     bit-identical from call to call, one launch per call."""
     _need_cuda()
-    for name in ("LAUNCHES_SUM", "LAUNCHES_WEIGHTED", "LAUNCHES_SOFTMAX",
-                 "LAUNCHES_SCALAR"):
-        monkeypatch.setattr(csr_segment, name, 0)
+    counts = zeroed_counts(monkeypatch)
     csr, data, w, logits = csr_case(100, F, seed=F)
     T = csr_segment
     cases = ((T.segment_sum_cuda, T.segment_sum_plain, (data,)),
@@ -413,8 +430,9 @@ def test_cuda_csr_kernels_match_plain(F, monkeypatch):
         for a, b, r in zip(ours, again, ref):
             assert torch.equal(a, b), kernel.__name__
             torch.testing.assert_close(a.double(), r, rtol=1e-4, atol=1e-3)
-    assert (T.LAUNCHES_SUM, T.LAUNCHES_WEIGHTED, T.LAUNCHES_SOFTMAX,
-            T.LAUNCHES_SCALAR) == (2, 2, 2, 2)
+    assert read(counts, "csr_segment_sum", "csr_weighted_segment_sum",
+                "csr_attention_aggregate",
+                "csr_scalar_segment_sum") == (2, 2, 2, 2)
     with pytest.raises(TypeError):          # rows must be f32
         T.segment_sum_cuda(data.double(), csr)
     with pytest.raises(ValueError):         # metadata on another device
@@ -429,7 +447,7 @@ def test_cuda_scalar_sum_at_the_benchmark_shapes(S, monkeypatch):
     each: 4 lanes a chunk): within rtol = 1e-4, atol = 1e-3 of the f64
     plain twin, bit-identical on repeat, one launch counted per call."""
     _need_cuda()
-    monkeypatch.setattr(csr_segment, "LAUNCHES_SCALAR", 0)
+    counts = zeroed_counts(monkeypatch)
     rng = np.random.default_rng(S)
     E = 1_000_000
     csr = csr_segment._csr_from_sorted(np.sort(rng.integers(0, S, E)), S,
@@ -443,7 +461,7 @@ def test_cuda_scalar_sum_at_the_benchmark_shapes(S, monkeypatch):
     torch.testing.assert_close(
         ours.double(), csr_segment.scalar_segment_sum_plain(w.double(), csr),
         rtol=1e-4, atol=1e-3)
-    assert csr_segment.LAUNCHES_SCALAR == 2
+    assert counts["csr_scalar_segment_sum"] == 2
 
 
 @pytest.mark.cuda
@@ -485,8 +503,7 @@ def test_cuda_conv_bn_unit_matches_plain(M, K, N, prologue, monkeypatch):
     the weight gradient's rows, (1568, 512, 1024) the input gradient's N
     (52 tiles); bit-identical on repeat; one launch a call."""
     _need_cuda()
-    monkeypatch.setattr(conv_bn, "LAUNCHES", 0)
-    monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
+    counts = zeroed_counts(monkeypatch)
     rng = np.random.default_rng(M + K + N)
     dev = lambda a, dt=torch.float32: torch.from_numpy(
         np.asarray(a, np.float32)).to("cuda", dt)
@@ -505,7 +522,8 @@ def test_cuda_conv_bn_unit_matches_plain(M, K, N, prologue, monkeypatch):
                                              ds2, prologue)
            for _ in range(2)]
     torch.cuda.synchronize()
-    assert (conv_bn.LAUNCHES, conv_bn.LAUNCHES_BWD) == (1, 1)
+    assert read(counts, "conv1x1_bn_stats",
+                "conv1x1_bn_stats_bwd") == (1, 1)
     for t, g in zip(leaves, bwd[0]):
         assert torch.equal(t.grad, g)
     ref = conv_bn.conv1x1_bn_stats_plain(x, a, b, w, prologue)
@@ -553,9 +571,7 @@ def test_cuda_attention_kernels_match_plain(N, scale, monkeypatch):
     their plain twins, q/k/v strided views of one qkv tensor (never copied),
     bit-identical on repeat; the autograd ops count one launch a call."""
     _need_cuda()
-    for name in ("LAUNCHES_ATTENTION", "LAUNCHES_ATTENTION_BWD",
-                 "LAUNCHES_QKV", "LAUNCHES_QKV_BWD"):
-        monkeypatch.setattr(attention, name, 0)
+    counts = zeroed_counts(monkeypatch)
     B, H = 3, 2
     C = 64 * H
     qkv, do, x, w, b = attention_case(B, N, H, seed=N)
@@ -602,8 +618,9 @@ def test_cuda_attention_kernels_match_plain(N, scale, monkeypatch):
     assert torch.equal(leaf.grad, torch.stack(bwd[0], 2))
     for t, g in zip((xl, wl, bl), qbwd[0]):
         assert torch.equal(t.grad, g)
-    assert (attention.LAUNCHES_ATTENTION, attention.LAUNCHES_ATTENTION_BWD,
-            attention.LAUNCHES_QKV, attention.LAUNCHES_QKV_BWD) == (1, 1, 1, 1)
+    assert read(counts, "fused_attention", "fused_attention_bwd",
+                "fused_qkv_attention",
+                "fused_qkv_attention_bwd") == (1, 1, 1, 1)
 
 
 @pytest.mark.cuda
@@ -656,9 +673,7 @@ def test_cuda_attention_modules_reach_every_parameter(monkeypatch):
         for name, p in mod.named_parameters():
             assert p.grad is not None and p.grad.dtype == torch.float32, name
             assert torch.isfinite(p.grad).all(), name
-    for mod in (attention, mlp):
-        for name in ("LAUNCHES", "LAUNCHES_BWD"):
-            monkeypatch.setattr(mod, name, 0)
+    counts = zeroed_counts(monkeypatch)
     vit = init_random_(ViT(img_size=32, patch_size=16, embed_dim=128,
                            depth=2, num_heads=2, fuse_qkv=False), gen).cuda()
     vit(torch.randn(2, 32, 32, 3, generator=gen).cuda()).square().sum() \
@@ -667,8 +682,8 @@ def test_cuda_attention_modules_reach_every_parameter(monkeypatch):
     for name, p in vit.named_parameters():
         assert p.grad is not None and p.grad.dtype == torch.float32, name
         assert torch.isfinite(p.grad).all(), name
-    assert (attention.LAUNCHES, attention.LAUNCHES_BWD, mlp.LAUNCHES,
-            mlp.LAUNCHES_BWD) == (0, 0, 0, 0)
+    assert read(counts, "fused_block_attention", "fused_block_attention_bwd",
+                "fused_block_mlp", "fused_block_mlp_bwd") == (0, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -704,14 +719,12 @@ def test_cuda_fusion_training_step_launches_the_block_kernels(monkeypatch):
              rng.normal(size=(4, 128)).astype(np.float32),
              np.stack([rng.integers(0, 32, 4), rng.integers(0, 18, 4)], 1)
              .astype(np.int32), np.ones(4, np.float32))
-    for mod in (attention, mlp, preprocess):
-        monkeypatch.setattr(mod, "LAUNCHES", 0)
-    for mod in (attention, mlp):
-        monkeypatch.setattr(mod, "LAUNCHES_BWD", 0)
+    counts = zeroed_counts(monkeypatch)
     m = trainer.train_epoch([batch])
     torch.cuda.synchronize()
-    assert (preprocess.LAUNCHES, attention.LAUNCHES, mlp.LAUNCHES,
-            attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD) == (1, 2, 2, 2, 2)
+    assert read(counts, "normalize_images", "fused_block_attention",
+                "fused_block_mlp", "fused_block_attention_bwd",
+                "fused_block_mlp_bwd") == (1, 2, 2, 2, 2)
     assert np.isfinite(m["loss"]) and set(m) >= {"style_correct",
                                                  "genre_correct"}
     for n, p in model.named_parameters():
@@ -808,16 +821,12 @@ def test_cuda_swin_fusion_training_step_launches_the_window_kernels(
              rng.normal(size=(4, 128)).astype(np.float32),
              np.stack([rng.integers(0, 32, 4), rng.integers(0, 18, 4)], 1)
              .astype(np.int32), np.ones(4, np.float32))
-    for name in ("LAUNCHES", "LAUNCHES_BWD", "LAUNCHES_WINDOW",
-                 "LAUNCHES_WINDOW_BWD"):
-        monkeypatch.setattr(attention, name, 0)
-    for name in ("LAUNCHES", "LAUNCHES_BWD"):
-        monkeypatch.setattr(mlp, name, 0)
+    counts = zeroed_counts(monkeypatch)
     m = trainer.train_epoch([batch])
     torch.cuda.synchronize()
-    assert (attention.LAUNCHES, attention.LAUNCHES_BWD,
-            attention.LAUNCHES_WINDOW, attention.LAUNCHES_WINDOW_BWD,
-            mlp.LAUNCHES, mlp.LAUNCHES_BWD) == (0, 0, 4, 4, 4, 4)
+    assert read(counts, "fused_block_attention", "fused_block_attention_bwd",
+                "window_attention_core", "window_attention_core_bwd",
+                "fused_block_mlp", "fused_block_mlp_bwd") == (0, 0, 4, 4, 4, 4)
     assert np.isfinite(m["loss"])
     for n, p in model.named_parameters():
         if n.startswith("swin.head."):        # timm's head, never called
@@ -875,14 +884,12 @@ def test_cuda_context_training_step_matches_the_plain_path(monkeypatch):
             return train_loss(outputs, b)
 
         trainer = Trainer(model, adam(3e-4), compute, device="cuda")
-        for mod in (conv_bn, preprocess):
-            monkeypatch.setattr(mod, "LAUNCHES", 0)
-        monkeypatch.setattr(conv_bn, "LAUNCHES_BWD", 0)
+        counts = zeroed_counts(monkeypatch)
         loss, _ = trainer.train_step(trainer.to_device(batch))
         torch.cuda.synchronize()
         units = 2 * len(stages) if gate else 0
-        assert (conv_bn.LAUNCHES, conv_bn.LAUNCHES_BWD, preprocess.LAUNCHES) \
-            == (units, units, 1), gate
+        assert read(counts, "conv1x1_bn_stats", "conv1x1_bn_stats_bwd",
+                    "normalize_images") == (units, units, 1), gate
         assert torch.isfinite(loss)
         for n, p in model.named_parameters():
             assert torch.isfinite(p).all() and not torch.equal(
@@ -984,9 +991,7 @@ def test_cuda_batchnorm_kernels_match_plain(B, H, W, C, branches, identity,
     from artgraph_tpu_torch.ops import batchnorm as T
 
     _need_cuda()
-    for name in ("LAUNCHES_STATS", "LAUNCHES_FINISH", "LAUNCHES_APPLY",
-                 "LAUNCHES_COLSUM", "LAUNCHES_FINISH_BWD", "LAUNCHES_DX"):
-        monkeypatch.setattr(T, name, 0)
+    counts = zeroed_counts(monkeypatch)
     rng = np.random.default_rng(B * H + C)
     M = B * H * W
     dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
@@ -1048,8 +1053,7 @@ def test_cuda_batchnorm_kernels_match_plain(B, H, W, C, branches, identity,
     if identity:
         assert torch.equal(did, ref_did), "identity gradient"
     torch.cuda.synchronize()
-    assert (T.LAUNCHES_STATS, T.LAUNCHES_FINISH, T.LAUNCHES_APPLY,
-            T.LAUNCHES_COLSUM, T.LAUNCHES_FINISH_BWD, T.LAUNCHES_DX) == (
+    assert read(counts, *BN_COUNTERS) == (
         2 * branches, 2 * branches, 1, 2, branches, 1)
     with pytest.raises(ValueError):          # not channels-last NCHW
         T.batch_norm(bns[0], xs[0].view(B, H, W, C).permute(0, 3, 1, 2)
@@ -1080,7 +1084,6 @@ def test_cuda_graphed_resnet_fusion_step_launches_the_batchnorm_kernels(
     from artgraph_tpu_torch.cli.train_new_multimodal_multitask import \
         image_and_embeddings
     from artgraph_tpu_torch.models import heads, init_random_
-    from artgraph_tpu_torch.ops import batchnorm, launches
     from artgraph_tpu_torch.train import Trainer, adam
 
     _need_cuda()
@@ -1101,9 +1104,6 @@ def test_cuda_graphed_resnet_fusion_step_launches_the_batchnorm_kernels(
                        transform_type="resnet", device="cuda",
                        forward_inputs=image_and_embeddings)
 
-    names = ("LAUNCHES_STATS", "LAUNCHES_FINISH", "LAUNCHES_APPLY",
-             "LAUNCHES_COLSUM", "LAUNCHES_FINISH_BWD", "LAUNCHES_DX")
-    key = lambda name: ("artgraph_tpu_torch.ops.batchnorm", name)
     runs = {}
     for gate, per_step in ((True, (21, 53, 33, 33, 53, 49)),
                            (False, (53, 53, 49, 49, 53, 49))):
@@ -1117,14 +1117,14 @@ def test_cuda_graphed_resnet_fusion_step_launches_the_batchnorm_kernels(
         counts = launches.since(before)
         torch.cuda.synchronize()
         assert len(t.graphs) == 1
-        assert tuple(counts.get(key(n), 0) for n in names) == tuple(
+        assert tuple(counts.get(n, 0) for n in BN_COUNTERS) == tuple(
             3 * k for k in per_step), gate
         runs[gate] = (metrics, t)
     before = launches.snapshot()
     runs[True][1].eval_epoch(batches[:1])
     counts = launches.since(before)
-    assert tuple(counts.get(key(n), 0) for n in names) == (0, 53, 49, 0, 0,
-                                                           0)
+    assert tuple(counts.get(n, 0) for n in BN_COUNTERS) == (0, 53, 49, 0,
+                                                            0, 0)
     monkeypatch.setenv("ARTGRAPH_CONVBN", "1")
     again = trainer()
     assert again.train_epoch(batches) == runs[True][0]
@@ -1132,7 +1132,7 @@ def test_cuda_graphed_resnet_fusion_step_launches_the_batchnorm_kernels(
     for (name, p), q in zip(again.model.state_dict().items(),
                             runs[True][1].model.state_dict().values()):
         assert torch.equal(p, q), name
-    assert batchnorm.LAUNCHES_APPLY > 0
+    assert launches.COUNTS["batchnorm_apply"] > 0
 
 
 class _TwoRanks(torch.autograd.Function):
@@ -1221,7 +1221,7 @@ def test_cuda_resnet_eval_forward_takes_the_batchnorm_kernels(monkeypatch):
     16 bn1, 16 bn2, 16 tails) and no other BatchNorm kernel; the pooled
     feature bit-identical to the plain path's (no sum differs in eval)."""
     from artgraph_tpu_torch.models import ResNet50
-    from artgraph_tpu_torch.ops import batchnorm, launches
+    from artgraph_tpu_torch.ops import batchnorm
 
     _need_cuda()
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
@@ -1240,9 +1240,7 @@ def test_cuda_resnet_eval_forward_takes_the_batchnorm_kernels(monkeypatch):
         m.setattr(batchnorm, "takes", lambda t: False)
         y_plain = trunk(x)
     torch.cuda.synchronize()
-    assert counts == {("artgraph_tpu_torch.ops.batchnorm", "LAUNCHES_FINISH"):
-                      53, ("artgraph_tpu_torch.ops.batchnorm",
-                           "LAUNCHES_APPLY"): 49}
+    assert counts == {"batchnorm_finish": 53, "batchnorm_apply": 49}
     assert torch.equal(y, y_plain)
 
 
@@ -1259,7 +1257,7 @@ def test_cuda_batchnorm_kernels_take_a_saved_checkpoint(tmp_path,
     from artgraph_tpu_torch.checkpointing.torch_interop import (
         load_reference_checkpoint, save_reference_checkpoint)
     from artgraph_tpu_torch.models import heads, init_random_
-    from artgraph_tpu_torch.ops import batchnorm, launches
+    from artgraph_tpu_torch.ops import batchnorm
 
     _need_cuda()
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
@@ -1269,7 +1267,6 @@ def test_cuda_batchnorm_kernels_take_a_saved_checkpoint(tmp_path,
                               path)
     x = torch.from_numpy(np.random.default_rng(10).normal(
         size=(4, 64, 64, 3)).astype(np.float32)).cuda()
-    key = lambda name: ("artgraph_tpu_torch.ops.batchnorm", name)
     plain = lambda m: m.setattr(batchnorm, "takes", lambda t: False)
     outs = {}
     for kernels in (True, False):
@@ -1295,11 +1292,9 @@ def test_cuda_batchnorm_kernels_take_a_saved_checkpoint(tmp_path,
         outs[True], outs[False]
     assert torch.equal(y, y_p)
     assert nbt_k == nbt_p == [1.0] * len(nbt_k)
-    assert eval_k == {key("LAUNCHES_FINISH"): 53, key("LAUNCHES_APPLY"): 49}
-    assert train_k[key("LAUNCHES_FINISH")] == 53 and train_k[
-        key("LAUNCHES_DX")] == 49
-    assert not any(k[0] == key("LAUNCHES_APPLY")[0] for k in {**eval_p,
-                                                             **train_p})
+    assert eval_k == {"batchnorm_finish": 53, "batchnorm_apply": 49}
+    assert train_k["batchnorm_finish"] == 53 and train_k["batchnorm_dx"] == 49
+    assert not any(k.startswith("batchnorm_") for k in {**eval_p, **train_p})
     cast = _bn_module(64, 0).bfloat16()
     before = launches.snapshot()
     with pytest.raises(ValueError, match="weight must be"):

@@ -1,6 +1,6 @@
 """The CUDA attention cores' own source, run on the CPU.
 
-artgraph_tpu_torch/ops/attention_emulation.py compiles ops/csrc/
+artgraph_tpu_torch/ops/emulation.py compiles ops/csrc/
 block_attention.cu and block_attention_bwd.cu with g++ as host code, with
 warp-cooperative host versions of cp.async, ldmatrix and mma.sync, and runs
 each block as one host thread per CUDA thread. Here the kernels' four paths
@@ -26,20 +26,20 @@ import shutil
 import pytest
 import torch
 
-from artgraph_tpu_torch.ops import attention_emulation
+from artgraph_tpu_torch.ops import emulation
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation of the kernels")
-    return attention_emulation.build(tmp_path_factory.mktemp("emulate"))
+    return emulation.build(tmp_path_factory.mktemp("emulate"))
 
 
 @pytest.mark.parametrize("B,N,H", [(1, 17, 1), (1, 64, 1), (1, 65, 2),
                                    (2, 150, 1)])
 def test_emulated_attention_kernels_match_plain(emulated, B, N, H):
-    assert attention_emulation.check(emulated, B, N, H) <= 1.0
+    assert emulation.check(emulated, B, N, H) <= 1.0
 
 
 # (B, N, H, nW, bias, mask) at 2 windows a run, each with the id its tuple
@@ -57,7 +57,7 @@ WINDOW_CASES = [(3, 144, 1, 3, True, True), (3, 144, 1, 1, False, False),
     pytest.param(2, 160, 1, 2, True, True, 2, id="2-160-1-2-True-True")])
 def test_emulated_window_cores_match_plain(emulated, B, N, H, nW, bias,
                                            mask, per_run):
-    assert attention_emulation.check_window(emulated, B, N, H, nW, bias,
+    assert emulation.check_window(emulated, B, N, H, nW, bias,
                                             mask, per_run) <= 1.0
 
 
@@ -88,8 +88,8 @@ def test_emulated_d64_cores_are_vits_unchanged(emulated):
     the bits they gave before (VIT_DIGESTS), and still match their twins."""
     B, N, H = 2, 65, 2
     C, scale = 64 * H, 64 ** -0.5
-    assert attention_emulation.check(emulated, B, N, H) <= 1.0
-    qkv, do, _, _ = attention_emulation.window_inputs(B, N, H, 64, 1, False,
+    assert emulation.check(emulated, B, N, H) <= 1.0
+    qkv, do, _, _ = emulation.window_inputs(B, N, H, 64, 1, False,
                                                       False)
     packed, dout = qkv.reshape(B * N, 3 * C), do.reshape(B * N, C)
     base = packed.data_ptr()

@@ -1,6 +1,6 @@
 """The CUDA BatchNorm chain's own source, run on the CPU.
 
-artgraph_tpu_torch/ops/attention_emulation.py compiles
+artgraph_tpu_torch/ops/emulation.py compiles
 ops/csrc/batchnorm.cu with g++ as host code and runs each block as 256 (the
 streaming kernels) or 512 (the finishing) host threads. Here its six entry
 points, with the checks, grids and kernels that `ag_bn_*` launch, run
@@ -21,14 +21,14 @@ import shutil
 
 import pytest
 
-from artgraph_tpu_torch.ops import attention_emulation
+from artgraph_tpu_torch.ops import emulation
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation of the kernels")
-    return attention_emulation.build(tmp_path_factory.mktemp("emulate"))
+    return emulation.build(tmp_path_factory.mktemp("emulate"))
 
 
 @pytest.mark.parametrize("M,C,branches,identity", [
@@ -36,5 +36,5 @@ def emulated(tmp_path_factory):
     (130, 2048, 2, False), (130, 2048, 1, True)])
 def test_emulated_batchnorm_kernels_match_plain(emulated, M, C, branches,
                                                 identity):
-    assert attention_emulation.check_batchnorm(emulated, M, C, branches,
+    assert emulation.check_batchnorm(emulated, M, C, branches,
                                                identity) <= 1.0

@@ -1,6 +1,6 @@
 """The CUDA conv + BN-statistics unit's own source, run on the CPU.
 
-artgraph_tpu_torch/ops/attention_emulation.py compiles ops/csrc/conv_bn.cu
+artgraph_tpu_torch/ops/emulation.py compiles ops/csrc/conv_bn.cu
 (its three products on the cp.async ring with ldmatrix and mma.sync, and the
 fixed-order sums of sum_groups.cuh) with g++ as host code, with
 warp-cooperative host versions of the PTX helpers, and runs each block as
@@ -18,14 +18,14 @@ import shutil
 
 import pytest
 
-from artgraph_tpu_torch.ops import attention_emulation
+from artgraph_tpu_torch.ops import emulation
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation of the kernels")
-    return attention_emulation.build(tmp_path_factory.mktemp("emulate"))
+    return emulation.build(tmp_path_factory.mktemp("emulate"))
 
 
 @pytest.mark.parametrize("prologue", [True, False])
@@ -34,5 +34,5 @@ def emulated(tmp_path_factory):
                                                   (200, 96, 96, None, 64)])
 def test_emulated_conv_bn_kernels_match_plain(emulated, M, K, N, chunk,
                                               dz_chunk, prologue):
-    assert attention_emulation.check_conv_bn(emulated, M, K, N, prologue,
+    assert emulation.check_conv_bn(emulated, M, K, N, prologue,
                                              chunk, dz_chunk) <= 1.0

@@ -1,6 +1,6 @@
 """The CUDA CSR scalar sum's own source, run on the CPU.
 
-artgraph_tpu_torch/ops/attention_emulation.py compiles ops/csrc/csr_segment.cu
+artgraph_tpu_torch/ops/emulation.py compiles ops/csrc/csr_segment.cu
 with g++ as host code and runs each block as one host thread per CUDA
 thread. Here the two passes of
 `ag_csr_scalar_sum_f32` over a CSR's chunk plan (scalar_sequence: a group
@@ -19,7 +19,7 @@ import shutil
 import numpy as np
 import pytest
 
-from artgraph_tpu_torch.ops import attention_emulation, csr_segment
+from artgraph_tpu_torch.ops import emulation, csr_segment
 
 MIXED = [0, 1, 255, 256, 257, 31250, 0, 55556, 3]
 
@@ -28,7 +28,7 @@ MIXED = [0, 1, 255, 256, 257, 31250, 0, 55556, 3]
 def emulated(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation of the kernels")
-    return attention_emulation.build(tmp_path_factory.mktemp("emulate"))
+    return emulation.build(tmp_path_factory.mktemp("emulate"))
 
 
 @pytest.mark.parametrize("counts", [[0], [1], [255], [256], [257], [31250],
@@ -39,13 +39,13 @@ def emulated(tmp_path_factory):
                               "55556", "mixed", "all-empty", "none",
                               "short"])
 def test_emulated_scalar_sum_matches_plain(emulated, counts):
-    assert attention_emulation.check_csr_scalar(emulated, counts) <= 1.0
+    assert emulation.check_csr_scalar(emulated, counts) <= 1.0
 
 
 @pytest.mark.parametrize("lanes", csr_segment.SCALAR_LANES)
 def test_emulated_scalar_sum_at_every_width(emulated, lanes):
     """Every group width covers every edge of every chunk, the hubs' too."""
-    assert attention_emulation.check_csr_scalar(emulated, MIXED,
+    assert emulation.check_csr_scalar(emulated, MIXED,
                                                 lanes) <= 1.0
 
 
@@ -57,7 +57,7 @@ def test_scalar_lanes_follow_the_shape(counts, lanes):
     """4 lanes a chunk where the chunks average at most 32 edges, 16 up to
     128, else 32 (one round of 8 loads a lane covers the mean chunk); the
     same on every build of the same shape."""
-    csr = attention_emulation.csr_from_counts(counts)
+    csr = emulation.csr_from_counts(counts)
     assert csr.scalar_lanes == lanes
     assert csr.scalar_lanes == csr_segment.scalar_lanes(csr.num_edges,
                                                         csr.num_chunks)

@@ -93,12 +93,12 @@ def test_entry_cpu_matches_jax_entry():
 def test_entry_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    from artgraph_tpu_torch.ops import normalize_images_plain, preprocess
+    from artgraph_tpu_torch.ops import launches, normalize_images_plain
 
     forward, args = graft.entry()
-    before = preprocess.LAUNCHES
+    before = launches.COUNTS["normalize_images"]
     logits = forward(*args)
-    assert preprocess.LAUNCHES == before + 1
+    assert launches.COUNTS["normalize_images"] == before + 1
     model, images_u8, emb_s, emb_g = args
     with torch.no_grad():
         plain = model(normalize_images_plain(images_u8, "resnet"), emb_s,

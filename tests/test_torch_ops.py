@@ -15,6 +15,8 @@ inputs:
 tests/test_torch_cuda.py holds each CUDA kernel against its plain version
 on the card.
 """
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,9 +26,9 @@ from artgraph_tpu.ops.attention import fused_block_attention as jax_block_attn
 from artgraph_tpu.ops.mlp import fused_block_mlp as jax_block_mlp
 from artgraph_tpu.ops.preprocess import (normalize_images as jax_normalize,
                                          normalize_images_pallas)
-from artgraph_tpu_torch.ops import (_build, attention, fused_block_attention,
-                                    fused_block_mlp, mlp, normalize_images,
-                                    preprocess)
+from artgraph_tpu_torch.ops import (_build, fused_block_attention,
+                                    fused_block_mlp, launches,
+                                    normalize_images)
 from test_torch_cuda import block_inputs, torch_args
 
 torch.set_num_threads(2)
@@ -86,8 +88,7 @@ def test_block_mlp_matches_pallas(N, dtype):
 
 
 def test_cpu_calls_launch_no_kernel(monkeypatch):
-    for mod in (attention, mlp, preprocess):
-        monkeypatch.setattr(mod, "LAUNCHES", 0)
+    monkeypatch.setattr(launches, "COUNTS", collections.Counter())
     x, gamma, beta, lin = block_inputs(1, 5, 64, ((64, 192), (64, 64)),
                                         seed=0)
     tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
@@ -96,7 +97,9 @@ def test_cpu_calls_launch_no_kernel(monkeypatch):
     tx, params = torch_args(x, gamma, beta, lin, torch.bfloat16)
     fused_block_mlp(tx, *params)
     normalize_images(torch.zeros((1, 4, 4, 3), dtype=torch.uint8), "vit")
-    assert (attention.LAUNCHES, mlp.LAUNCHES, preprocess.LAUNCHES) == (0, 0, 0)
+    assert tuple(launches.COUNTS[k] for k in (
+        "fused_block_attention", "fused_block_mlp",
+        "normalize_images")) == (0, 0, 0)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

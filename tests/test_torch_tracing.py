@@ -35,7 +35,7 @@ from artgraph_tpu_torch.cli.predict import infer
 from artgraph_tpu_torch.data.loader import DataLoader
 from artgraph_tpu_torch.data.resident import ResidentLoader
 from artgraph_tpu_torch.models import ViT, heads
-from artgraph_tpu_torch.ops.attention import cast_weight
+from artgraph_tpu_torch.ops.block_gemm import cast_weight
 from artgraph_tpu_torch.train import Trainer, adam
 
 TINY_VIT = dict(img_size=32, patch_size=16, embed_dim=128, depth=1,

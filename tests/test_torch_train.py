@@ -58,10 +58,9 @@ from artgraph_tpu_torch.data.datasets import ArtGraphSingleTask
 from artgraph_tpu_torch.data.factories import get_class_weights, load_dataset
 from artgraph_tpu_torch.data.loader import DataLoader
 from artgraph_tpu_torch.models import ResNet50, ViT, ViTSingleTask, heads
-from artgraph_tpu_torch.ops import (attention, block_attention_bwd_plain,
-                                    conv_bn,
+from artgraph_tpu_torch.ops import (block_attention_bwd_plain, conv_bn,
                                     block_mlp_bwd_plain, fused_block_attention,
-                                    fused_block_mlp, mlp)
+                                    fused_block_mlp, launches)
 from artgraph_tpu_torch.train import (EarlyStopping, Trainer, adam,
                                       cross_entropy)
 from test_torch_cuda import block_inputs, torch_args
@@ -129,13 +128,14 @@ def test_autograd_function_gives_plain_backward(kind, dtype):
     tx, params = torch_args(x, gamma, beta, lin, tdt)
     tdo = torch.from_numpy(do).to(tdt)
     ref = plain(tx, *params[:5], tdo, *extra)
-    counts = (attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD)
+    bwd = ("fused_block_attention_bwd", "fused_block_mlp_bwd")
+    counts = tuple(launches.COUNTS[k] for k in bwd)
     tx.requires_grad_()
     for p in params:
         p.requires_grad_()
     out = op(tx, *params, *extra)
     out.backward(tdo)
-    assert (attention.LAUNCHES_BWD, mlp.LAUNCHES_BWD) == counts
+    assert tuple(launches.COUNTS[k] for k in bwd) == counts
     for name, t, r in zip(GRAD_NAMES, (tx, *params), ref):
         assert t.grad.dtype == r.dtype, name
         torch.testing.assert_close(t.grad, r, rtol=0, atol=0, msg=name)

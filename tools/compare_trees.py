@@ -57,7 +57,7 @@ import torch
 B, N, C, H, HIDDEN = 32, 197, 768, 12, 3072
 M = B * N
 # the ViT-B/16 GEMM calls: (what, layout, epilogue, M, N, K) with the
-# layouts and epilogues of ops/attention.py (NT 0, NN 1, TN 2; EPI_BIAS 0,
+# layouts and epilogues of ops/block_gemm.py (NT 0, NN 1, TN 2; EPI_BIAS 0,
 # _GELU 1, _RESIDUAL 2, _GELU_AUX 3, EPI_NONE 4, EPI_F32 5, EPI_DGELU 6)
 GEMMS = (
     ("qkv", 0, 0, M, 3 * C, C), ("proj", 0, 2, M, C, C),
@@ -145,6 +145,10 @@ def kernels(tree: str) -> None:
     from artgraph_tpu_torch.cli.predict import infer
     from artgraph_tpu_torch.models import ViTSingleTask, init_random_
     from artgraph_tpu_torch.ops import attention, conv_bn, mlp
+    try:
+        from artgraph_tpu_torch.ops.block_gemm import gemm_cuda
+    except ImportError:         # a tree from before ops/block_gemm.py
+        gemm_cuda = attention.gemm_cuda
 
     print(f"{tree}: port from {ops.__file__}", flush=True)
     rng = np.random.default_rng(0)
@@ -205,8 +209,8 @@ def kernels(tree: str) -> None:
             bias = dev(0.02 * rng.normal(size=n)) if epi <= 3 else None
             aux = (dev(rng.normal(size=(m, n)), torch.bfloat16)
                    if epi in (2, 6) else None)
-            t = _time_ms(lambda: attention.gemm_cuda(a, b, layout, epi,
-                                                     bias=bias, aux=aux))
+            t = _time_ms(lambda: gemm_cuda(a, b, layout, epi, bias=bias,
+                                           aux=aux))
             print(f"{tree}: gemm {what} M={m} N={n} K={k} {t:.4f} ms "
                   f"{2 * m * n * k / t / 1e9:.1f} TFLOP/s", flush=True)
             del a, b, bias, aux
